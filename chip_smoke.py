@@ -20,10 +20,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    launch count must equal what the path implies. Then 8 decode steps of a
    third request run under ``torch.profiler``: device-busy share and device
    time by kernel (the full table goes to ``chiprun_out/profile_decode.txt``).
-5. plain path: the same model at 2 layers of full width on one forced token
-   stream: the kernel path, and each kernel alone in the plain path, held
-   against ``impl="torch"`` (every op's plain version), with the plain path
-   in fp32 as the yardstick of all.
+5. int4 path: the same two requests and profile at full 7B width with int4
+   weights (``quantization="w4a8"``) and the token-planar int4 unique cache
+   (``kv_quant="int4"``; the shared level int8). Request 1's decode writes
+   the low nibble plane, request 2's the high plane over live low tokens.
+6. plain path: the w8a8 + int8-KV model at 2 layers of full width on one
+   forced token stream, and the w4a8 + int4-KV model over two requests whose
+   decode crosses into the high plane: the kernel path, and each kernel
+   alone in the plain path, held against ``impl="torch"`` (every op's plain
+   version), with the plain path in fp32 as the yardstick of all.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
@@ -35,6 +40,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -56,6 +62,9 @@ PROFILE_STEPS = 8
 
 TOL_REL = 2e-2  # kernel vs plain: max |err| / max |plain|, bf16 outputs
 TOL_LSE = 2e-2  # absolute, natural-log units
+# w4a8 in fp32 against its f32 oracle: the group sums are exact, only their
+# f32 summation order differs.
+TOL_W4A8 = 1e-5
 # 2-layer model: a kernel run's distance to the fp32 plain path against the
 # plain bf16 path's, as a ratio (see check_plain_path). At seed 0 on an H100
 # the RMS ratios read 1.000-1.013 and the largest-distance ratios 0.85-1.17.
@@ -149,6 +158,96 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
            "no scale epilogue)",
     )
 
+    # K1': the 2-D entry of K1's kernel (layer stride 0), through qmatmul,
+    # at the q projection's decode shape.
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.ops.quant import QuantizedTensor, qmatmul
+
+    w, ws, wt = weights["qkvo"]
+    x = torch.randn(BATCH, 1, H, device=dev, generator=g).to(torch.bfloat16)
+    a_q, a_s = gemm.quantize_rows(x.reshape(BATCH, H))
+    before = cuda_lib.LAUNCHES["w8a8_matmul"]
+    out = qmatmul(x, QuantizedTensor(w[0], ws[0]), "bth,hd->btd", impl="w8a8")
+    launched = cuda_lib.LAUNCHES["w8a8_matmul"] - before
+    ref = gemm.w8a8_reference(a_q, a_s, w[0], ws[0], out_dtype=torch.float32)
+    err, rel = rel_err(out.reshape(BATCH, H), ref)
+    ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul(a_q, a_s, w[i], ws[i]), NL))
+    pms = time_ms(Cycle(lambda i: gemm.w8a8_reference(a_q, a_s, w[i], ws[i]), NL), iters=5)
+    lms = time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
+    nbytes = BATCH * H + BATCH * 4 + H * H + H * 2 + BATCH * H * 2
+    bms, by = bound_ms(nbytes, 2 * BATCH * H * H, "int8")
+    record(f"w8a8_matmul (2-D entry via qmatmul) M={BATCH} N={H} K={H}",
+           rel <= TOL_REL and launched == 1,
+           f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} ms {ms:.4f} "
+           f"plain_ms {pms:.4f} int_mm_ms {lms:.4f} bound_ms {bms:.4f}")
+    report["w8a8_matmul"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+        at="2-D weight through qmatmul(impl='w8a8'), M=256 N=4096 K=4096 (library: "
+           "torch._int_mm, no scale epilogue); off both paths, whose LM head is "
+           "weight-only",
+    )
+    del weights
+
+    # K6: the int4 projections of one layer (group 128), at decode and at the
+    # shared prefill, then the 2-D entry. The JSON reports one decode layer.
+    weights4 = {}
+    for key, (N, K) in shapes.items():
+        qp = torch.randint(-128, 128, (NL, N, K // 2), dtype=torch.int8, device=dev,
+                           generator=g)
+        gs = (torch.rand(NL, K // 128, N, device=dev, generator=g) * 2e-3 + 1e-4
+              ).to(torch.bfloat16)
+        weights4[key] = (qp, gs)
+    k6 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, ops=0)
+    for M in (BATCH, SHARED_LEN):
+        for key, (N, K) in shapes.items():
+            qp, gs = weights4[key]
+            a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+            out = gemm.w4a8_matmul_cached(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+            ref = gemm.w4a8_cached_plain(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+            err, rel = rel_err(out, ref)
+            ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+            pms = time_ms(Cycle(lambda i: gemm.w4a8_cached_plain(i, a_q, a_s, qp, gs), NL),
+                          iters=5)
+            nbytes = M * K + M * 4 + N * K // 2 + (K // 128) * N * 2 + M * N * 2
+            ops = 2 * M * N * K
+            bms, _ = bound_ms(nbytes, ops, "int8")
+            record(
+                f"w4a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_W4A8,
+                f"max_abs_err {err:.4g} rel {rel:.3g} (fp32 out, tol {TOL_W4A8}) ms {ms:.4f} "
+                f"plain_ms {pms:.4f} bound_ms {bms:.4f} TOP/s {ops / ms / 1e9:.1f}",
+            )
+            if M == BATCH:
+                n = per_layer[key]
+                k6["ms"] += n * ms
+                k6["plain_ms"] += n * pms
+                k6["bytes"] += n * nbytes
+                k6["ops"] += n * ops
+                k6["err"] = max(k6["err"], err)
+    from hydragen_torch.ops.quant import Quantized4Tensor
+
+    qp, gs = weights4["qkvo"]
+    x = torch.randn(BATCH, 1, H, device=dev, generator=g).to(torch.bfloat16)
+    a_q, a_s = gemm.quantize_rows(x.reshape(BATCH, H))
+    before = cuda_lib.LAUNCHES["w4a8_matmul"]
+    out = qmatmul(x, Quantized4Tensor(qp[0], gs[0]), "bth,hd->btd", impl="w4a8")
+    launched = cuda_lib.LAUNCHES["w4a8_matmul"] - before
+    ref = gemm.w4a8_reference(a_q, a_s, qp[0], gs[0], out_dtype=torch.float32)
+    err, rel = rel_err(out.reshape(BATCH, H), ref)
+    ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul(a_q, a_s, qp[i], gs[i]), NL))
+    record(f"w4a8_matmul (2-D entry via qmatmul) M={BATCH} N={H} K={H}",
+           rel <= TOL_REL and launched == 1,
+           f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} ms {ms:.4f}")
+    bms, by = bound_ms(k6["bytes"], k6["ops"], "int8")
+    report["w4a8_matmul_cached"] = dict(
+        max_abs_err=k6["err"], ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=bms,
+        bound_by=by, library_ms=None,
+        at="sum of one decode layer's 7 int4 projections, M=256, group 128; the 2-D "
+           f"entry (w4a8_matmul, hydragen_tpu/ops/gemm.py:377) checked apart, {ms:.4f} ms "
+           "at N=K=4096 (library: none, no PyTorch call multiplies packed int4 weights "
+           "with group scales)",
+    )
+    del weights4
+
     # K2: the shared-level read of one decode layer: sb=1, 256 folded rows,
     # 2,048 int8 keys with per-token scales.
     NLV = 6
@@ -239,6 +338,72 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
         at="causal, 1x32 heads x 2048 x 128 bf16 (library: SDPA is_causal)",
     )
+    del qp, kp, vp, ck, cv, lk, lv
+
+    # K3 at kv_bits=4: the unique read of one int4-path decode layer at its
+    # last step: 256 rows, a 192-token window (S = 96 byte rows) with 190
+    # tokens written, so every row reads the high plane (lengths above S).
+    S4, filled4 = (SUFFIX_LEN + NEW_TOKENS) // 2, SUFFIX_LEN + NEW_TOKENS - 2
+    cshape = (NLU, BATCH, S4, hkv, d)
+    ck = torch.randint(-128, 128, cshape, dtype=torch.int8, device=dev, generator=g)
+    cv = torch.randint(-128, 128, cshape, dtype=torch.int8, device=dev, generator=g)
+    cks = torch.rand(NLU, BATCH, 2 * S4 * hkv, device=dev, generator=g) * 0.2 + 1e-2
+    cvs = torch.rand(NLU, BATCH, 2 * S4 * hkv, device=dev, generator=g) * 0.2 + 1e-2
+    ulens = torch.full((BATCH,), filled4, dtype=torch.int32, device=dev)
+    ulens[::7] = S4 + 1  # some rows one token past the plane boundary
+    kw = dict(kv_seq_lens=ulens, k_scale_all=cks, v_scale_all=cvs, own_kv=own,
+              shared_partial=sh, kv_bits=4)
+    o, lse = decode.decode_attention_cached(NLU - 1, qd, ck, cv, **kw)
+    po, plse = decode.decode_attention_cached_plain(NLU - 1, qd, ck, cv, **kw)
+    err, rel = rel_err(o, po)
+    lerr = float((lse - plse).abs().max())
+    ms = time_ms(Cycle(lambda i: decode.decode_attention_cached(i, qd, ck, cv, **kw), NLU))
+    pms = time_ms(Cycle(lambda i: decode.decode_attention_cached_plain(i, qd, ck, cv, **kw),
+                        NLU), iters=5)
+    tokens = int(ulens.sum())
+    rows_read = int(torch.clamp(ulens, max=S4).sum())
+    nbytes = (qd.numel() * 2 * 2 + 2 * rows_read * hkv * d + 2 * tokens * hkv * 4
+              + 2 * own[0].numel() * 2 + sh[0].numel() * 2 + 2 * BATCH * hq * 4 * 2)
+    ops = 4 * hq * d * (tokens + BATCH)
+    bms, by = bound_ms(nbytes, ops, "fp32")
+    record("decode_attention_cached kv_bits=4", rel <= TOL_REL and lerr <= TOL_LSE,
+           f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
+           f"plain_ms {pms:.4f} bound_ms {bms:.4f} (S={S4} byte rows, lengths "
+           f"{S4 + 1} and {filled4})")
+    report["decode_attention_cached_int4"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
+        at=f"b=256, int4 window of {2 * S4} tokens ({S4} byte rows), {filled4} written "
+           f"(every 7th row {S4 + 1}), own token + shared partial (library: none, no "
+           "single call reads packed int4 or returns the LSE this merge needs)",
+    )
+
+    # K7: the int4 decode write of one layer at the path's shapes, bit-exact
+    # against its plain version at a low-plane slot and a high-plane slot.
+    ok7, ms7 = True, []
+    for slot in (S4 // 2, S4 + 7):
+        kv = [torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).mul(2).to(torch.bfloat16)
+              for _ in range(2)]
+        bufs = [ck, cv, cks, cvs]
+        plain = [t.clone() for t in bufs]
+        decode.write_token_int4_cached(NLU - 1, *kv, *bufs, slot)
+        decode.write_token_int4_cached_plain(NLU - 1, *kv, *plain, slot)
+        exact = all(torch.equal(a, b) for a, b in zip(bufs, plain))
+        ok7 = ok7 and exact
+        ms7.append(time_ms(Cycle(lambda i: decode.write_token_int4_cached(
+            i, *kv, *bufs, slot), NLU)))
+        pms7 = time_ms(Cycle(lambda i: decode.write_token_int4_cached_plain(
+            i, *kv, *plain, slot), NLU), iters=5)
+        record(f"write_token_int4_cached slot {slot} ({'high' if slot >= S4 else 'low'} "
+               f"plane)", exact, f"bit-exact {exact} ms {ms7[-1]:.4f} plain_ms {pms7:.4f}")
+    nbytes = 2 * kv[0].numel() * 2 + 2 * 2 * BATCH * hkv * d + 2 * BATCH * hkv * 4
+    bms, by = bound_ms(nbytes, 0, "fp32")
+    report["write_token_int4_cached"] = dict(
+        max_abs_err=0.0 if ok7 else float("nan"), ms=max(ms7), plain_ms=pms7, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        at="one layer's K and V token, b=256, 32 heads x 128, into 96 byte rows; the "
+           "slower of a low-plane and a high-plane slot (library: none, no PyTorch call "
+           "quantizes to int4 and merges nibbles)",
+    )
 
 
 def expected_launches(L: int, T: int) -> dict:
@@ -256,25 +421,53 @@ def expected_launches(L: int, T: int) -> dict:
     }
 
 
-def drive_main_path(args, failures: list) -> dict:
+def expected_launches_int4(L: int, T: int) -> dict:
+    """The same two requests on the int4 path: every projection on the w4a8
+    GEMM (the LM head stays weight-only int8), the int8 shared level read by
+    K2, the unique read by K3 at kv_bits=4, and each decode layer's K and V
+    token written by one int4 write launch (the in-place decode path writes
+    each layer right after its read), T-1 steps a request."""
+    return {
+        "w4a8_matmul_cached": 2 * 7 * L * T,
+        "flash_attention_cached_bhsd": L * (T - 1) + L * T,
+        "decode_attention_cached_int4": 2 * L * (T - 1),
+        "write_token_int4_cached": 2 * L * (T - 1),
+        "flash_attention_bhsd": 2 * L,
+    }
+
+
+# name: (tag, quantization, kv_quant, expected launches, profile groups)
+PATHS = {
+    "main": ("main", "w8a8", "int8", expected_launches,
+             ("w8a8_kernel", "flash_kernel", "decode_kernel")),
+    "int4": ("int4", "w4a8", "int4", expected_launches_int4,
+             ("w4a8_kernel", "flash_kernel", "decode_kernel", "write_int4_kernel")),
+}
+
+
+def drive_path(args, failures: list, path: str) -> dict:
+    """Drive one configuration's two requests at full 7B width with the
+    counts set to 0 just before and read just after; then profile 8 decode
+    steps. Returns the launch counts of the two requests."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
     from hydragen_torch.ops import cuda_lib
 
+    tag, quant, kv_quant, expected, groups = PATHS[path]
     cfg = PRESETS["llama-2-7b"]
     T = NEW_TOKENS
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
-    params = init_params(cfg, g, quantized="w8a8", device="cuda")
-    eng = HydragenLlama(cfg, params, quantization="w8a8")
-    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant="int8")
+    params = init_params(cfg, g, quantized=quant, device="cuda")
+    eng = HydragenLlama(cfg, params, quantization=quant)
+    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant=kv_quant)
     prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
     suffixes = torch.randint(1, cfg.vocab_size, (BATCH, SUFFIX_LEN), generator=g,
                              device="cuda")
     torch.cuda.synchronize()
-    print(f"[main] llama-2-7b width, {cfg.num_hidden_layers} layers, w8a8 + int8 KV: "
-          f"set-up {time.perf_counter() - t0:.2f} s, "
+    print(f"[{tag}] llama-2-7b width, {cfg.num_hidden_layers} layers, {quant} + {kv_quant} "
+          f"KV: set-up {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
 
     # Time the decode loop apart from the prefills.
@@ -309,38 +502,39 @@ def drive_main_path(args, failures: list) -> dict:
     torch.cuda.synchronize()
     stats["request2_s"] = time.perf_counter() - t
     stats["request2_decode_s"] = decode_s[0] - stats["request1_decode_s"]
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
 
     decoded = BATCH * (T - 1)
     stats["decode_tok_s_request1"] = decoded / stats["request1_decode_s"]
     stats["decode_tok_s_request2"] = decoded / stats["request2_decode_s"]
     stats["decode_ms_per_step"] = 1e3 * decode_s[0] / (2 * (T - 1))
-    print(f"[main] {json.dumps(stats)}", flush=True)
-    print(f"[main] launches {json.dumps(launches)}", flush=True)
-    want = expected_launches(cfg.num_hidden_layers, T)
+    print(f"[{tag}] {json.dumps(stats)}", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    want = expected(cfg.num_hidden_layers, T)
     if launches != want:
-        failures.append(f"main path launches {launches} != expected {want}")
+        failures.append(f"{tag} path launches {launches} != expected {want}")
     for name, toks in (("request 1", toks1), ("request 2", toks2)):
         ok = (tuple(toks.shape) == (BATCH, T) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.vocab_size)
-        print(f"[main] {name} tokens {tuple(toks.shape)} in range: {ok}", flush=True)
+        print(f"[{tag}] {name} tokens {tuple(toks.shape)} in range: {ok}", flush=True)
         if not ok:
-            failures.append(f"main path {name}: tokens {tuple(toks.shape)} out of range")
+            failures.append(f"{tag} path {name}: tokens {tuple(toks.shape)} out of range")
     finite = all(bool(torch.isfinite(x).all()) for x in logits1)
     if not finite or len(logits1) != T:
-        failures.append(f"main path: {len(logits1)} logit steps, finite={finite}")
-    print(f"[main] request 1: {len(logits1)} logit steps, all finite: {finite}", flush=True)
+        failures.append(f"{tag} path: {len(logits1)} logit steps, finite={finite}")
+    print(f"[{tag}] request 1: {len(logits1)} logit steps, all finite: {finite}", flush=True)
     del logits1
-    profile_decode(eng, decode_steps, suffixes, PROFILE_STEPS)
+    profile_decode(eng, decode_steps, suffixes, PROFILE_STEPS, tag, groups)
     return launches
 
 
-def profile_decode(eng, decode_steps, suffixes, steps: int) -> None:
+def profile_decode(eng, decode_steps, suffixes, steps: int, tag: str, names) -> None:
     """One more request over the kept prompt, its decode loop under
     torch.profiler: device-busy share of the loop's wall time and the
-    kernels by device time. The profiler's own host cost lengthens the
-    wall time, so the idle share read here is an upper bound. The full
-    table goes to chiprun_out/profile_decode.txt."""
+    kernels by device time, grouped by the kernel ``names`` (the rest is
+    "other"). The profiler's own host cost lengthens the wall time, so the
+    idle share read here is an upper bound. The full table goes to
+    chiprun_out/profile_decode.txt (main path) or profile_decode_<tag>.txt."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -372,22 +566,23 @@ def profile_decode(eng, decode_steps, suffixes, steps: int) -> None:
         by_name[e.name][1] += 1
     groups = defaultdict(float)
     for name, (us, _) in by_name.items():
-        key = next((k for k in ("w8a8_kernel", "flash_kernel", "decode_kernel") if k in name),
-                   "other")
+        key = next((k for k in names if k in name), "other")
         groups[key] += us
-    print(f"[profile] {steps} decode steps: wall {wall / steps / 1e3:.3f} ms/step, device "
+    print(f"[profile {tag}] {steps} decode steps: wall {wall / steps / 1e3:.3f} ms/step, device "
           f"busy {busy / steps / 1e3:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
           f"{len(kernels) / steps:.0f} kernels/step", flush=True)
-    print(f"[profile] device ms/step by kernel: " + json.dumps(
+    print(f"[profile {tag}] device ms/step by kernel: " + json.dumps(
         {k: round(v / steps / 1e3, 4) for k, v in sorted(groups.items(), key=lambda x: -x[1])}),
         flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:12]:
-        print(f"[profile]   {us / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  {name[:90]}",
+        print(f"[profile {tag}]   {us / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  "
+              f"{name[:90]}",
               flush=True)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    (out / "profile_decode.txt").write_text(table)
+    (out / ("profile_decode.txt" if tag == "main" else f"profile_decode_{tag}.txt")
+     ).write_text(table)
 
 
 @contextlib.contextmanager
@@ -399,9 +594,11 @@ def only_kernel(keep: str | None):
 
     swaps = {
         "w8a8_matmul_cached": (gemm, gemm.w8a8_cached_plain),
+        "w4a8_matmul_cached": (gemm, gemm.w4a8_cached_plain),
         "flash_attention_cached_bhsd": (flash, flash.flash_attention_cached_plain),
         "decode_attention_cached": (decode, decode.decode_attention_cached_plain),
         "flash_attention_bhsd": (flash, flash.flash_attention_bhsd_plain),
+        "write_token_int4_cached": (decode, decode.write_token_int4_cached_plain),
     }
     saved = []
     for name, (mod, plain) in swaps.items():
@@ -420,59 +617,84 @@ def rms_rel(out, ref) -> float:
     return float((out - ref).norm() / ref.norm().clamp_min(1e-6))
 
 
-def check_plain_path(args, failures: list) -> None:
+# The two configurations of the plain-path check: quantization, kv_quant and
+# the kernels run alone (K3 reads int4 in the int4 configuration).
+PLAIN_PATHS = {
+    "w8a8": ("w8a8", "int8", ("w8a8_matmul_cached", "flash_attention_cached_bhsd",
+                              "decode_attention_cached", "flash_attention_bhsd")),
+    "int4": ("w4a8", "int4", ("w4a8_matmul_cached", "decode_attention_cached",
+                              "write_token_int4_cached")),
+}
+
+
+def check_plain_path(args, failures: list, path: str) -> None:
     """The kernel path against impl="torch" at 2 layers of full width, on
     one forced token stream, so all runs read the same tokens.
+
+    "w8a8": one request, a 2,048-token shared prompt and 256 rows, 3 forced
+    steps. "int4": the same prompt prefilled by a first request, then 256
+    7-token suffixes over it and 4 forced steps: the 16-token unique window
+    has S = 8 byte rows, the suffix prefill (padded to the window) packs
+    both planes, and decode writes slot 7 (low plane) then 8 and 9 (high
+    plane) and reads lengths 7, 8 and 9, on both sides of S.
 
     The bf16 runs drift from one another by more than any one kernel's
     rounding: each per-row int8 quantization of an activation turns a
     last-bit difference upstream into a whole code. The yardstick is
-    therefore the plain path in fp32 over the same int8 weights and KV. Each
-    bf16 kernel run (all four kernels, and each kernel alone with the other
-    three on their plain versions) must come as close to it as the plain bf16
-    run does: its RMS distance within TOL_RMS times the plain run's, its
-    largest distance within TOL_MAX times. A wrong kernel shows in its own
-    swap run."""
+    therefore the plain path in fp32 over the same quantized weights and KV.
+    Each bf16 kernel run (all kernels, and each kernel alone with the others
+    on their plain versions) must come as close to it as the plain bf16 run
+    does: its RMS distance within TOL_RMS times the plain run's, its largest
+    distance within TOL_MAX times. A wrong kernel shows in its own swap
+    run."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
 
+    quant, kv_quant, kernels = PLAIN_PATHS[path]
+    tag = f"plain {path}"
     cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=2)
     g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    params = init_params(cfg, g, quantized="w8a8", device="cuda")
+    params = init_params(cfg, g, quantized=quant, device="cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
-    forced = torch.randint(1, cfg.vocab_size, (BATCH, 3), generator=g, device="cuda")
+    suffixes = torch.randint(1, cfg.vocab_size, (BATCH, 7), generator=g, device="cuda")
+    steps = 3 if path == "w8a8" else 4
+    forced = torch.randint(1, cfg.vocab_size, (BATCH, steps), generator=g, device="cuda")
 
-    def fp32(tree):  # int8 payloads and their bf16 scales stay as they are
+    def fp32(tree):  # quantized payloads and their bf16 scales stay as they are
         if isinstance(tree, dict):
             return {k: fp32(v) for k, v in tree.items()}
         return tree if isinstance(tree, tuple) else tree.float()
 
-    kernels = ("w8a8_matmul_cached", "flash_attention_cached_bhsd",
-               "decode_attention_cached", "flash_attention_bhsd")
     runs = {
         "fp32": (dataclasses.replace(cfg, dtype="float32"), fp32(params), "torch", None),
         "plain": (cfg, params, "torch", None),
         "kernel": (cfg, params, None, None),
         **{f"only {k}": (cfg, params, None, k) for k in kernels},
     }
+    kw = dict(temperature=0.0, return_logits=True, token_overrides=forced)
     logits = {}
     for name, (c, p, impl, keep) in runs.items():
-        eng = HydragenLlama(c, p, impl=impl, quantization="w8a8")
-        eng.setup_caches(BATCH, 16, [1], [SHARED_LEN], kv_quant="int8")
+        eng = HydragenLlama(c, p, impl=impl, quantization=quant)
+        eng.setup_caches(BATCH, 16, [1], [SHARED_LEN], kv_quant=kv_quant)
         with only_kernel(keep):
-            _, lg = eng.generate(
-                input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=3,
-                temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, return_logits=True,
-                token_overrides=forced,
-            )
+            if path == "w8a8":
+                _, lg = eng.generate(input_ids=[prompt], num_return_sequences=BATCH,
+                                     max_new_tokens=steps,
+                                     shared_cache_op=SharedCacheOp.WIPE, **kw)
+            else:
+                eng.generate(input_ids=[prompt], num_return_sequences=BATCH,
+                             max_new_tokens=1, temperature=0.0,
+                             shared_cache_op=SharedCacheOp.WIPE)
+                _, lg = eng.generate(input_ids=[suffixes], max_new_tokens=steps,
+                                     shared_cache_op=SharedCacheOp.PRESERVE, **kw)
         logits[name] = [x.float() for x in lg]
         del eng, lg
-    for step in range(3):
+    for step in range(steps):
         ref = logits["fp32"][step]
         p_rms, (_, p_max) = rms_rel(logits["plain"][step], ref), rel_err(
             logits["plain"][step], ref)
-        print(f"[plain] 2-layer logits step {step}: plain bf16 vs fp32 rms {p_rms:.4g} "
+        print(f"[{tag}] 2-layer logits step {step}: plain bf16 vs fp32 rms {p_rms:.4g} "
               f"max {p_max:.4g}", flush=True)
         for name in ("kernel", *(f"only {k}" for k in kernels)):
             out = logits[name][step]
@@ -480,11 +702,11 @@ def check_plain_path(args, failures: list) -> None:
             agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
             ok = (k_rms <= TOL_RMS * p_rms and k_max <= TOL_MAX * p_max
                   and bool(torch.isfinite(out).all()))
-            print(f"[plain]   {name} vs fp32: rms {k_rms:.4g} ({k_rms / p_rms:.3f} x plain, "
+            print(f"[{tag}]   {name} vs fp32: rms {k_rms:.4g} ({k_rms / p_rms:.3f} x plain, "
                   f"tol {TOL_RMS}) max {k_max:.4g} ({k_max / p_max:.3f} x, tol {TOL_MAX}) "
                   f"argmax agreement {agree:.4f} -> {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append(f"plain-path logits step {step}, {name}: rms {k_rms:.4g} / "
+                failures.append(f"{tag} logits step {step}, {name}: rms {k_rms:.4g} / "
                                 f"max {k_max:.4g} against plain bf16's {p_rms:.4g} / "
                                 f"{p_max:.4g}")
 
@@ -521,11 +743,13 @@ def main() -> int:
           f"wall {time.perf_counter() - t:.2f} s into {cuda_lib.build_dir()}", flush=True)
 
     report: dict = {}
-    launches: dict = {}
+    launches: dict = {"main": {}, "int4": {}}
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
-        ("main path", lambda: launches.update(drive_main_path(args, failures))),
-        ("plain path", lambda: check_plain_path(args, failures)),
+        ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
+        ("int4 path", lambda: launches["int4"].update(drive_path(args, failures, "int4"))),
+        ("plain path", lambda: check_plain_path(args, failures, "w8a8")),
+        ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
     )
     for name, phase in phases:
         t = time.perf_counter()
@@ -534,26 +758,41 @@ def main() -> int:
         except Exception:  # a failed phase fails the run; the others still report
             traceback.print_exc()
             failures.append(f"phase {name} raised")
+        # A phase's engine is freed before the next one starts: its timing
+        # wrappers make a reference cycle that only the collector breaks.
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         print(f"[phase] {name}: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # name: (source, TPU call site, the path whose launches it reports: None
+    # for an entry neither path reaches)
     sources = {
-        "w8a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222"),
-        "flash_attention_cached_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:924"),
-        "decode_attention_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:616"),
-        "flash_attention_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:608"),
+        "w8a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222", "main"),
+        "w8a8_matmul": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:118", None),
+        "flash_attention_cached_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:924",
+                                        "main"),
+        "decode_attention_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:616",
+                                    "main"),
+        "decode_attention_cached_int4": ("csrc/decode.cu",
+                                         "hydragen_tpu/ops/decode.py:616", "int4"),
+        "flash_attention_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:608", "main"),
+        "w4a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:495", "int4"),
+        "write_token_int4_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:729",
+                                    "int4"),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in sources.items():
         r = report.get(name)
-        if r is None or name not in launches:
-            failures.append(f"no measurement or launch count for {name}")
+        if r is None:
+            failures.append(f"no measurement for {name}")
             continue
-        if launches[name] < 1:
-            failures.append(f"{name} never launched on the main path")
+        n = launches[path].get(name, 0) if path else 0
+        if path and n < 1:
+            failures.append(f"{name} never launched on the {path} path")
+        by_path = {p: launches[p].get(name, 0) for p in launches}
         kernels.append(dict(name=name, route="cuda", source=f"hydragen_torch/{src}",
-                            replaces=replaces, launches=launches[name], **r))
+                            replaces=replaces, launches=n, launches_by_path=by_path, **r))
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

@@ -4,7 +4,7 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 A port of ``hydragen_tpu`` (the JAX/Pallas package beside it, which stays
 the reference): exact shared-prefix attention decomposition with
 inter-sequence batching over multi-level prefix hierarchies, the Llama stack,
-int8 / w8a8 weights and an int8 KV cache. The kernels live in ``csrc/`` and
+int8 / w8a8 / int4 / w4a8 weights and an int8 or token-planar int4 KV cache. The kernels live in ``csrc/`` and
 are built with ``nvcc`` at first use; importing this package builds nothing.
 """
 

@@ -7,7 +7,10 @@ and scale layouts are the JAX package's, so caches compare tensor by tensor:
 - the unique cache is ``[L, B, hkv, U, hd]`` (BHSD) or ``[L, B, U, hkv, hd]``
   (BSHD, ``unique_bshd``), with scales ``[L, B, hkv, U]``, ``[L, B, U,
   hkv]`` or flat lane-major ``[L, B, U*hkv]`` (``flat_scales``; the decode
-  kernel's layout).
+  kernel's layout);
+- at ``unique_bits=4`` the unique payload is token-planar int4: U/2 byte
+  rows, byte row j holding token j in its low nibble and token j + U/2 in
+  its high nibble, while the scales keep all U logical tokens.
 
 Where the JAX package returns a new cache from a functional
 ``dynamic_update_slice``, these writers update the buffers IN PLACE and
@@ -22,14 +25,25 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from hydragen_torch.ops.quant import quantize_kv
+from hydragen_torch.ops import decode as decode_ops
+from hydragen_torch.ops.quant import nibble_merge, quantize_kv, quantize_kv4
 
 
-def _maybe_quantize(x: torch.Tensor, quantized: bool):
-    """-> (payload, scale|None) in the cache's storage format."""
+def _maybe_quantize(x: torch.Tensor, quantized: bool, bits: int = 8):
+    """-> (payload, scale|None) in the cache's storage format. ``bits=4``
+    returns UNPACKED int4 values (``quantize_kv4``); the write paths pack
+    them along the token axis."""
     if quantized:
-        return quantize_kv(x)
+        return quantize_kv4(x) if bits == 4 else quantize_kv(x)
     return x, None
+
+
+def _nibble_rmw(buf: torch.Tensor, q4_val: torch.Tensor, idx, is_hi: bool):
+    """Write one decode token's int4 values as a NIBBLE of the byte rows at
+    ``idx`` (a tuple of indices and slices of ``buf``), in place: the
+    low-plane write clears the stale high partner; the high-plane write
+    merges over the live low partner."""
+    buf[idx] = nibble_merge(buf[idx], q4_val, is_hi)
 
 
 class SharedLevel(NamedTuple):
@@ -66,6 +80,9 @@ class KVCache:
     unique_v_scale: Optional[torch.Tensor] = None
     unique_bshd: bool = False
     flat_scales: bool = False
+    # Unique payload precision when quantized: 8, or 4 (token-planar nibble
+    # pack: the payload's token dim is half the logical length).
+    unique_bits: int = 8
 
     @property
     def max_unique_batch_size(self) -> int:
@@ -73,6 +90,13 @@ class KVCache:
 
     @property
     def max_unique_seq_len(self) -> int:
+        """LOGICAL token capacity (int4 stores two tokens per byte row)."""
+        rows = self.unique_k.shape[2 if self.unique_bshd else 3]
+        return rows * 2 if self.unique_bits == 4 else rows
+
+    @property
+    def unique_rows(self) -> int:
+        """Payload rows of the token dim (byte rows at int4)."""
         return self.unique_k.shape[2 if self.unique_bshd else 3]
 
     @property
@@ -93,6 +117,7 @@ def allocate_cache(
     unique_bshd: Optional[bool] = None,
     flat_scales: Optional[bool] = None,
     shared_quantized: Optional[bool] = None,
+    unique_bits: int = 8,
     device=None,
 ) -> KVCache:
     """Allocate zeroed cache buffers.
@@ -100,9 +125,16 @@ def allocate_cache(
     ``unique_bshd`` None = the JAX package's rule: BSHD iff one token's KV of
     all heads is a whole number of 4 KiB (``hkv * hd * itemsize % 4096 ==
     0``). ``flat_scales`` None = on for a quantized BSHD unique cache.
-    ``shared_quantized`` None = follow ``quantized``.
+    ``shared_quantized`` None = follow ``quantized``. ``unique_bits=4``
+    (quantized only) stores the unique payload as token-planar int4: the
+    length is rounded up to even and the payload holds half as many byte
+    rows, while the scales cover every logical token.
     """
     assert len(max_shared_batch_sizes) == len(max_shared_seq_lengths)
+    assert unique_bits in (8, 4) and (unique_bits == 8 or quantized)
+    if unique_bits == 4:
+        max_unique_seq_length = -(-max_unique_seq_length // 2) * 2
+    unique_rows = max_unique_seq_length // 2 if unique_bits == 4 else max_unique_seq_length
     itemsize = 1 if quantized else torch.empty((), dtype=dtype).element_size()
     if unique_bshd is None:
         unique_bshd = (num_kv_heads * head_dim * itemsize) % 4096 == 0
@@ -112,10 +144,12 @@ def allocate_cache(
     if shared_quantized is None:
         shared_quantized = quantized
 
-    def bufs(b, s, bshd=False, flat=False, quant=quantized):
+    def bufs(b, s, bshd=False, flat=False, quant=quantized, rows=None):
+        # rows: payload token rows (int4: s // 2); scales cover all s tokens.
+        rows = s if rows is None else rows
         shape = (
-            (num_layers, b, s, num_kv_heads, head_dim) if bshd
-            else (num_layers, b, num_kv_heads, s, head_dim)
+            (num_layers, b, rows, num_kv_heads, head_dim) if bshd
+            else (num_layers, b, num_kv_heads, rows, head_dim)
         )
         k = torch.zeros(shape, dtype=torch.int8 if quant else dtype, device=device)
         sc = None
@@ -130,7 +164,7 @@ def allocate_cache(
         return k, torch.zeros_like(k), sc, None if sc is None else torch.zeros_like(sc)
 
     uk, uv, uks, uvs = bufs(max_unique_batch_size, max_unique_seq_length,
-                            bshd=unique_bshd, flat=flat_scales)
+                            bshd=unique_bshd, flat=flat_scales, rows=unique_rows)
     shared = []
     for sb, sl in zip(max_shared_batch_sizes, max_shared_seq_lengths):
         k, v, ks, vs = bufs(sb, sl, quant=shared_quantized)
@@ -141,6 +175,7 @@ def allocate_cache(
     return KVCache(
         unique_k=uk, unique_v=uv, shared=tuple(shared), unique_k_scale=uks,
         unique_v_scale=uvs, unique_bshd=unique_bshd, flat_scales=flat_scales,
+        unique_bits=unique_bits,
     )
 
 
@@ -202,20 +237,44 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
     ``[row_start, row_start+b)``, in place.
 
     k, v: ``[L, b, hkv, t, hd]`` or pre-quantized ``(payload, scale)`` pairs
-    (scale ``[L, b, hkv, t]``).
+    (scale ``[L, b, hkv, t]``; at int4 the payload holds unpacked int4
+    values).
     """
     if isinstance(k, tuple):
         assert cache.quantized
         (kq, ks), (vq, vs) = k, v
     else:
-        kq, ks = _maybe_quantize(k, cache.quantized)
-        vq, vs = _maybe_quantize(v, cache.quantized)
+        kq, ks = _maybe_quantize(k, cache.quantized, cache.unique_bits)
+        vq, vs = _maybe_quantize(v, cache.quantized, cache.unique_bits)
     L, bb, hkv, t = kq.shape[:4]
     rows = slice(row_start, row_start + bb)
-    toks = slice(start, start + t)
+    toks = ptoks = slice(start, start + t)  # scale tokens, payload token rows
+    if cache.unique_bits == 4:
+        # Token-planar nibble pack from position 0: byte row j <- token j
+        # (low) and token j + sp (high). Rows with no high token in range get
+        # their stale high nibble cleared (those tokens stay masked until
+        # their own write). The payloads then span min(t, sp) byte rows; the
+        # scales keep all t logical tokens.
+        assert start == 0, "int4 unique KV requires prefill at position 0"
+        sp = cache.unique_rows
+        assert t <= 2 * sp, (t, sp)
+
+        def pack_layer(q4):  # [b, hkv, t, hd] -> [b, hkv, min(t, sp), hd]
+            q32 = q4.to(torch.int32)
+            lo = q32[:, :, :min(t, sp)] & 0xF
+            if t > sp:
+                both = lo[:, :, :t - sp] | (q32[:, :, sp:] << 4)
+                lo = torch.cat([both, lo[:, :, t - sp:]], dim=2)
+            return lo.to(torch.int8)
+
+        def pack_t(q4):  # layer by layer: the int32 transient stays one layer's
+            return torch.stack([pack_layer(x) for x in q4])
+
+        kq, vq = pack_t(kq), pack_t(vq)
+        ptoks = slice(0, kq.shape[3])
     if cache.unique_bshd:
-        cache.unique_k[:, rows, toks] = kq.transpose(2, 3).to(cache.unique_k.dtype)
-        cache.unique_v[:, rows, toks] = vq.transpose(2, 3).to(cache.unique_v.dtype)
+        cache.unique_k[:, rows, ptoks] = kq.transpose(2, 3).to(cache.unique_k.dtype)
+        cache.unique_v[:, rows, ptoks] = vq.transpose(2, 3).to(cache.unique_v.dtype)
         if ks is not None:
             if cache.flat_scales:
                 # [L, b, hkv, t] -> token-major head-minor [L, b, t*hkv].
@@ -226,8 +285,8 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
                 cache.unique_k_scale[:, rows, toks] = ks.transpose(2, 3)
                 cache.unique_v_scale[:, rows, toks] = vs.transpose(2, 3)
     else:
-        cache.unique_k[:, rows, :, toks] = kq.to(cache.unique_k.dtype)
-        cache.unique_v[:, rows, :, toks] = vq.to(cache.unique_v.dtype)
+        cache.unique_k[:, rows, :, ptoks] = kq.to(cache.unique_k.dtype)
+        cache.unique_v[:, rows, :, ptoks] = vq.to(cache.unique_v.dtype)
         if ks is not None:
             cache.unique_k_scale[:, rows, :, toks] = ks
             cache.unique_v_scale[:, rows, :, toks] = vs
@@ -235,18 +294,23 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
 
 
 def update_unique_decode(cache: KVCache, positions: torch.Tensor, k, v,
-                         uniform: int | None = None) -> KVCache:
+                         uniform: int | None = None, plain: bool = False) -> KVCache:
     """Write one decode-step token per row at per-row ``positions``, in place.
 
     positions: ``[b]`` int. k, v: ``[L, b, hkv, 1, hd]``. ``uniform``: the
-    host-known position shared by all rows (a contiguous slice write), or
-    None for the per-row scatter.
+    host-known position shared by all rows (a contiguous slice write, layer
+    by layer through :func:`write_decode_token_layer`), or None for the
+    per-row scatter, which an int4 cache refuses (a sub-byte scatter).
+    ``plain``: the int4 write's plain version on any device.
     """
     if uniform is not None:
         L, b = k.shape[:2]
         for li in range(L):
-            write_decode_token_layer(cache, li, k[li], v[li], uniform)
+            write_decode_token_layer(cache, li, k[li], v[li], uniform, plain=plain)
         return cache
+    if cache.unique_bits == 4:
+        raise ValueError("int4 unique KV supports only uniform decode positions (ragged "
+                         "suffix lengths need sub-byte scatters)")
     kq, ks = _maybe_quantize(k, cache.quantized)
     vq, vs = _maybe_quantize(v, cache.quantized)
     b, hkv = k.shape[1], k.shape[2]
@@ -276,10 +340,18 @@ def update_unique_decode(cache: KVCache, positions: torch.Tensor, k, v,
     return cache
 
 
-def write_decode_token_layer(cache: KVCache, layer: int, k, v, slot: int) -> KVCache:
+def write_decode_token_layer(cache: KVCache, layer: int, k, v, slot: int,
+                             plain: bool = False) -> KVCache:
     """Write ONE layer's single decode token at the uniform ``slot``, in
-    place. k, v: ``[b, hkv, 1, hd]``."""
+    place. k, v: ``[b, hkv, 1, hd]``.
+
+    An int4 BSHD cache with flat scales (the layout the decode kernel reads)
+    is written by ``write_token_int4_cached``: its kernel on a CUDA tensor,
+    or its plain version on a CPU tensor or with ``plain``. Other int4
+    layouts take the same nibble read-modify-write in plain PyTorch."""
     assert 0 <= slot < cache.max_unique_seq_len, (slot, cache.max_unique_seq_len)
+    if cache.unique_bits == 4:
+        return _write_decode_token_layer4(cache, layer, k, v, slot, plain)
     kq, ks = _maybe_quantize(k, cache.quantized)
     vq, vs = _maybe_quantize(v, cache.quantized)
     b, hkv = k.shape[0], k.shape[1]
@@ -300,6 +372,36 @@ def write_decode_token_layer(cache: KVCache, layer: int, k, v, slot: int) -> KVC
         if ks is not None:
             cache.unique_k_scale[layer, :b, :, slot] = ks[:, :, 0]
             cache.unique_v_scale[layer, :b, :, slot] = vs[:, :, 0]
+    return cache
+
+
+def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: int,
+                               plain: bool) -> KVCache:
+    """The int4 branch of :func:`write_decode_token_layer`: one token is one
+    NIBBLE of byte row ``slot % sp``, the high plane from ``slot >= sp`` on
+    (over the live low token ``slot - sp``), the low plane below (the stale
+    high partner cleared)."""
+    if cache.unique_bshd and cache.flat_scales:
+        write = decode_ops.write_token_int4_cached_plain if plain \
+            else decode_ops.write_token_int4_cached
+        write(layer, k, v, cache.unique_k, cache.unique_v, cache.unique_k_scale,
+              cache.unique_v_scale, slot)
+        return cache
+    kq, ks = quantize_kv4(k)
+    vq, vs = quantize_kv4(v)
+    b = k.shape[0]
+    sp = cache.unique_rows
+    row, is_hi = slot % sp, slot >= sp
+    for buf, q4 in ((cache.unique_k, kq), (cache.unique_v, vq)):
+        idx = (layer, slice(0, b), row) if cache.unique_bshd \
+            else (layer, slice(0, b), slice(None), row)
+        _nibble_rmw(buf, q4[:, :, 0], idx, is_hi)
+    if cache.unique_bshd:
+        cache.unique_k_scale[layer, :b, slot] = ks[:, :, 0]
+        cache.unique_v_scale[layer, :b, slot] = vs[:, :, 0]
+    else:
+        cache.unique_k_scale[layer, :b, :, slot] = ks[:, :, 0]
+        cache.unique_v_scale[layer, :b, :, slot] = vs[:, :, 0]
     return cache
 
 

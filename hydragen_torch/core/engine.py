@@ -132,16 +132,34 @@ class HydragenLlama:
     ):
         self.device = resolve_device(device)
         if quantization is not None:
-            assert quantization in ("int8", "w8a8"), f"unknown quantization {quantization!r}"
-            if not is_quantized_params(params):
-                from hydragen_torch.ops.quant import quantize_params
+            from hydragen_torch.ops.quant import (
+                Quantized4Tensor,
+                QuantizedTensor,
+                quantize_params,
+            )
 
-                params = quantize_params(params, pad_mlp=quantization == "w8a8")
+            assert quantization in ("int8", "w8a8", "int4", "w4a8", "mixed"), (
+                f"unknown quantization {quantization!r}")
+            bits = 4 if quantization in ("int4", "w4a8") else 8
+            want = Quantized4Tensor if bits == 4 else QuantizedTensor
+            if not isinstance(params["layers"]["wq"], want):
+                assert not is_quantized_params(params), (
+                    f"params already quantized at a different width than {quantization!r}")
+                # "mixed": int8 weights with an int4 ``down`` (the K-heavy
+                # projection).
+                params = quantize_params(
+                    params, bits=bits, pad_mlp=quantization in ("w8a8", "w4a8", "mixed"),
+                    bits4_families=("down",) if quantization == "mixed" else (),
+                )
         self.config = config
         self.params = _params_to(params, self.device)
         self.impl = impl
-        # "w8a8": activations quantized per row and products on the s8 GEMM.
-        self.matmul_impl = "w8a8" if quantization == "w8a8" else "dq"
+        # "w8a8"/"w4a8": activations quantized per row and products on the s8
+        # GEMMs ("mixed" runs w8a8, whose int4 family goes to w4a8).
+        self.matmul_impl = (
+            "w8a8" if quantization == "mixed"
+            else quantization if quantization in ("w8a8", "w4a8") else "dq"
+        )
         self.cache: Optional[KVCache] = None
         self.num_used_levels = 0
         self.level_filled: List[int] = []
@@ -168,21 +186,25 @@ class HydragenLlama:
         shared_kv_quant: str = "follow",
     ):
         """Allocate all cache buffers. ``kv_quant="int8"`` stores payloads
-        int8 with per-(token, head) f32 scales; ``shared_kv_quant`` "follow"
-        (levels match kv_quant), "none" or "int8"."""
-        assert kv_quant in (None, "int8"), f"unknown kv_quant {kv_quant!r}"
+        int8 with per-(token, head) f32 scales; ``"int4"`` nibble-packs the
+        UNIQUE cache along the token axis (``quantize_kv4``).
+        ``shared_kv_quant`` "follow" (levels match kv_quant; int8 under
+        int4), "none" or "int8"."""
+        assert kv_quant in (None, "int8", "int4"), f"unknown kv_quant {kv_quant!r}"
         assert shared_kv_quant in ("follow", "none", "int8")
-        shared_quantized = None if shared_kv_quant == "follow" else (
-            shared_kv_quant == "int8")
+        if shared_kv_quant == "follow":
+            shared_quantized = True if kv_quant == "int4" else None
+        else:
+            shared_quantized = shared_kv_quant == "int8"
         cfg = self.config
         max_unique_seq_length = -(-max_unique_seq_length // 16) * 16
         self.cache = allocate_cache(
             cfg.num_hidden_layers, max_unique_batch_size, max_unique_seq_length,
             list(max_shared_batch_sizes), list(max_shared_seq_lengths),
             cfg.num_key_value_heads, cfg.head_dim,
-            dtype=cache_dtype or cfg.torch_dtype, quantized=kv_quant == "int8",
+            dtype=cache_dtype or cfg.torch_dtype, quantized=kv_quant in ("int8", "int4"),
             unique_bshd=unique_bshd, shared_quantized=shared_quantized,
-            device=self.device,
+            unique_bits=4 if kv_quant == "int4" else 8, device=self.device,
         )
         self.num_used_levels = 0
         self.level_filled = []
@@ -285,7 +307,7 @@ class HydragenLlama:
         unique_pos = ar.expand(b, t)
         hidden, nk, nv = model_forward(
             self.params, self.config, self.cache, input_ids, pos, unique_pos, spec,
-            quantize_new_kv=8 if self.cache.quantized else None,
+            quantize_new_kv=self.cache.unique_bits if self.cache.quantized else None,
         )
         update_unique_prefill(self.cache, nk, nv)
         return logits_from_hidden(self.params, self.config, hidden,
@@ -317,6 +339,7 @@ class HydragenLlama:
                 update_unique_decode(
                     self.cache, upos, nk, nv,
                     uniform=None if uniform_slot is None else uniform_slot + i,
+                    plain=spec.impl == "torch",
                 )
             logits = logits_from_hidden(self.params, self.config, hidden)[:, 0]
             nxt = sample_from_logits(logits, generator, temperature, top_p, 1)

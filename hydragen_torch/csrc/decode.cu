@@ -1,8 +1,10 @@
-// One-token decode attention over one layer of the int8 BSHD unique cache,
-// with the step's own token and the shared-prefix partial merged in.
+// One-token decode attention over one layer of the int8 or int4 BSHD unique
+// cache, with the step's own token and the shared-prefix partial merged in;
+// and the in-place int4 decode write of one layer.
 //
-// Replaces the TPU kernel hydragen_tpu/ops/decode.py:_decode_cached_kernel
-// (entry decode_attention_cached) at kv_bits = 8.
+// decode_kernel replaces the TPU kernel
+// hydragen_tpu/ops/decode.py:_decode_cached_kernel (entry
+// decode_attention_cached) at kv_bits = 8 and kv_bits = 4.
 //
 // Function, per row b and query head h (kv head h // group):
 //   scores over the row's first lens[b] cached tokens, s_j = (q * scale) . k_j
@@ -21,6 +23,25 @@
 // warp shuffles and each warp keeps its own online softmax; the 4 states,
 // the own-token column and the shared partial are merged in shared memory at
 // the end, one thread per head_dim element. Rows past lens are never read.
+// int4 (BITS = 4): the cache is token-planar, S byte rows where byte row j
+// holds token j in its low nibble and token j + S in its high nibble, and the
+// flat scales run over the 2S logical tokens (the high plane's start at
+// S * hkv). A warp reads byte row j once, unpacks both nibbles with 32-bit
+// shifts, and folds token j, then token j + S where j + S < len, into its
+// online softmax: rows [0, min(len, S)) are read, half the bytes of int8.
+//
+// write_int4_kernel replaces hydragen_tpu/ops/decode.py:gather_token_row_cached
+// (the byte-row read of the int4 decode write) together with the write it
+// serves (hydragen_tpu/core/cache.py write_decode_token_layer at
+// unique_bits = 4): the TPU reads the row through a kernel only to pin its
+// layout, so here one launch does the whole write of one layer's token, K
+// and V. Per (row, kv head), one warp each for K and V: amax over head_dim
+// by shuffles, scale = max(amax, 1e-8) / 7, q = clamp(rint(x / scale), -7,
+// 7) (IEEE division and round-half-even, as quantize_kv4), then the nibble
+// merge into byte row slot % S: at slot >= S the low nibble (the live token
+// slot - S) is kept and the high one written; below S the low nibble is
+// written and the stale high one cleared. The f32 scale goes to the flat
+// scales at slot * hkv + head. Bytes bound: it moves one token's K and V.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,11 +58,11 @@ constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const __nv_bfloat16* q;  // [b, hq, D]
-  const int8_t* k;         // layer base of [B, S, hkv, D]
+  const int8_t* k;         // layer base of [B, S, hkv, D] (S byte rows)
   const int8_t* v;
-  const float* k_scale;    // layer base of [B, S * hkv]
+  const float* k_scale;    // layer base of [B, S * hkv] (int4: [B, 2S * hkv])
   const float* v_scale;
-  const int* lens;         // [b]
+  const int* lens;         // [b] logical lengths
   const __nv_bfloat16* k1;  // [b, hkv, D] or null
   const __nv_bfloat16* v1;
   const __nv_bfloat16* o_sh;  // [b, hq, D] or null
@@ -65,13 +86,63 @@ __device__ __forceinline__ void load_i8(const int8_t* src, float* dst) {
   }
 }
 
+// EPL packed bytes -> the sign-extended low and high nibbles, with the shifts
+// in 32 bits.
+template <int EPL>
+__device__ __forceinline__ void load_i4(const int8_t* src, float* lo, float* hi) {
+  int x[EPL];
+  if (EPL == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(src);
+    x[0] = c.x; x[1] = c.y; x[2] = c.z; x[3] = c.w;
+  } else {
+    const char2 c = *reinterpret_cast<const char2*>(src);
+    x[0] = c.x; x[1] = c.y;
+  }
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    lo[i] = static_cast<float>(static_cast<int>(static_cast<unsigned>(x[i]) << 28) >> 28);
+    hi[i] = static_cast<float>(x[i] >> 4);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffff, x, o);
   return x;
 }
 
-template <int D>
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, o));
+  return x;
+}
+
+// One token folded into a warp's online softmax (exp2 space): score
+// (q . k) * ks, values v * vs.
+template <int EPL>
+__device__ __forceinline__ void online_step(int group, const float (&qf)[GMAX][EPL],
+                                            const float* kf, const float* vf, float ks,
+                                            float vs, float (&m)[GMAX], float (&l)[GMAX],
+                                            float (&acc)[GMAX][EPL]) {
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) {
+    if (gi >= group) break;
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) d += qf[gi][i] * kf[i];
+    const float s = warp_sum(d) * ks;
+    const float m_new = fmaxf(m[gi], s);
+    const float alpha = exp2f(m[gi] - m_new);
+    const float pj = exp2f(s - m_new);
+    l[gi] = l[gi] * alpha + pj;
+    const float pv = pj * vs;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc[gi][i] = acc[gi][i] * alpha + pv * vf[i];
+    m[gi] = m_new;
+  }
+}
+
+template <int D, int BITS>
 __global__ void __launch_bounds__(THREADS) decode_kernel(const Params p) {
   constexpr int EPL = D / 32;  // head_dim elements a lane
   __shared__ float m_s[WARPS][GMAX];
@@ -84,7 +155,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int hq = p.hkv * p.group;
-  const int limit = min(max(p.lens[row], 0), p.S);
+  constexpr int PLANES = BITS == 4 ? 2 : 1;
+  const int len = min(max(p.lens[row], 0), PLANES * p.S);  // logical tokens
+  const int limit = min(len, p.S);                          // byte rows read
   const float qscale = p.scale * LOG2E;  // exp2 space; lse is converted back
 
   float qf[GMAX][EPL];
@@ -109,30 +182,27 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Params p) {
   const size_t tok_stride = (size_t)p.hkv * D;
   const int8_t* kb = p.k + (size_t)row * p.S * tok_stride + (size_t)kvh * D + lane * EPL;
   const int8_t* vb = p.v + (size_t)row * p.S * tok_stride + (size_t)kvh * D + lane * EPL;
-  const float* ksb = p.k_scale + (size_t)row * p.S * p.hkv + kvh;
-  const float* vsb = p.v_scale + (size_t)row * p.S * p.hkv + kvh;
+  const float* ksb = p.k_scale + (size_t)row * PLANES * p.S * p.hkv + kvh;
+  const float* vsb = p.v_scale + (size_t)row * PLANES * p.S * p.hkv + kvh;
 
   for (int j = warp; j < limit; j += WARPS) {
-    float kf[EPL], vf[EPL];
-    load_i8<EPL>(kb + (size_t)j * tok_stride, kf);
-    load_i8<EPL>(vb + (size_t)j * tok_stride, vf);
-    const float ks = ksb[(size_t)j * p.hkv];
-    const float vs = vsb[(size_t)j * p.hkv];
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      if (gi >= p.group) break;
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) d += qf[gi][i] * kf[i];
-      const float s = warp_sum(d) * ks;
-      const float m_new = fmaxf(m[gi], s);
-      const float alpha = exp2f(m[gi] - m_new);
-      const float pj = exp2f(s - m_new);
-      l[gi] = l[gi] * alpha + pj;
-      const float pv = pj * vs;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[gi][i] = acc[gi][i] * alpha + pv * vf[i];
-      m[gi] = m_new;
+    if (BITS == 8) {
+      float kf[EPL], vf[EPL];
+      load_i8<EPL>(kb + (size_t)j * tok_stride, kf);
+      load_i8<EPL>(vb + (size_t)j * tok_stride, vf);
+      online_step<EPL>(p.group, qf, kf, vf, ksb[(size_t)j * p.hkv], vsb[(size_t)j * p.hkv],
+                       m, l, acc);
+    } else {
+      float klo[EPL], khi[EPL], vlo[EPL], vhi[EPL];
+      load_i4<EPL>(kb + (size_t)j * tok_stride, klo, khi);
+      load_i4<EPL>(vb + (size_t)j * tok_stride, vlo, vhi);
+      online_step<EPL>(p.group, qf, klo, vlo, ksb[(size_t)j * p.hkv], vsb[(size_t)j * p.hkv],
+                       m, l, acc);
+      const int jh = j + p.S;  // the high plane's token: warp-uniform test
+      if (jh < len) {
+        online_step<EPL>(p.group, qf, khi, vhi, ksb[(size_t)jh * p.hkv],
+                         vsb[(size_t)jh * p.hkv], m, l, acc);
+      }
     }
   }
 
@@ -205,6 +275,39 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Params p) {
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(64)
+write_int4_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                  int8_t* __restrict__ ck, int8_t* __restrict__ cv, float* __restrict__ cks,
+                  float* __restrict__ cvs, int S, int hkv, int slot) {
+  constexpr int EPL = D / 32;
+  const int kvh = blockIdx.x;
+  const int row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const bool is_v = threadIdx.x >= 32;
+  const __nv_bfloat16* src = (is_v ? v : k) + ((size_t)row * hkv + kvh) * D + lane * EPL;
+  int8_t* dst = (is_v ? cv : ck) + (((size_t)row * S + slot % S) * hkv + kvh) * D + lane * EPL;
+  float* sc = (is_v ? cvs : cks) + (size_t)row * 2 * S * hkv + (size_t)slot * hkv + kvh;
+
+  float x[EPL];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    x[i] = __bfloat162float(src[i]);
+    amax = fmaxf(amax, fabsf(x[i]));
+  }
+  const float scale = fmaxf(warp_max(amax), 1e-8f) / 7.0f;
+  const bool hi = slot >= S;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    const int q = static_cast<int>(fminf(fmaxf(rintf(x[i] / scale), -7.f), 7.f));
+    const int old = dst[i];
+    const unsigned nv = hi ? ((old & 0xF) | (static_cast<unsigned>(q) << 4)) : (q & 0xF);
+    dst[i] = static_cast<int8_t>(nv & 0xFF);
+  }
+  if (lane == 0) *sc = scale;
+}
+
 }  // namespace
 
 extern "C" int hydragen_decode_attention(const void* q, const void* k, const void* v,
@@ -212,8 +315,10 @@ extern "C" int hydragen_decode_attention(const void* q, const void* k, const voi
                                          const void* lens, const void* k1, const void* v1,
                                          const void* o_sh, const void* lse_sh, void* out,
                                          void* lse, int b, int S, int hkv, int group, int D,
-                                         float scale, void* stream) {
-  if (group < 1 || group > GMAX) return static_cast<int>(cudaErrorInvalidValue);
+                                         int bits, float scale, void* stream) {
+  if (group < 1 || group > GMAX || (bits != 8 && bits != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const int8_t*>(k);
@@ -233,10 +338,40 @@ extern "C" int hydragen_decode_attention(const void* q, const void* k, const voi
   p.scale = scale;
   dim3 grid(hkv, b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) {
-    decode_kernel<128><<<grid, THREADS, 0, st>>>(p);
+  if (D == 128 && bits == 8) {
+    decode_kernel<128, 8><<<grid, THREADS, 0, st>>>(p);
+  } else if (D == 64 && bits == 8) {
+    decode_kernel<64, 8><<<grid, THREADS, 0, st>>>(p);
+  } else if (D == 128) {
+    decode_kernel<128, 4><<<grid, THREADS, 0, st>>>(p);
   } else if (D == 64) {
-    decode_kernel<64><<<grid, THREADS, 0, st>>>(p);
+    decode_kernel<64, 4><<<grid, THREADS, 0, st>>>(p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k, v: [b, hkv, D] bf16, this step's token of one layer. ck, cv: the layer's
+// base of the [B, S, hkv, D] int4 cache (S byte rows); cks, cvs: the layer's
+// base of its [B, 2S * hkv] flat scales. Writes logical token `slot` of rows
+// [0, b) in place.
+extern "C" int hydragen_write_int4(const void* k, const void* v, void* ck, void* cv,
+                                   void* cks, void* cvs, int b, int S, int hkv, int D,
+                                   int slot, void* stream) {
+  if (slot < 0 || slot >= 2 * S) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(hkv, b);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* kk = static_cast<const __nv_bfloat16*>(k);
+  const auto* vv = static_cast<const __nv_bfloat16*>(v);
+  auto* ckk = static_cast<int8_t*>(ck);
+  auto* cvv = static_cast<int8_t*>(cv);
+  auto* cks_ = static_cast<float*>(cks);
+  auto* cvs_ = static_cast<float*>(cvs);
+  if (D == 128) {
+    write_int4_kernel<128><<<grid, 64, 0, st>>>(kk, vv, ckk, cvv, cks_, cvs_, S, hkv, slot);
+  } else if (D == 64) {
+    write_int4_kernel<64><<<grid, 64, 0, st>>>(kk, vv, ckk, cvv, cks_, cvs_, S, hkv, slot);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

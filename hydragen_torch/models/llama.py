@@ -10,9 +10,10 @@ the global position while KV is stored at the position minus the shared
 length.
 
 On a CUDA tensor every kernel-eligible call goes to a hand-written kernel:
-the s8 GEMM for each projection under ``matmul="w8a8"``, the cached flash
-read for each shared level, the int8 decode read (with the own token and the
-shared partial merged in), and causal flash attention for prefill.
+the s8 GEMMs for each projection under ``matmul="w8a8"`` (int8 weights) or
+``"w4a8"`` (int4 weights), the cached flash read for each shared level, the
+int8 or int4 decode read (with the own token and the shared partial merged
+in), the in-place int4 decode write, and causal flash attention for prefill.
 ``impl="torch"`` runs every op's plain PyTorch version instead, on any
 device.
 """
@@ -39,11 +40,14 @@ from hydragen_torch.ops.hydragen import (
 )
 from hydragen_torch.ops.quant import (
     _I_PAD,
+    Quantized4Tensor,
     QuantizedTensor,
     is_quantized_weight,
+    pick_group4,
     qmatmul,
     qmatmul_stacked,
     quantize_kv,
+    quantize_kv4,
     s8_stacked_eligible,
 )
 
@@ -58,13 +62,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     without checkpoints), made directly on ``device``.
 
     ``quantized`` (True, "int8" or "w8a8") creates INT8 weights directly: a
-    random int8 payload with magnitude-matched bf16 scales. "w8a8" pads the
-    MLP intermediate dim to an _I_PAD multiple, as ``quantize_params`` does
-    for real checkpoints (exact: the padded channels are zero-scaled rows of
+    random int8 payload with magnitude-matched bf16 scales. "int4" or "w4a8"
+    creates planar-packed INT4 projections the same way (random packed bytes,
+    group scales; the LM head stays INT8). "w8a8" and "w4a8" pad the MLP
+    intermediate dim to an _I_PAD multiple, as ``quantize_params`` does for
+    real checkpoints (exact: the padded channels are zero-scaled rows of
     ``down``'s input).
     """
+    int4 = quantized in ("int4", "w4a8")
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    if quantized == "w8a8" and I >= _I_PAD:
+    if quantized in ("w8a8", "w4a8") and I >= _I_PAD:
         I = -(-I // _I_PAD) * _I_PAD
     L = cfg.num_hidden_layers
     Hq = cfg.num_attention_heads * cfg.head_dim
@@ -75,7 +82,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def dense_fp(shape, fan_in):
         return torch.randn(shape, dtype=dt, **kw) / math.sqrt(fan_in)
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, int4_ok=False):
+        if int4 and int4_ok:
+            K = shape[-2]
+            g = pick_group4(K)
+            # Packed payload stored [out, in/2] (see Quantized4Tensor).
+            pshape = shape[:-2] + (shape[-1], K // 2)
+            qp = torch.randint(-128, 128, pshape, dtype=torch.int8, **kw)
+            gscale = torch.full(shape[:-2] + (K // g, shape[-1]),
+                                1.0 / (4.0 * math.sqrt(fan_in)), dtype=torch.bfloat16,
+                                device=device)
+            return Quantized4Tensor(qp=qp, gscale=gscale)
         if quantized:
             # Payload stored [out, in] (see QuantizedTensor).
             tshape = shape[:-2] + (shape[-1], shape[-2])
@@ -92,13 +109,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "layers": {
             "input_norm": torch.ones((L, H), dtype=dt, device=device),
             "post_attn_norm": torch.ones((L, H), dtype=dt, device=device),
-            "wq": dense((L, H, Hq), H),
-            "wk": dense((L, H, Hkv), H),
-            "wv": dense((L, H, Hkv), H),
-            "wo": dense((L, Hq, H), Hq),
-            "gate": dense((L, H, I), H),
-            "up": dense((L, H, I), H),
-            "down": dense((L, I, H), I),
+            "wq": dense((L, H, Hq), H, int4_ok=True),
+            "wk": dense((L, H, Hkv), H, int4_ok=True),
+            "wv": dense((L, H, Hkv), H, int4_ok=True),
+            "wo": dense((L, Hq, H), Hq, int4_ok=True),
+            "gate": dense((L, H, I), H, int4_ok=True),
+            "up": dense((L, H, I), H, int4_ok=True),
+            "down": dense((L, I, H), I, int4_ok=True),
         },
     }
     if cfg.attention_bias:
@@ -179,8 +196,9 @@ class ForwardSpec(NamedTuple):
     disable_hydragen: bool
     disable_attention: bool
     impl: Optional[str] = None  # attention: "kernel" (default) | "torch"
-    # Projection products: "dq" (weight-only int8) or "w8a8" (per-row
-    # activation quantization + the s8 GEMM kernel).
+    # Projection products: "dq" (weight-only), "w8a8" (per-row activation
+    # quantization + the s8 GEMM; an int4 weight under it takes the w4a8
+    # GEMM, the "mixed" mode) or "w4a8" (the same against int4 weights).
     matmul: str = "dq"
     # Filled prefix count per active level; () = all allocated rows.
     level_batch: Tuple[int, ...] = ()
@@ -215,8 +233,9 @@ def model_forward(
             slot shared by all rows. Each layer writes its token's KV into the
             cache in place right after its attention. Returns ``(hidden,
             cache)``.
-        quantize_new_kv: 8 -> return each layer's new KV quantized
-            (``quantize_kv``) instead of in the compute dtype.
+        quantize_new_kv: 8 (or 4) -> return each layer's new KV quantized
+            (``quantize_kv``, or unpacked int4 from ``quantize_kv4``) instead
+            of in the compute dtype.
         fill_level: shared-prefill write path: the index of the level being
             prefilled. Each layer writes its new KV (quantized if the level
             stores int8) straight into that level's buffers, in place.
@@ -244,14 +263,17 @@ def model_forward(
 
     def qmm(x, family, li, memo):
         w = lp[family]
-        if spec.matmul == "w8a8" and s8_stacked_eligible(x, w, "w8a8"):
+        mm = spec.matmul
+        if mm == "w8a8" and isinstance(w, Quantized4Tensor):
+            mm = "w4a8"  # "mixed": an int4 family under the w8a8 mode
+        if mm in ("w8a8", "w4a8") and s8_stacked_eligible(x, w, mm):
             # One per-row quantization shared by the projections reading the
             # same activation (q/k/v off one rmsnorm, gate/up off the other).
             hit = memo.get(id(x))
             if hit is None:
                 hit = (x, quantize_rows(x.reshape(-1, x.shape[-1])))
                 memo[id(x)] = hit
-            return qmatmul_stacked(x, w, li, "", impl="w8a8", a_pre=hit[1],
+            return qmatmul_stacked(x, w, li, "", impl=mm, a_pre=hit[1],
                                    plain=impl == "torch")
         sub = {"wo": "btd,dh->bth", "down": "bti,ih->bth"}.get(family, "bth,hd->btd")
         return qmatmul_stacked(x, w, li, sub, impl="dq")
@@ -265,21 +287,25 @@ def model_forward(
         and history_mask is None
         and impl == "kernel"
     )
+    kv_bits = cache.unique_bits
 
     def unique_view(li):
         """Layer li's written unique history as (payload, scale) pairs in the
-        layout ``_attention`` reads (BSHD views keep ``kv_bshd``)."""
-        U = spec.unique_filled
+        layout ``_attention`` reads (BSHD views keep ``kv_bshd``). Int4 views
+        carry the full allocated window: a token slice would break the (j, j
+        + S/2) byte pairing, and ``history_lens`` masks the unwritten tail."""
+        U = cache.max_unique_seq_len if kv_bits == 4 else spec.unique_filled
+        P = cache.unique_rows if kv_bits == 4 else U  # payload token rows
 
         def one(payload, scale):
             if cache.unique_bshd:
-                p = payload[li, :b, :U]
+                p = payload[li, :b, :P]
                 if scale is None:
                     return p
                 s = scale[li, :b, : U * nkv].reshape(b, U, nkv) if cache.flat_scales \
                     else scale[li, :b, :U]
                 return (p, s)
-            p = payload[li, :b, :, :U]
+            p = payload[li, :b, :, :P]
             return p if scale is None else (p, scale[li, :b, :, :U])
 
         return (one(cache.unique_k, cache.unique_k_scale),
@@ -336,7 +362,7 @@ def model_forward(
                         li, q, cache.unique_k, cache.unique_v,
                         kv_seq_lens=history_lens, k_scale_all=cache.unique_k_scale,
                         v_scale_all=cache.unique_v_scale, own_kv=(k, v),
-                        shared_partial=sh,
+                        shared_partial=sh, kv_bits=kv_bits,
                     )
                 else:
                     uk, uv = unique_view(li)
@@ -344,6 +370,7 @@ def model_forward(
                         q, uk, uv, causal=False,
                         kv_seq_lens=None if history_mask is not None else history_lens,
                         kv_mask=history_mask, impl=impl, kv_bshd=cache.unique_bshd,
+                        kv_bits=kv_bits,
                     )
                     outs.append(o)
                     lses.append(l)
@@ -395,7 +422,7 @@ def model_forward(
             h, k, v = layer(h, li)
             # This step's token is never in its own history (lens mask it),
             # so writing it right after its layer's read is safe.
-            write_decode_token_layer(cache, li, k, v, inplace_slot)
+            write_decode_token_layer(cache, li, k, v, inplace_slot, plain=impl == "torch")
         return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
     new_k, new_v = [], []
@@ -405,7 +432,8 @@ def model_forward(
             # Each layer's KV is quantized as it comes out (the JAX package
             # quantizes inside its layer scan), so no stack of every layer's
             # compute-dtype KV is ever held.
-            k, v = quantize_kv(k), quantize_kv(v)
+            qkv = quantize_kv4 if quantize_new_kv == 4 else quantize_kv
+            k, v = qkv(k), qkv(v)
         new_k.append(k)
         new_v.append(v)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)

@@ -33,9 +33,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # its kernel and nowhere else (a CPU tensor's plain path does not count).
 LAUNCHES: dict[str, int] = {
     "w8a8_matmul_cached": 0,
+    "w8a8_matmul": 0,
     "flash_attention_cached_bhsd": 0,
     "flash_attention_bhsd": 0,
     "decode_attention_cached": 0,
+    "decode_attention_cached_int4": 0,
+    "w4a8_matmul_cached": 0,
+    "w4a8_matmul": 0,
+    "write_token_int4_cached": 0,
 }
 # ptxas' report (registers, shared memory, spills) of each build, by source.
 BUILD_LOG: dict[str, str] = {}

@@ -1,13 +1,23 @@
-"""Int8 decode attention over one layer of the BSHD unique cache, with the
-step's own token and the shared-prefix partial merged in: the CUDA kernel of
-``csrc/decode.cu`` and its plain PyTorch version.
+"""Int8 and int4 decode attention over one layer of the BSHD unique cache,
+with the step's own token and the shared-prefix partial merged in, and the
+in-place int4 decode write: the CUDA kernels of ``csrc/decode.cu`` and their
+plain PyTorch versions.
 
-Port of ``hydragen_tpu.ops.decode.decode_attention_cached`` at kv_bits=8.
-The cache is ``[L, B, S, hkv, d]`` int8 with flat lane-major scales
-``[L, B, S*hkv]`` (the scale of token j, head h at ``j*hkv + h``). The TPU
-kernel re-quantizes q and p to s8 for its matrix unit; this port computes
-both products in fp32 from the dequantized int8, which is the exact path the
-JAX package runs off the TPU.
+Port of ``hydragen_tpu.ops.decode``: ``decode_attention_cached`` (kv_bits 8
+and 4) and ``gather_token_row_cached``. The cache is ``[L, B, S, hkv, d]``
+int8 with flat lane-major scales ``[L, B, S*hkv]`` (the scale of token j,
+head h at ``j*hkv + h``). At kv_bits=4 it is token-planar: S byte rows, byte
+row j holding token j in its low nibble and token j + S in its high nibble,
+and the scales cover the 2S logical tokens. The TPU kernel re-quantizes q
+and p to s8 for its matrix unit; this port computes both products in fp32
+from the dequantized payload, which is the exact path the JAX package runs
+off the TPU.
+
+``write_token_int4_cached`` is the port of ``gather_token_row_cached``
+together with the int4 write it serves: the TPU reads the byte row through a
+kernel only to pin the buffer's layout, so here one kernel quantizes a
+layer's new K and V token (``quantize_kv4``), merges the nibbles into byte
+row ``slot % S`` and writes the scales.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 
 from hydragen_torch.ops import cuda_lib
 from hydragen_torch.ops.combine import combine_lse_with_stats
+from hydragen_torch.ops.quant import nibble_merge, quantize_kv4
 from hydragen_torch.ops.reference import attention_bhsd
 
 HEAD_DIMS = (64, 128)
@@ -27,25 +38,34 @@ MAX_GROUP = 8
 
 def _fn():
     f = cuda_lib.library("decode").hydragen_decode_attention
-    f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float,
+    f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _write_fn():
+    f = cuda_lib.library("decode").hydragen_write_int4
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
 def decode_attention_cached_plain(layer, q, k_all, v_all, *, kv_seq_lens, k_scale_all,
                                   v_scale_all, own_kv=None, shared_partial=None,
-                                  scale=None):
+                                  scale=None, kv_bits=8):
     """Plain PyTorch version of ``decode_attention_cached``: the exact
     attention over the layer's slice, the own token as one more partial, and
     the LSE merge."""
     b, hq, _, d = q.shape
     _, _, S, hkv, _ = k_all.shape
-    lens = torch.clamp(kv_seq_lens.to(torch.int32), max=S)
+    s_logical = 2 * S if kv_bits == 4 else S  # S = byte rows at int4
+    lens = torch.clamp(kv_seq_lens.to(torch.int32), max=s_logical)
     o, l = attention_bhsd(
         q, k_all[layer, :b], v_all[layer, :b], kv_seq_lens=lens, scale=scale,
-        k_scale=k_scale_all[layer, :b].reshape(b, S, hkv),
-        v_scale=v_scale_all[layer, :b].reshape(b, S, hkv), kv_bshd=True,
+        k_scale=k_scale_all[layer, :b].reshape(b, s_logical, hkv),
+        v_scale=v_scale_all[layer, :b].reshape(b, s_logical, hkv), kv_bshd=True,
+        kv_bits=kv_bits,
     )
     outs, lses = [o], [l]
     if own_kv is not None:
@@ -79,15 +99,20 @@ def decode_attention_cached(
     own_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     shared_partial: tuple[torch.Tensor, torch.Tensor] | None = None,
     scale: float | None = None,
+    kv_bits: int = 8,
 ):
-    """Int8 decode attention reading ONE layer of the stacked BSHD cache.
+    """Int8 or int4 decode attention reading ONE layer of the stacked BSHD
+    cache.
 
     Args:
         layer: layer index; the kernel reads the buffers in place.
         q: ``[b, hq, 1, d]`` queries.
-        k_all, v_all: ``[L, B, S, hkv, d]`` int8 cache buffers (B >= b).
-        kv_seq_lens: ``[b]`` valid lengths (clamped to S).
-        k_scale_all, v_scale_all: ``[L, B, S*hkv]`` f32 flat scales.
+        k_all, v_all: ``[L, B, S, hkv, d]`` int8 cache buffers (B >= b); at
+            ``kv_bits=4`` token-planar nibble packs of S byte rows.
+        kv_seq_lens: ``[b]`` valid logical lengths (clamped to S, or 2S at
+            int4).
+        k_scale_all, v_scale_all: ``[L, B, S*hkv]`` f32 flat scales
+            (``[L, B, 2S*hkv]`` at int4).
         own_kv: optional ``(k1, v1)`` each ``[b, hkv, 1, d]``: this step's own
             token, one more softmax column per row.
         shared_partial: optional ``(o_sh [b, hq, 1, d], lse_sh [b, hq, 1])``,
@@ -101,11 +126,14 @@ def decode_attention_cached(
         return decode_attention_cached_plain(
             layer, q, k_all, v_all, kv_seq_lens=kv_seq_lens, k_scale_all=k_scale_all,
             v_scale_all=v_scale_all, own_kv=own_kv, shared_partial=shared_partial,
-            scale=scale,
+            scale=scale, kv_bits=kv_bits,
         )
     b, hq, m, d = q.shape
     L, B, S, hkv, dk = k_all.shape
     dev = q.device
+    if kv_bits not in (8, 4):
+        raise ValueError(f"decode kernel: kv_bits {kv_bits} not in (8, 4)")
+    planes = 2 if kv_bits == 4 else 1
     if m != 1 or dk != d or hq % hkv or b > B or not 0 <= layer < L:
         raise ValueError(f"decode kernel: bad shapes q {tuple(q.shape)} cache "
                          f"{tuple(k_all.shape)} layer {layer}")
@@ -119,9 +147,10 @@ def decode_attention_cached(
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"decode kernel: {name} must be a contiguous {dt} tensor "
                              f"on {dev}, got {t.dtype} on {t.device}")
-    if v_all.shape != k_all.shape or k_scale_all.shape != (L, B, S * hkv) \
+    if v_all.shape != k_all.shape or k_scale_all.shape != (L, B, planes * S * hkv) \
             or v_scale_all.shape != k_scale_all.shape:
-        raise ValueError("decode kernel: cache and scale shapes disagree")
+        raise ValueError(f"decode kernel: cache {tuple(k_all.shape)} and scales "
+                         f"{tuple(k_scale_all.shape)} disagree at kv_bits={kv_bits}")
     cuda_lib.check_aligned("decode kernel: k_all", k_all)
     cuda_lib.check_aligned("decode kernel: v_all", v_all)
 
@@ -149,12 +178,100 @@ def decode_attention_cached(
         qc.data_ptr(),
         k_all.data_ptr() + layer * B * S * hkv * d,
         v_all.data_ptr() + layer * B * S * hkv * d,
-        k_scale_all.data_ptr() + layer * B * S * hkv * 4,
-        v_scale_all.data_ptr() + layer * B * S * hkv * 4,
+        k_scale_all.data_ptr() + layer * B * planes * S * hkv * 4,
+        v_scale_all.data_ptr() + layer * B * planes * S * hkv * 4,
         lens.data_ptr(), ptr(k1), ptr(v1), ptr(o_sh), ptr(lse_sh),
-        out.data_ptr(), lse.data_ptr(), b, S, hkv, group, d, scale,
+        out.data_ptr(), lse.data_ptr(), b, S, hkv, group, d, kv_bits, scale,
         cuda_lib.stream_ptr(dev),
     )
-    cuda_lib.check(status, "decode_attention_cached")
-    cuda_lib.LAUNCHES["decode_attention_cached"] += 1
+    counter = "decode_attention_cached" if kv_bits == 8 else "decode_attention_cached_int4"
+    cuda_lib.check(status, counter)
+    cuda_lib.LAUNCHES[counter] += 1
     return out, lse
+
+
+def gather_token_row_cached(layer: int | None, row: int, buf: torch.Tensor) -> torch.Tensor:
+    """Byte row ``row`` of layer ``layer`` of a stacked BSHD cache buffer
+    ``[L, B, S, hkv, d]`` -> ``[B, hkv, d]`` (``layer=None``: every layer,
+    ``[L, B, hkv, d]``), as a copy. On the TPU this read is a kernel that
+    pins the buffer's layout; here it is an index, read by the plain int4
+    write."""
+    if layer is None:
+        return buf[:, :, row].clone()
+    return buf[layer, :, row].clone()
+
+
+def write_token_int4_cached_plain(layer, k, v, k_all, v_all, k_scale_all, v_scale_all,
+                                  slot):
+    """Plain PyTorch version of ``write_token_int4_cached``: ``quantize_kv4``,
+    the nibble read-modify-write of byte row ``slot % S`` and the scale
+    write, in place."""
+    b, hkv = k.shape[0], k.shape[1]
+    S = k_all.shape[2]
+    row, is_hi = slot % S, slot >= S
+    for x, buf, sbuf in ((k, k_all, k_scale_all), (v, v_all, v_scale_all)):
+        q4, sc = quantize_kv4(x[:, :, 0])  # [b, hkv, d], [b, hkv]
+        old = gather_token_row_cached(layer, row, buf)[:b]
+        buf[layer, :b, row] = nibble_merge(old, q4, is_hi)
+        sbuf[layer, :b, slot * hkv:(slot + 1) * hkv] = sc
+
+
+def write_token_int4_cached(
+    layer: int,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    k_scale_all: torch.Tensor,
+    v_scale_all: torch.Tensor,
+    slot: int,
+) -> None:
+    """Write one layer's decode token into the int4 BSHD cache, in place.
+
+    Args:
+        layer: layer index; the kernel writes the buffers in place.
+        k, v: ``[b, hkv, 1, d]`` bf16, this step's token.
+        k_all, v_all: ``[L, B, S, hkv, d]`` int8 token-planar caches (S byte
+            rows; byte row j holds token j low and token j + S high).
+        k_scale_all, v_scale_all: ``[L, B, 2S*hkv]`` f32 flat scales.
+        slot: the logical token written, the same for every row
+            (``0 <= slot < 2S``).
+
+    One kernel launch writes K and V: the quantized nibbles into byte row
+    ``slot % S`` (the high nibble at ``slot >= S``, keeping the live low
+    token; the low nibble below, clearing the stale high one) and the scales
+    at ``slot*hkv``.
+    """
+    layer, slot = int(layer), int(slot)
+    if not k.is_cuda:
+        return write_token_int4_cached_plain(layer, k, v, k_all, v_all, k_scale_all,
+                                             v_scale_all, slot)
+    b, hkv, m, d = k.shape
+    L, B, S, hkv2, d2 = k_all.shape
+    dev = k.device
+    if m != 1 or (hkv2, d2) != (hkv, d) or b > B or not 0 <= layer < L \
+            or not 0 <= slot < 2 * S or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"int4 write kernel: bad shapes k {tuple(k.shape)} cache "
+                         f"{tuple(k_all.shape)} layer {layer} slot {slot}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"int4 write kernel: head_dim {d} not in {HEAD_DIMS}")
+    for name, t, dt in (("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
+                        ("k_all", k_all, torch.int8), ("v_all", v_all, torch.int8),
+                        ("k_scale_all", k_scale_all, torch.float32),
+                        ("v_scale_all", v_scale_all, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"int4 write kernel: {name} must be a contiguous {dt} tensor "
+                             f"on {dev}, got {t.dtype} on {t.device}")
+    if v_all.shape != k_all.shape or k_scale_all.shape != (L, B, 2 * S * hkv) \
+            or v_scale_all.shape != k_scale_all.shape:
+        raise ValueError("int4 write kernel: cache and scale shapes disagree")
+    row_bytes = B * S * hkv * d
+    status = _write_fn()(
+        k.data_ptr(), v.data_ptr(),
+        k_all.data_ptr() + layer * row_bytes, v_all.data_ptr() + layer * row_bytes,
+        k_scale_all.data_ptr() + layer * B * 2 * S * hkv * 4,
+        v_scale_all.data_ptr() + layer * B * 2 * S * hkv * 4,
+        b, S, hkv, d, slot, cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(status, "write_token_int4_cached")
+    cuda_lib.LAUNCHES["write_token_int4_cached"] += 1

@@ -1,13 +1,19 @@
-"""W8A8 GEMM: s8 x s8 -> i32 products with a fused dequant epilogue.
+"""W8A8 and W4A8 GEMMs: s8 activations x s8 or int4 weights -> i32
+products with a fused dequant epilogue.
 
-Port of ``hydragen_tpu.ops.gemm`` (the int8 parts). Scheme:
-- weights: per-output-channel s8, stored ``[out, in]`` (``ops/quant.py``),
-  stacked ``[L, N, K]`` with bf16 scales ``[L, N]``;
+Port of ``hydragen_tpu.ops.gemm``. Scheme:
+- int8 weights: per-output-channel s8, stored ``[out, in]``
+  (``ops/quant.py``), stacked ``[L, N, K]`` with bf16 scales ``[L, N]``;
+- int4 weights: planar-packed ``[L, N, K/2]`` int8 (byte j holds
+  in-feature j low and j + K/2 high) with bf16 group scales ``[L, G, N]``;
 - activations: per-row dynamic s8 (one f32 scale per token row).
 
 ``w8a8_matmul_cached`` computes ``a_s8 @ w_all[layer]^T * (row x col
-scales)`` with the CUDA kernel of ``csrc/gemm.cu`` for a CUDA tensor, and
-with its plain version ``w8a8_cached_plain`` for a CPU tensor.
+scales)`` and ``w4a8_matmul_cached`` sums each K-group's i32 product times
+its group scale in f32, then applies the row scale. Both read the layer
+straight out of the stacked weight. ``w8a8_matmul`` and ``w4a8_matmul`` are
+their 2-D entries: the same kernels at one layer. A CUDA tensor goes to the
+kernels of ``csrc/gemm.cu`` (or raises); a CPU tensor to the plain versions.
 """
 
 from __future__ import annotations
@@ -42,15 +48,68 @@ def w8a8_cached_plain(layer: int, a_q, a_scale, w_all, w_scale_all,
 
 
 def w8a8_supported(N: int, K: int) -> bool:
-    """Shapes the kernel takes: 16-byte rows for cp.async, paired columns."""
+    """Shapes the w8a8 kernel takes: 16-byte rows for cp.async, paired
+    columns."""
     return K % 16 == 0 and N % 2 == 0
 
 
-def _fn():
+def _w8a8_fn():
     f = cuda_lib.library("gemm").hydragen_w8a8_gemm
     f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
+
+
+def _w4a8_fn():
+    f = cuda_lib.library("gemm").hydragen_w4a8_gemm
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _check_operands(what, operands, out_dtype):
+    """Device, dtype and contiguity of each ``(name, tensor, dtype)``, the
+    output dtype, and 16-byte alignment of the two payloads."""
+    dev = operands[0][1].device
+    for name, t, dt in operands:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: out_dtype {out_dtype} not supported")
+    cuda_lib.check_aligned(f"{what}: a_q", operands[0][1])
+    cuda_lib.check_aligned(f"{what}: weight", operands[2][1])
+    return dev
+
+
+def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype):
+    """One K1 launch on layer ``layer`` of ``w [L, N, K]`` (a 2-D weight is
+    the stack of one, read at layer stride 0)."""
+    M, K = a_q.shape
+    L, N, K2 = w.shape
+    if K != K2 or not 0 <= layer < L:
+        raise ValueError(f"w8a8 kernel: a {tuple(a_q.shape)} against weight "
+                         f"{tuple(w.shape)} at layer {layer}")
+    dev = _check_operands("w8a8 kernel", (
+        ("a_q", a_q, torch.int8), ("a_scale", a_scale, torch.float32),
+        ("weight", w, torch.int8), ("weight scale", w_scale, torch.bfloat16)), out_dtype)
+    if a_scale.numel() != M or w_scale.shape != (L, N):
+        raise ValueError(f"w8a8 kernel: scale shapes {tuple(a_scale.shape)} "
+                         f"{tuple(w_scale.shape)} do not match M={M} L={L} N={N}")
+    if not w8a8_supported(N, K):
+        raise ValueError(f"w8a8 kernel: needs K % 16 == 0 and N % 2 == 0, got N={N} K={K}")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if M == 0:
+        return out
+    status = _w8a8_fn()(
+        a_q.data_ptr(), a_scale.data_ptr(), w.data_ptr() + layer * N * K,
+        w_scale.data_ptr() + layer * N * w_scale.element_size(),
+        out.data_ptr(), M, N, K, int(out_dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(status, counter)
+    cuda_lib.LAUNCHES[counter] += 1
+    return out
 
 
 def w8a8_matmul_cached(
@@ -63,39 +122,113 @@ def w8a8_matmul_cached(
 ) -> torch.Tensor:
     """``a @ w_all[layer]^T`` read straight out of the stacked weight: the
     kernel gets the layer's base pointer, so no per-layer slice is copied."""
-    M, K = a_q.shape
-    L, N, K2 = w_all.shape
-    assert K == K2, (a_q.shape, w_all.shape)
     layer = int(layer)
-    assert 0 <= layer < L, (layer, L)
     if not a_q.is_cuda:
         return w8a8_cached_plain(layer, a_q, a_scale, w_all, w_scale_all, out_dtype)
-    dev = a_q.device
-    for name, t, dt in (("a_q", a_q, torch.int8), ("a_scale", a_scale, torch.float32),
-                        ("w_all", w_all, torch.int8),
-                        ("w_scale_all", w_scale_all, torch.bfloat16)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"w8a8 kernel: {name} must be a contiguous {dt} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-    if a_scale.numel() != M or w_scale_all.shape != (L, N):
-        raise ValueError(f"w8a8 kernel: scale shapes {tuple(a_scale.shape)} "
-                         f"{tuple(w_scale_all.shape)} do not match M={M} L={L} N={N}")
-    if not w8a8_supported(N, K):
-        raise ValueError(f"w8a8 kernel: needs K % 16 == 0 and N % 2 == 0, got N={N} K={K}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"w8a8 kernel: out_dtype {out_dtype} not supported")
-    cuda_lib.check_aligned("w8a8 kernel: a_q", a_q)
-    cuda_lib.check_aligned("w8a8 kernel: w_all", w_all)
+    return _launch_w8a8("w8a8_matmul_cached", a_q, a_scale, w_all, w_scale_all, layer,
+                        out_dtype)
+
+
+def w8a8_matmul(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """2-D entry of K1: ``a @ w_q^T`` for one ``[N, K]`` s8 weight with bf16
+    scales ``[N]``, the same kernel at layer stride 0."""
+    if not a_q.is_cuda:
+        return w8a8_reference(a_q, a_scale, w_q, w_scale, out_dtype)
+    if w_q.ndim != 2:
+        raise ValueError(f"w8a8 kernel: 2-D entry got a weight of shape {tuple(w_q.shape)}")
+    return _launch_w8a8("w8a8_matmul", a_q, a_scale, w_q[None], w_scale[None], 0, out_dtype)
+
+
+# --- W4A8 --------------------------------------------------------------------
+
+
+def w4a8_reference(a_q, a_scale, w_qp, w_gscale, out_dtype=torch.bfloat16):
+    """f32 oracle: dequantize the int4 weight group-wise, f32 product, row
+    scale. Each group's sum is exact in f32 (at most 128 * 127 * 8 < 2^24);
+    the kernel sums the scaled groups in another order."""
+    from hydragen_torch.ops.quant import unpack4
+
+    lo, hi = unpack4(w_qp)
+    w = torch.cat([lo, hi], dim=-1).float()  # [N, K]
+    N, K = w.shape
+    G = w_gscale.shape[0]
+    w = w.reshape(N, G, K // G) * w_gscale.float().transpose(0, 1)[:, :, None]
+    acc = torch.einsum("mk,nk->mn", a_q.float(), w.reshape(N, K))
+    return (acc * a_scale.float()).to(out_dtype)
+
+
+def w4a8_cached_plain(layer: int, a_q, a_scale, w_qp_all, w_gscale_all,
+                      out_dtype=torch.bfloat16):
+    """Plain PyTorch version of ``w4a8_matmul_cached``."""
+    return w4a8_reference(a_q, a_scale, w_qp_all[layer], w_gscale_all[layer], out_dtype)
+
+
+def w4a8_supported(N: int, Kp: int, group: int) -> bool:
+    """Shapes the w4a8 kernel takes: whole 64-byte packed tiles in each
+    scale group, paired columns."""
+    return group % 64 == 0 and Kp % group == 0 and N % 2 == 0
+
+
+def _launch_w4a8(counter, a_q, a_scale, w_qp, w_gscale, layer, out_dtype):
+    """One K6 launch on layer ``layer`` of ``w_qp [L, N, K/2]``, group
+    scales ``w_gscale [L, G, N]`` (a 2-D weight is the stack of one, read at
+    layer stride 0)."""
+    M, K = a_q.shape
+    L, N, Kp = w_qp.shape
+    if K != 2 * Kp or not 0 <= layer < L:
+        raise ValueError(f"w4a8 kernel: a {tuple(a_q.shape)} against packed weight "
+                         f"{tuple(w_qp.shape)} at layer {layer}")
+    dev = _check_operands("w4a8 kernel", (
+        ("a_q", a_q, torch.int8), ("a_scale", a_scale, torch.float32),
+        ("packed weight", w_qp, torch.int8),
+        ("group scales", w_gscale, torch.bfloat16)), out_dtype)
+    if a_scale.numel() != M or w_gscale.ndim != 3 or w_gscale.shape[0] != L \
+            or w_gscale.shape[2] != N or K % w_gscale.shape[1]:
+        raise ValueError(f"w4a8 kernel: scale shapes {tuple(a_scale.shape)} "
+                         f"{tuple(w_gscale.shape)} do not match M={M} L={L} N={N} K={K}")
+    G = w_gscale.shape[1]
+    group = K // G
+    if not w4a8_supported(N, Kp, group):
+        raise ValueError(f"w4a8 kernel: needs a group size that is a multiple of 64 "
+                         f"within one nibble plane and N % 2 == 0, got N={N} K={K} "
+                         f"group={group}")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out
-    status = _fn()(
-        a_q.data_ptr(), a_scale.data_ptr(),
-        w_all.data_ptr() + layer * N * K,
-        w_scale_all.data_ptr() + layer * N * w_scale_all.element_size(),
-        out.data_ptr(), M, N, K, int(out_dtype == torch.bfloat16),
+    status = _w4a8_fn()(
+        a_q.data_ptr(), a_scale.data_ptr(), w_qp.data_ptr() + layer * N * Kp,
+        w_gscale.data_ptr() + layer * G * N * w_gscale.element_size(),
+        out.data_ptr(), M, N, K, group, int(out_dtype == torch.bfloat16),
         cuda_lib.stream_ptr(dev),
     )
-    cuda_lib.check(status, "w8a8_matmul_cached")
-    cuda_lib.LAUNCHES["w8a8_matmul_cached"] += 1
+    cuda_lib.check(status, counter)
+    cuda_lib.LAUNCHES[counter] += 1
     return out
+
+
+def w4a8_matmul_cached(
+    layer: int,
+    a_q: torch.Tensor,           # [M, K] s8 activations (quantize_rows)
+    a_scale: torch.Tensor,       # [M, 1] f32
+    w_qp_all: torch.Tensor,      # [L, N, K/2] s8 planar-packed int4
+    w_gscale_all: torch.Tensor,  # [L, G, N] bf16 group scales
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """``a @ unpack(w_qp_all[layer])^T`` with group and row scales, read
+    straight out of the stacked packed weight."""
+    layer = int(layer)
+    if not a_q.is_cuda:
+        return w4a8_cached_plain(layer, a_q, a_scale, w_qp_all, w_gscale_all, out_dtype)
+    return _launch_w4a8("w4a8_matmul_cached", a_q, a_scale, w_qp_all, w_gscale_all,
+                        layer, out_dtype)
+
+
+def w4a8_matmul(a_q, a_scale, w_qp, w_gscale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """2-D entry of K6: one ``[N, K/2]`` packed weight with group scales
+    ``[G, N]``, the same kernel at layer stride 0."""
+    if not a_q.is_cuda:
+        return w4a8_reference(a_q, a_scale, w_qp, w_gscale, out_dtype)
+    if w_qp.ndim != 2:
+        raise ValueError(f"w4a8 kernel: 2-D entry got a weight of shape {tuple(w_qp.shape)}")
+    return _launch_w4a8("w4a8_matmul", a_q, a_scale, w_qp[None], w_gscale[None], 0,
+                        out_dtype)

@@ -40,28 +40,31 @@ def pick_impl(impl: str | None) -> str:
 
 
 def use_flash_kernel(impl: str, q: torch.Tensor, k: torch.Tensor, *, kv_mask=None,
-                     kv_bshd: bool = False) -> bool:
+                     kv_bshd: bool = False, kv_bits: int = 8) -> bool:
     """The one gate between the flash kernel and the plain path.
 
-    Arbitrary masks and the BSHD unique-cache layout are the plain path's
-    alone, as in the JAX package; every other call goes to the kernel's
-    wrapper, with no shape thresholds, and on a CUDA tensor the wrapper raises
-    on what its kernel does not take (a dtype, a head size)."""
-    return pick_impl(impl) == "kernel" and kv_mask is None and not kv_bshd
+    Arbitrary masks, the BSHD unique-cache layout and int4 token-packed
+    payloads are the plain path's alone, as in the JAX package; every other
+    call goes to the kernel's wrapper, with no shape thresholds, and on a
+    CUDA tensor the wrapper raises on what its kernel does not take (a dtype,
+    a head size)."""
+    return (pick_impl(impl) == "kernel" and kv_mask is None and not kv_bshd
+            and kv_bits == 8)
 
 
-def _attention(q, k, v, *, causal, kv_seq_lens, impl, kv_mask=None, kv_bshd=False):
-    """One BHSD (out, lse) attention. ``k``/``v`` may each be an ``(int8
-    payload, f32 scale)`` pair for a quantized KV source."""
+def _attention(q, k, v, *, causal, kv_seq_lens, impl, kv_mask=None, kv_bshd=False,
+               kv_bits=8):
+    """One BHSD (out, lse) attention. ``k``/``v`` may each be an ``(int8 or
+    int4 payload, f32 scale)`` pair for a quantized KV source."""
     k, ks = k if isinstance(k, tuple) else (k, None)
     v, vs = v if isinstance(v, tuple) else (v, None)
-    if use_flash_kernel(impl, q, k, kv_mask=kv_mask, kv_bshd=kv_bshd):
+    if use_flash_kernel(impl, q, k, kv_mask=kv_mask, kv_bshd=kv_bshd, kv_bits=kv_bits):
         return flash.flash_attention_bhsd(
             q, k, v, causal=causal, kv_seq_lens=kv_seq_lens, k_scale=ks, v_scale=vs,
         )
     return attention_bhsd(
         q, k, v, causal=causal, kv_seq_lens=kv_seq_lens, kv_mask=kv_mask,
-        k_scale=ks, v_scale=vs, kv_bshd=kv_bshd,
+        k_scale=ks, v_scale=vs, kv_bshd=kv_bshd, kv_bits=kv_bits,
     )
 
 

@@ -1,18 +1,27 @@
-"""INT8 quantization of weights and KV.
+"""INT8 and INT4 quantization of weights and KV.
 
-Port of the int8 parts of ``hydragen_tpu.ops.quant``.
+Port of ``hydragen_tpu.ops.quant``.
 
-Weights: symmetric per-output-channel int8, payload stored transposed
+Weights, int8: symmetric per-output-channel, payload stored transposed
 ``[..., out, in]`` with a bf16 scale ``[..., out]``. The payload is quantized
 against the bf16-rounded scale, so storing bf16 costs no precision. Because
 the scale is per output channel, dequantization commutes with the product:
 ``y = x @ (w_q * s) == (x @ w_q) * s``.
 
-KV: symmetric per-(token, head) int8 with f32 scales (amax over head_dim).
+Weights, int4 (:class:`Quantized4Tensor`): symmetric per-(K-group,
+out-channel) scales ``[..., G, out]`` bf16, payload planar-packed
+``[..., out, in/2]`` int8 (byte j holds in-feature j low and j + in/2 high).
+Group scales do not commute with the product, so the weight-only path
+dequantizes each nibble plane before its dot.
+
+KV: symmetric per-(token, head) int8 with f32 scales (amax over head_dim),
+or int4 values on a [-7, 7] grid (:func:`quantize_kv4`) that the cache
+writers pack two tokens to a byte along the token axis.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -50,6 +59,92 @@ def dequantize(t: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * t.scale.float()[..., None, :]).to(dtype)
 
 
+class Quantized4Tensor(NamedTuple):
+    """int4 payload ``qp [..., out, in/2]`` int8, planar-packed (byte j holds
+    in-feature j in its low nibble and j + in/2 in its high nibble), and
+    bf16 group scales ``gscale [..., G, out]``. Each group lies inside one
+    nibble plane (:func:`pick_group4`)."""
+
+    qp: torch.Tensor
+    gscale: torch.Tensor
+
+    @property
+    def dtype(self):
+        return self.qp.dtype
+
+    @property
+    def in_features(self) -> int:
+        return self.qp.shape[-1] * 2
+
+    @property
+    def group_size(self) -> int:
+        return self.in_features // self.gscale.shape[-2]
+
+
+def pick_group4(in_features: int, group: int = 128) -> int:
+    """Largest group size <= ``group`` that divides the nibble-plane width
+    ``in/2`` (so groups never straddle the planar pack boundary)."""
+    assert in_features % 2 == 0, f"odd in_features {in_features}"
+    half = in_features // 2
+    return math.gcd(half, min(group, half))
+
+
+def pack4(q4: torch.Tensor) -> torch.Tensor:
+    """int4 values in an int8 tensor ``[..., in]`` (range [-8, 7]) ->
+    planar-packed ``[..., in/2]`` int8."""
+    half = q4.shape[-1] // 2
+    lo = q4[..., :half].to(torch.int32)
+    hi = q4[..., half:].to(torch.int32)
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8)
+
+
+def unpack4(qp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed int8 ``[..., in/2]`` -> (low, high) int8 nibble planes,
+    sign-extended. The shifts run in int32: a packed byte of -128..127 holds
+    the nibble -8, which random init writes."""
+    q32 = qp.to(torch.int32)
+    lo = ((q32 << 28) >> 28).to(torch.int8)
+    hi = (q32 >> 4).to(torch.int8)  # byte sign extension == nibble sign
+    return lo, hi
+
+
+def nibble_merge(old: torch.Tensor, q4: torch.Tensor, is_hi: bool) -> torch.Tensor:
+    """New packed bytes of a one-token int4 write: at ``is_hi`` the token
+    goes to the high nibble over the live low one; otherwise to the low
+    nibble, and the stale high one is cleared. 32-bit arithmetic, as
+    ``unpack4``."""
+    o32, q32 = old.to(torch.int32), q4.to(torch.int32)
+    new = (o32 & 0xF) | (q32 << 4) if is_hi else q32 & 0xF
+    return new.to(torch.int8)
+
+
+def quantize4(w: torch.Tensor, group: int = 128) -> Quantized4Tensor:
+    """Symmetric int4 group-wise quantization over in_features (axis -2).
+
+    w: ``[..., in, out]`` float. Scales are rounded to bf16 first and the
+    payload is quantized against them; range [-7, 7]."""
+    *lead, K, N = w.shape
+    g = pick_group4(K, group)
+    G = K // g
+    wf = w.float().reshape(*lead, G, g, N)
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    gscale = (torch.clamp(amax, min=1e-8) / 7.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(wf / gscale.float()), -7, 7)
+    q = q.to(torch.int8).reshape(*lead, K, N)
+    return Quantized4Tensor(qp=pack4(q.transpose(-1, -2)).contiguous(),
+                            gscale=gscale.squeeze(-2))
+
+
+def dequantize4(t: Quantized4Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Back to the logical ``[..., in, out]`` layout."""
+    lo, hi = unpack4(t.qp)
+    q = torch.cat([lo, hi], dim=-1).transpose(-1, -2)
+    *lead, K, N = q.shape
+    G = t.gscale.shape[-2]
+    wf = q.float().reshape(*lead, G, K // G, N) * t.gscale.float()[..., :, None, :]
+    return wf.reshape(*lead, K, N).to(dtype)
+
+
 def _swap_weight_term(subscripts: str) -> str:
     """'bth,hd->btd' -> 'bth,dh->btd' (weight operand axes reversed)."""
     ins, out = subscripts.split("->")
@@ -59,30 +154,71 @@ def _swap_weight_term(subscripts: str) -> str:
 
 
 def s8_stacked_eligible(x: torch.Tensor, w_stacked, impl: str) -> bool:
-    """Would :func:`qmatmul_stacked` route this call to the s8 GEMM?
+    """Would :func:`qmatmul_stacked` route this call to an s8 GEMM?
 
     Lets the model quantize an activation ONCE and share the (payload, scale)
     pair across every projection consuming it (q/k/v off one rmsnorm,
     gate/up off the other). Only the structure decides: a stacked int8
-    weight under ``impl="w8a8"`` always takes the s8 GEMM, and on a CUDA
-    tensor its wrapper raises on a shape the kernel does not take rather
-    than falling back to weight-only dq."""
+    weight under ``impl="w8a8"`` always takes the w8a8 GEMM, a stacked int4
+    weight under ``impl="w4a8"`` the w4a8 GEMM, and on a CUDA tensor the
+    wrapper raises on a shape its kernel does not take rather than falling
+    back to weight-only dq."""
     if impl == "w8a8" and isinstance(w_stacked, QuantizedTensor) and w_stacked.q.ndim == 3:
         return x.shape[-1] == w_stacked.q.shape[-1]
+    if impl == "w4a8" and isinstance(w_stacked, Quantized4Tensor) and w_stacked.qp.ndim == 3:
+        return x.shape[-1] == w_stacked.in_features
     return False
+
+
+def _s8_gemm_2d(x: torch.Tensor, w, impl: str) -> torch.Tensor:
+    """A 2-D weight on the s8 GEMMs' 2-D entries: per-row activation
+    quantization, then ``w8a8_matmul`` or ``w4a8_matmul``."""
+    from hydragen_torch.ops import gemm
+
+    K = x.shape[-1]
+    a_q, a_s = gemm.quantize_rows(x.reshape(-1, K))
+    if impl == "w8a8":
+        y = gemm.w8a8_matmul(a_q, a_s, w.q, w.scale, out_dtype=x.dtype)
+    else:
+        y = gemm.w4a8_matmul(a_q, a_s, w.qp, w.gscale, out_dtype=x.dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def qmatmul(x: torch.Tensor, w, subscripts: str, impl: str = "dq") -> torch.Tensor:
     """einsum over a maybe-quantized weight (``subscripts`` written for the
-    logical ``[in, out]`` orientation).
+    logical ``[in, out]`` orientation; every caller contracts x's last axis
+    against the weight's ``in`` axis).
 
-    A QuantizedTensor is contracted through its int8 payload cast to the
-    activation dtype, and the per-output-channel scale is applied once on the
-    result (weight-only int8). The s8 GEMM serves only stacked weights
-    (:func:`qmatmul_stacked`); a 2D weight under ``impl="w8a8"`` takes this
-    path, as the JAX package does wherever its s8 kernel is ineligible.
+    ``impl="w8a8"`` on a 2-D QuantizedTensor and ``impl="w4a8"`` on a 2-D
+    Quantized4Tensor run the s8 GEMMs' 2-D entries: their kernels on a CUDA
+    tensor (which raise on a shape they do not take), their plain versions on
+    a CPU tensor. Otherwise a QuantizedTensor is contracted through its int8
+    payload cast to the activation dtype with the per-output-channel scale
+    applied once on the result (weight-only int8), and a Quantized4Tensor is
+    dequantized plane by plane, each plane's dot against its contiguous half
+    of the activations (weight-only int4).
     """
+    if isinstance(w, Quantized4Tensor):
+        if impl == "w4a8" and w.qp.ndim == 2:
+            return _s8_gemm_2d(x, w, impl)
+        if w.qp.ndim == 2:
+            N, Kp = w.qp.shape
+            G, g = w.gscale.shape[-2], w.group_size
+            lo, hi = unpack4(w.qp)
+            swapped = _swap_weight_term(subscripts)
+
+            def plane(p, g0):
+                # int4 values and bf16 group scales are exact in bf16.
+                gs = w.gscale[g0:g0 + G // 2].to(x.dtype)  # [G/2, N]
+                wf = p.to(x.dtype).reshape(N, G // 2, g) * gs.transpose(0, 1)[:, :, None]
+                return wf.reshape(N, Kp)
+
+            return (torch.einsum(swapped, x[..., :Kp], plane(lo, 0))
+                    + torch.einsum(swapped, x[..., Kp:], plane(hi, G // 2)))
+        return torch.einsum(subscripts, x, dequantize4(w, x.dtype))
     if isinstance(w, QuantizedTensor):
+        if impl == "w8a8" and w.q.ndim == 2:
+            return _s8_gemm_2d(x, w, impl)
         y = torch.einsum(_swap_weight_term(subscripts), x, w.q.to(x.dtype))
         return y * w.scale.to(x.dtype)
     return torch.einsum(subscripts, x, w)
@@ -92,26 +228,25 @@ def qmatmul_stacked(x, w_stacked, layer: int, subscripts: str, impl: str = "dq",
                     a_pre=None, plain: bool = False):
     """Layer-indexed einsum over STACKED ``[L, ...]`` maybe-quantized weights.
 
-    ``impl="w8a8"`` routes to ``w8a8_matmul_cached`` (ops/gemm.py), which
-    reads the layer straight out of the stacked buffer, or with ``plain`` to
-    its plain version on any device. ``a_pre``: optional pre-quantized
-    activation ``(a_q [M, K] s8, a_scale [M, 1] f32)`` shared across
-    projections consuming the same activation."""
+    ``impl="w8a8"`` routes to ``w8a8_matmul_cached`` and ``impl="w4a8"`` to
+    ``w4a8_matmul_cached`` (ops/gemm.py), which read the layer straight out
+    of the stacked buffer, or with ``plain`` to their plain versions on any
+    device. ``a_pre``: optional pre-quantized activation ``(a_q [M, K] s8,
+    a_scale [M, 1] f32)`` shared across projections consuming the same
+    activation."""
     if s8_stacked_eligible(x, w_stacked, impl):
-        from hydragen_torch.ops.gemm import (
-            quantize_rows,
-            w8a8_cached_plain,
-            w8a8_matmul_cached,
-        )
+        from hydragen_torch.ops import gemm
 
-        L, N, K = w_stacked.q.shape
-        lead = x.shape[:-1]
-        a_q, a_s = a_pre if a_pre is not None else quantize_rows(x.reshape(-1, K))
-        gemm = w8a8_cached_plain if plain else w8a8_matmul_cached
-        y = gemm(layer, a_q, a_s, w_stacked.q, w_stacked.scale, out_dtype=x.dtype)
-        return y.reshape(*lead, N)
-    if isinstance(w_stacked, QuantizedTensor):
-        w_sliced = QuantizedTensor(w_stacked.q[layer], w_stacked.scale[layer])
+        K = x.shape[-1]
+        a_q, a_s = a_pre if a_pre is not None else gemm.quantize_rows(x.reshape(-1, K))
+        if impl == "w8a8":
+            fn = gemm.w8a8_cached_plain if plain else gemm.w8a8_matmul_cached
+        else:
+            fn = gemm.w4a8_cached_plain if plain else gemm.w4a8_matmul_cached
+        y = fn(layer, a_q, a_s, *w_stacked, out_dtype=x.dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if is_quantized_weight(w_stacked):
+        w_sliced = type(w_stacked)(*(t[layer] for t in w_stacked))
     else:
         w_sliced = w_stacked[layer]
     return qmatmul(x, w_sliced, subscripts, impl=impl)
@@ -131,6 +266,21 @@ def quantize_kv(x: torch.Tensor):
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16):
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def quantize_kv4(x: torch.Tensor):
+    """x ``[..., d]`` float -> (UNPACKED int4 values in int8 ``[..., d]``,
+    scale f32 ``[...]``): the per-(token, head) scheme of :func:`quantize_kv`
+    on a [-7, 7] grid. The cache writers pack two tokens to a byte along the
+    TOKEN axis (byte row j holds token j low and token j + S/2 high)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # A tensor divisor: on the card PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which rounds differently from the true
+    # division that JAX and the int4 write kernel do.
+    scale = torch.clamp(amax, min=1e-8) / torch.tensor(7.0, device=x.device)
+    q4 = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8)
+    return q4, scale.squeeze(-1)
 
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -155,20 +305,27 @@ def pad_intermediate(layers: dict) -> dict:
     return out
 
 
-def quantize_params(params: dict, pad_mlp: bool = False) -> dict:
+def quantize_params(params: dict, pad_mlp: bool = False, bits: int = 8,
+                    bits4_families: tuple = ()) -> dict:
     """Quantize the projection matrices and the LM head of a Llama parameter
-    dict to int8 (per-(layer, out-channel) scales). Embeddings, norms and
-    biases stay."""
+    dict: int8 with per-(layer, out-channel) scales (``bits=8``) or int4 with
+    per-(layer, K-group, out-channel) scales (``bits=4``). ``bits4_families``
+    names projection families quantized at int4 whatever ``bits`` says (the
+    "mixed" mode: int8 everywhere, int4 ``down``). The LM head stays int8:
+    its logits feed sampling directly. Embeddings, norms and biases stay."""
+    assert bits in (8, 4), bits
     out = dict(params)
     layers = dict(params["layers"])
     if pad_mlp:
         layers = pad_intermediate(layers)
     for k in _QUANT_KEYS:
-        layers[k] = quantize(layers[k])
+        layers[k] = quantize4(layers[k]) if bits == 4 or k in bits4_families \
+            else quantize(layers[k])
     out["layers"] = layers
     out["lm_head"] = quantize(params["lm_head"])
     return out
 
 
 def is_quantized_weight(x) -> bool:
-    return isinstance(x, QuantizedTensor)
+    """An int8 or int4 weight node."""
+    return isinstance(x, (QuantizedTensor, Quantized4Tensor))

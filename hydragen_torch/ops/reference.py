@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from hydragen_torch.ops.quant import unpack4
+
 # Large negative instead of -inf so exp(mask - mask) never yields NaN.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -33,6 +35,7 @@ def attention_bhsd(
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
     kv_bshd: bool = False,
+    kv_bits: int = 8,
 ):
     """Canonical-layout attention returning ``(out, lse)``.
 
@@ -49,6 +52,13 @@ def attention_bhsd(
             ``kv_bshd``) f32 per-token scales of int8 k/v payloads. They
             commute out of both products, onto the score and probability
             columns, so no dequantized copy of the payload is made.
+        kv_bits: 4 = k/v are int4 nibble packs along the TOKEN axis: ``sp``
+            byte rows hold ``2*sp`` logical tokens, byte row j token j in its
+            low nibble and token j + sp in its high nibble; the scales and
+            ``kv_seq_lens`` cover the logical tokens. The score product runs
+            per nibble plane, concatenated on the output s axis (natural
+            token order); the value product contracts the two s halves
+            separately.
 
     Returns:
         out ``[b, hq, m, d]`` (q.dtype), lse ``[b, hq, m]`` f32, natural log,
@@ -56,12 +66,16 @@ def attention_bhsd(
     """
     b, hq, m, d = q.shape
     if kv_bshd:
-        _, s, hkv, dk = k.shape
+        _, sp, hkv, dk = k.shape
     else:
-        _, hkv, s, dk = k.shape
+        _, hkv, sp, dk = k.shape
     assert dk == d, f"kv head_dim {dk} != q head_dim {d}"
     assert hq % hkv == 0, f"GQA requires hq % hkv == 0, got {hq} {hkv}"
     assert (k_scale is None) == (v_scale is None)
+    assert kv_bits in (8, 4)
+    int4 = kv_bits == 4
+    assert not int4 or k_scale is not None, "int4 KV requires scales"
+    s = 2 * sp if int4 else sp  # logical token count
     group = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -69,7 +83,14 @@ def attention_bhsd(
 
     qg = (q.float() * scale).reshape(b, hkv, group, m, d)
     k_sub = "bskd" if kv_bshd else "bksd"
-    scores = torch.einsum(f"bkgmd,{k_sub}->bkgms", qg, k.float())
+    if int4:
+        klo, khi = unpack4(k)  # planes: tokens [0, sp) and [sp, 2sp)
+        scores = torch.cat([
+            torch.einsum(f"bkgmd,{k_sub}->bkgms", qg, klo.float()),
+            torch.einsum(f"bkgmd,{k_sub}->bkgms", qg, khi.float()),
+        ], dim=-1)
+    else:
+        scores = torch.einsum(f"bkgmd,{k_sub}->bkgms", qg, k.float())
     if k_scale is not None:
         ksf = k_scale.float()
         if kv_bshd:
@@ -102,7 +123,12 @@ def attention_bhsd(
         if kv_bshd:
             vsf = vsf.transpose(1, 2)
         pn = pn * vsf[:, :, None, None, :]
-    o = torch.einsum(f"bkgms,{k_sub}->bkgmd", pn, v.float())
+    if int4:
+        vlo, vhi = unpack4(v)
+        o = (torch.einsum(f"bkgms,{k_sub}->bkgmd", pn[..., :sp], vlo.float())
+             + torch.einsum(f"bkgms,{k_sub}->bkgmd", pn[..., sp:], vhi.float()))
+    else:
+        o = torch.einsum(f"bkgms,{k_sub}->bkgmd", pn, v.float())
     out = o.reshape(b, hq, m, d).to(q.dtype)
 
     lse = m_safe[..., 0] + torch.log(l_safe[..., 0])

@@ -150,7 +150,9 @@ def test_engine_kernel_path_matches_plain_path(dev):
         logits[impl] = lg
         counts = dict(cuda_lib.LAUNCHES)
         if impl == "kernel":
-            assert all(c > 0 for c in counts.values()), counts
+            on_path = ("w8a8_matmul_cached", "flash_attention_cached_bhsd",
+                       "decode_attention_cached", "flash_attention_bhsd")
+            assert all(counts[n] > 0 for n in on_path), counts
         else:
             assert not any(counts.values()), counts
     for a, b in zip(logits["kernel"], logits["torch"]):
@@ -194,6 +196,181 @@ def test_w8a8_stacked_raises_on_a_shape_the_kernel_does_not_take(dev):
     x = torch.randn(1, 3, 40, device=dev, generator=g).to(torch.bfloat16)
     with pytest.raises(ValueError, match="w8a8 kernel"):
         qmatmul_stacked(x, w, 1, "bth,hd->btd", impl="w8a8")
+
+
+@pytest.mark.parametrize("M,N,K,group", [(5, 130, 256, 128), (256, 512, 4096, 128),
+                                         (70, 11264, 512, 64), (33, 256, 1024, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_kernel_matches_plain(dev, M, N, K, group, out_dtype):
+    """K6 against w4a8_reference: only the f32 order of the scaled group
+    sums differs, so fp32 output agrees to 1e-5 of the largest value."""
+    g = _gen(11)
+    a_q, a_s = tgemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    qp = torch.randint(-128, 128, (3, N, K // 2), dtype=torch.int8, device=dev, generator=g)
+    gs = (torch.rand(3, K // group, N, device=dev, generator=g) * 0.01 + 1e-3).to(torch.bfloat16)
+    before = cuda_lib.LAUNCHES["w4a8_matmul_cached"]
+    out = tgemm.w4a8_matmul_cached(2, a_q, a_s, qp, gs, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["w4a8_matmul_cached"] == before + 1
+    ref = tgemm.w4a8_cached_plain(2, a_q, a_s, qp, gs, out_dtype=torch.float32)
+    tol = 1e-2 if out_dtype == torch.bfloat16 else 1e-5
+    assert _rel(out, ref) < tol
+
+
+@pytest.mark.parametrize("impl", ["w8a8", "w4a8"])
+def test_qmatmul_2d_launches_the_s8_kernel(dev, impl):
+    """A 2-D weight under w8a8 or w4a8 runs its GEMM's 2-D entry on the card
+    (one launch), never weight-only dq, and matches the plain version."""
+    from hydragen_torch.ops import quant as tquant
+
+    g = _gen(12)
+    w = torch.randn(256, 384, device=dev, generator=g) * 0.05
+    wq = tquant.quantize(w) if impl == "w8a8" else tquant.quantize4(w)
+    x = torch.randn(2, 3, 256, device=dev, generator=g).to(torch.bfloat16)
+    name = "w8a8_matmul" if impl == "w8a8" else "w4a8_matmul"
+    before = dict(cuda_lib.LAUNCHES)
+    y = tquant.qmatmul(x, wq, "bth,hd->btd", impl=impl)
+    torch.cuda.synchronize()
+    after = dict(cuda_lib.LAUNCHES)
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ref = tquant.qmatmul(x.cpu(), type(wq)(*(t.cpu() for t in wq)), "bth,hd->btd", impl=impl)
+    assert y.shape == (2, 3, 384) and _rel(y.cpu(), ref) < 2e-2
+
+
+@pytest.mark.parametrize("case", ["w4a8_group32", "w4a8_fp32_scale", "write_fp32_kv",
+                                  "decode_int4_scales"])
+def test_int4_wrappers_raise_on_operands_their_kernels_do_not_take(dev, case):
+    g = _gen(13)
+    if case.startswith("w4a8"):
+        a_q, a_s = tgemm.quantize_rows(torch.randn(4, 128, device=dev, generator=g))
+        qp = torch.zeros(2, 64, 64, dtype=torch.int8, device=dev)
+        G = 4 if case == "w4a8_group32" else 1
+        gs = torch.ones(2, G, 64, device=dev,
+                        dtype=torch.float32 if case == "w4a8_fp32_scale" else torch.bfloat16)
+        with pytest.raises(ValueError, match="w4a8 kernel"):
+            tgemm.w4a8_matmul_cached(1, a_q, a_s, qp, gs)
+        return
+    L, B, S, hkv, d = 2, 3, 4, 2, 64
+    k_all = torch.zeros(L, B, S, hkv, d, dtype=torch.int8, device=dev)
+    if case == "write_fp32_kv":
+        sc = torch.zeros(L, B, 2 * S * hkv, device=dev)
+        k = torch.randn(B, hkv, 1, d, device=dev, generator=g)
+        with pytest.raises(ValueError, match="int4 write kernel"):
+            tdecode.write_token_int4_cached(0, k, k, k_all, k_all.clone(), sc, sc.clone(), 5)
+        return
+    sc = torch.zeros(L, B, S * hkv, device=dev)  # int8-sized scales under kv_bits=4
+    q = torch.randn(B, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="decode kernel"):
+        tdecode.decode_attention_cached(0, q, k_all, k_all, kv_seq_lens=torch.full(
+            (B,), 3, device=dev), k_scale_all=sc, v_scale_all=sc, kv_bits=4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("own,shared", [(False, False), (True, True)])
+def test_decode_int4_kernel_matches_plain(dev, d, own, shared):
+    """K3 at kv_bits=4 over S = 20 byte rows: the lengths (40, 0, 13, 21, 99,
+    33) read the high plane in four rows, so an off-by-plane error shows."""
+    g = _gen(14)
+    L, B, S, hkv, b, group = 2, 7, 20, 2, 6, 4
+    hq = hkv * group
+    k = torch.randint(-128, 128, (L, B, S, hkv, d), dtype=torch.int8, device=dev, generator=g)
+    v = torch.randint(-128, 128, (L, B, S, hkv, d), dtype=torch.int8, device=dev, generator=g)
+    ks = torch.rand(L, B, 2 * S * hkv, device=dev, generator=g) * 0.2 + 1e-2
+    vs = torch.rand(L, B, 2 * S * hkv, device=dev, generator=g) * 0.2 + 1e-2
+    q = torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    lens = torch.tensor([40, 0, 13, 21, 99, 33], device=dev, dtype=torch.int32)
+    kw = dict(kv_seq_lens=lens, k_scale_all=ks, v_scale_all=vs, kv_bits=4)
+    if own:
+        kw["own_kv"] = tuple(torch.randn(b, hkv, 1, d, device=dev, generator=g)
+                             .to(torch.bfloat16) for _ in range(2))
+    if shared:
+        kw["shared_partial"] = (
+            torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
+            torch.randn(b, hq, 1, device=dev, generator=g) * 2,
+        )
+    before = cuda_lib.LAUNCHES["decode_attention_cached_int4"]
+    o, l = tdecode.decode_attention_cached(1, q, k, v, **kw)
+    po, pl = tdecode.decode_attention_cached_plain(1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["decode_attention_cached_int4"] == before + 1
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_write_int4_kernel_is_bit_exact(dev, d):
+    """K7 against its plain version, byte for byte: low-plane slots (the stale
+    high nibble cleared), high-plane slots over live low tokens, and a row
+    count below the cache's."""
+    g = _gen(15)
+    L, B, S, hkv = 3, 5, 6, 4
+    bufs = [torch.randint(-128, 128, (L, B, S, hkv, d), dtype=torch.int8, device=dev,
+                          generator=g) for _ in range(2)]
+    scales = [torch.rand(L, B, 2 * S * hkv, device=dev, generator=g) for _ in range(2)]
+    plain = [t.clone() for t in bufs + scales]
+    for layer, slot, b in ((2, 1, 5), (0, 7, 5), (2, 11, 4), (1, 0, 3), (1, 6, 5)):
+        k, v = (torch.randn(b, hkv, 1, d, device=dev, generator=g).mul(3).to(torch.bfloat16)
+                for _ in range(2))
+        tdecode.write_token_int4_cached(layer, k, v, *bufs, *scales, slot)
+        tdecode.write_token_int4_cached_plain(layer, k, v, *plain, slot)
+    torch.cuda.synchronize()
+    for got, want in zip(bufs + scales, plain):
+        assert torch.equal(got, want)
+
+
+def test_engine_int4_kernel_path_matches_plain_path(dev):
+    """A small bf16 w4a8 + int4-KV engine along one forced token stream: the
+    kernel path launches K6, K2, K3-int4, K4 and K7 (the plain path nothing),
+    and its logits are as close to an fp32 plain run as the plain bf16 path's
+    are. The unique window is 16 logical tokens (8 byte rows), so the 11
+    decode steps cross into the high plane.
+
+    Not a bound between the two bf16 paths: on this small random int4 model
+    each int4 re-quantization of K and V turns a last-bit difference into a
+    whole code, so the plain bf16 path itself strays far from fp32 at single
+    steps, and the flash kernel's bf16 rounding of P moves the kernel path
+    by as much. Averaged over the steps, both stay as close."""
+    from hydragen_torch import HydragenLlama, ModelConfig, SharedCacheOp
+    from hydragen_torch.models.llama import init_params
+
+    kw = dict(vocab_size=512, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=4)
+    params = init_params(ModelConfig(**kw), _gen(16), quantized="w4a8", device=dev)
+    prompt = torch.randint(1, 512, (1, 200), generator=_gen(17), device=dev)
+    forced = torch.randint(1, 512, (8, 12), generator=_gen(18), device=dev)
+    on_path = ("w4a8_matmul_cached", "flash_attention_cached_bhsd",
+               "decode_attention_cached_int4", "flash_attention_bhsd", "write_token_int4_cached")
+
+    def fp32(tree):  # quantized payloads and their bf16 scales stay as they are
+        if isinstance(tree, dict):
+            return {k: fp32(v) for k, v in tree.items()}
+        return tree if isinstance(tree, tuple) else tree.float()
+
+    logits = {}
+    for name, dtype, p, impl in (("fp32", "float32", fp32(params), "torch"),
+                                 ("plain", "bfloat16", params, "torch"),
+                                 ("kernel", "bfloat16", params, "kernel")):
+        e = HydragenLlama(ModelConfig(**kw, dtype=dtype), p, impl=impl, quantization="w4a8")
+        e.setup_caches(8, 16, [1], [256], kv_quant="int4", unique_bshd=True)
+        cuda_lib.reset_launches()
+        _, lg = e.generate(input_ids=[prompt], num_return_sequences=8, max_new_tokens=12,
+                           temperature=0.0, shared_cache_op=SharedCacheOp.WIPE,
+                           return_logits=True, token_overrides=forced)
+        logits[name] = [x.float() for x in lg]
+        counts = dict(cuda_lib.LAUNCHES)
+        if impl == "kernel":
+            assert all(counts[n] > 0 for n in on_path), counts
+        else:
+            assert not any(counts.values()), counts
+
+    def mean_rms(run):
+        return sum(float((a - r).norm() / r.norm()) for a, r in zip(logits[run], logits["fp32"])
+                   ) / len(logits["fp32"])
+
+    assert all(torch.isfinite(x).all() for x in logits["kernel"])
+    assert mean_rms("kernel") <= 1.25 * mean_rms("plain"), (mean_rms("kernel"),
+                                                              mean_rms("plain"))
 
 
 def test_timing_helpers_time_device_work(dev):
