@@ -24,11 +24,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    weights (``quantization="w4a8"``) and the token-planar int4 unique cache
    (``kv_quant="int4"``; the shared level int8). Request 1's decode writes
    the low nibble plane, request 2's the high plane over live low tokens.
-6. plain path: the w8a8 + int8-KV model at 2 layers of full width on one
-   forced token stream, and the w4a8 + int4-KV model over two requests whose
-   decode crosses into the high plane: the kernel path, and each kernel
-   alone in the plain path, held against ``impl="torch"`` (every op's plain
-   version), with the plain path in fp32 as the yardstick of all.
+6. gqa path: the same two requests and profile on ``PRESETS["llama-3-8b"]``
+   (32 query heads over 8 kv heads) at full width and depth, w8a8 + int8
+   KV. Its unique cache is BHSD, so every decode layer's unique read is the
+   small-M read (K5) in place of K3. The profile fails on any copy of a
+   unique-cache layer.
+7. gqa no-sharing: the no-sharing baseline (``disable_hydragen=True``,
+   ``bench.py``'s protocol: one 2,048-token prompt, 256 greedy completions,
+   the prompt's KV in every unique row) against Hydragen on the same model
+   and prompt in one engine: exact launch counts, tokens equal to
+   Hydragen's (or, where a bf16 tie breaks the other way, the logits of a
+   forced stream within ``TOL_NOSHARE``), both decode rates, a profile.
+8. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
+   unique read is K5) at 2 layers of full width on one forced token stream,
+   and the w4a8 + int4-KV model over two requests whose decode crosses into
+   the high plane: the kernel path, and each kernel alone in the plain path,
+   held against ``impl="torch"`` (every op's plain version), with the plain
+   path in fp32 as the yardstick of all.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
@@ -42,6 +54,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -70,6 +83,13 @@ TOL_W4A8 = 1e-5
 # the RMS ratios read 1.000-1.013 and the largest-distance ratios 0.85-1.17.
 TOL_RMS = 1.05
 TOL_MAX = 1.25
+# No-sharing against Hydragen at 32 layers of Llama-3-8B, both in bf16 on one
+# forced token stream: the largest per-step RMS distance of row 0's logits,
+# relative to Hydragen's. The two compute one function and differ only in
+# rounding (which partials are merged, bf16 P), amplified layer by layer by
+# the per-row int8 re-quantization; a missing or misplaced prefix copy gives
+# a distance near 1.
+TOL_NOSHARE = 0.2
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -404,6 +424,121 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
            "slower of a low-plane and a high-plane slot (library: none, no PyTorch call "
            "quantizes to int4 and merges nibbles)",
     )
+    del ck, cv, cks, cvs, bufs, plain
+    check_gqa_kernels(report, failures, time_ms, g, record)
+
+
+def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
+    """K5 at the GQA phases' shapes, and K1 at Llama-3-8B's decode shapes."""
+    from hydragen_torch.ops import flash, gemm
+    from hydragen_torch.ops.quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    hq, hkv, d = 32, 8, 128
+
+    def k5_case(tag, b, window, alloc, filled, int8, NL, zero_row=None):
+        """K5 on one layer's view [:, :, :window] of an [NL, b, hkv, alloc, d]
+        buffer (strided when alloc > window), ``filled`` keys a row."""
+        shape = (NL, b, hkv, alloc, d)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+                      for _ in range(2))
+            ksc, vsc = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
+                        for _ in range(2))
+        else:
+            kc, vc = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                      for _ in range(2))
+        q = torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+        lens = torch.full((b,), filled, dtype=torch.int32, device=dev)
+        if zero_row is not None:
+            lens[zero_row] = 0
+
+        def args(i):
+            kw = dict(kv_seq_lens=lens)
+            if int8:
+                kw.update(k_scale=ksc[i, :, :, :window], v_scale=vsc[i, :, :, :window])
+            return (q, kc[i, :, :, :window], vc[i, :, :, :window]), kw
+
+        a, kw = args(NL - 1)
+        o, lse = flash.flash_attention_bhsd(*a, **kw)
+        po, plse = flash.flash_attention_bhsd_plain(*a, **kw)
+        err, rel = rel_err(o, po)
+        fin = torch.isfinite(plse)
+        lerr = float((lse[fin] - plse[fin]).abs().max())
+        empty_ok = bool(torch.isneginf(lse[~fin]).all()) and bool((o[~fin] == 0).all())
+        ms = time_ms(Cycle(lambda i: flash.flash_attention_bhsd(*args(i)[0], **args(i)[1]), NL))
+        pms = time_ms(Cycle(lambda i: flash.flash_attention_bhsd_plain(*args(i)[0],
+                                                                       **args(i)[1]), NL),
+                      iters=5)
+        # Library: SDPA with enable_gqa on the same bf16 work (the written
+        # keys, dequantized), which returns no LSE.
+        if int8:
+            kdq = [dequantize_kv(kc[i, :, :, :filled], ksc[i, :, :, :filled]).to(torch.bfloat16)
+                   for i in range(NL)]
+            vdq = [dequantize_kv(vc[i, :, :, :filled], vsc[i, :, :, :filled]).to(torch.bfloat16)
+                   for i in range(NL)]
+        else:
+            kdq = [kc[i, :, :, :filled].contiguous() for i in range(NL)]
+            vdq = [vc[i, :, :, :filled].contiguous() for i in range(NL)]
+        lms = time_ms(Cycle(lambda i: F.scaled_dot_product_attention(q, kdq[i], vdq[i],
+                                                                     enable_gqa=True), NL))
+        tokens = int(lens.sum())
+        per_key = d + 4 if int8 else 2 * d
+        nbytes = 2 * q.numel() * 2 + b * hq * 4 + 2 * tokens * hkv * per_key
+        bms, by = bound_ms(nbytes, 4 * hq * d * tokens, "bf16")
+        ok = rel <= TOL_REL and lerr <= TOL_LSE and empty_ok
+        record(f"flash_decode_bhsd {tag}: b={b} hkv={hkv} M=4 {'int8' if int8 else 'bf16'} "
+               f"{filled} of {window} keys{' (strided)' if alloc > window else ''}", ok,
+               f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} empty rows ok "
+               f"{empty_ok} ms {ms:.4f} plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                    library_ms=lms)
+
+    window = SUFFIX_LEN + NEW_TOKENS  # 192 slots, 191 written at the last step
+    path = k5_case("gqa", BATCH, window, window + 8, window - 1, True, 4, zero_row=5)
+    nosh_window = -(-(NEW_TOKENS + SHARED_LEN + 8) // 16) * 16
+    nosh = k5_case("no-sharing", BATCH, nosh_window, nosh_window,
+                   SHARED_LEN + NEW_TOKENS - 1, True, 2)
+    split8 = k5_case("split", 1, 32768, 32768, 32768, True, 2)
+    split16 = k5_case("split", 1, 32768, 32768, 32768 - 100, False, 2)
+    report["flash_decode_bhsd"] = dict(
+        **path,
+        at=f"the gqa path's unique read of one decode layer: b=256, hkv 8, M=4, {window - 1} "
+           f"of a {window}-slot int8 window, strided views, one row of length 0 (library: "
+           "SDPA enable_gqa on the written keys dequantized to bf16, no LSE)",
+        no_sharing=dict(nosh, at=f"b=256, hkv 8, {SHARED_LEN + NEW_TOKENS - 1} of "
+                                 f"{nosh_window} int8 keys"),
+        split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits"),
+        split_bf16=dict(split16, at="b=1, hkv 8, 32,668 of 32,768 bf16 keys, 64 splits"),
+    )
+
+    # K1 at Llama-3-8B's decode shapes: one layer's 7 projections, M = 256.
+    NL, I8 = 4, 14336
+    shapes = {"q_o": (4096, 4096, 2), "k_v": (hkv * d, 4096, 2), "gate_up": (I8, 4096, 2),
+              "down": (4096, I8, 1)}
+    layer = dict(ms=0.0, bytes=0, ops=0)
+    for key, (N, K, n) in shapes.items():
+        w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
+        ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
+        a_q, a_s = gemm.quantize_rows(torch.randn(BATCH, K, device=dev, generator=g))
+        out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
+        ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
+        err, rel = rel_err(out, ref)
+        ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
+        nbytes = BATCH * K + BATCH * 4 + N * K + N * 2 + BATCH * N * 2
+        bms, _ = bound_ms(nbytes, 2 * BATCH * N * K, "int8")
+        record(f"w8a8_matmul_cached llama-3-8b {key} M={BATCH} N={N} K={K}", rel <= TOL_REL,
+               f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) ms {ms:.4f} "
+               f"bound_ms {bms:.4f}")
+        layer["ms"] += n * ms
+        layer["bytes"] += n * nbytes
+        layer["ops"] += n * 2 * BATCH * N * K
+        del w, ws
+    bms, by = bound_ms(layer["bytes"], layer["ops"], "int8")
+    report["w8a8_matmul_cached"]["llama_3_8b"] = dict(
+        ms=layer["ms"], bound_ms=bms, bound_by=by,
+        at="sum of one Llama-3-8B decode layer's 7 projections, M=256")
 
 
 def expected_launches(L: int, T: int) -> dict:
@@ -436,43 +571,50 @@ def expected_launches_int4(L: int, T: int) -> dict:
     }
 
 
-# name: (tag, quantization, kv_quant, expected launches, profile groups)
+def expected_launches_gqa(L: int, T: int) -> dict:
+    """The same two requests on Llama-3-8B (GQA, w8a8 + int8 KV). Its unique
+    cache is BHSD, which the decode kernel does not read, so each decode
+    layer's unique read is the small-M read (K5, M = 4 folded rows) in place
+    of K3: 2L(T-1) launches, one a layer a step, and 0 of K3. The prefills
+    are as on the main path: the causal flash calls have M = 4 x 2,048 and
+    4 x 128 folded rows, so they stay on K2's kernel (K4)."""
+    return {
+        "w8a8_matmul_cached": 2 * 7 * L * T,
+        "flash_attention_cached_bhsd": L * (T - 1) + L * T,
+        "flash_decode_bhsd": 2 * L * (T - 1),
+        "flash_attention_bhsd": 2 * L,
+    }
+
+
+def expected_launches_no_sharing(L: int, T: int) -> dict:
+    """The no-sharing baseline's one request (``bench.py:70-96``): the
+    prompt is the unique rows' prefill (7L GEMMs, L causal flash at 2,048
+    tokens), repeated into every row; then T-1 decode steps, each layer
+    reading its row's whole history (prompt copy and decoded tokens) with
+    one small-M read and no level read."""
+    return {
+        "w8a8_matmul_cached": 7 * L * T,
+        "flash_decode_bhsd": L * (T - 1),
+        "flash_attention_bhsd": L,
+    }
+
+
+# name: (tag, preset, quantization, kv_quant, expected launches, profile groups)
 PATHS = {
-    "main": ("main", "w8a8", "int8", expected_launches,
+    "main": ("main", "llama-2-7b", "w8a8", "int8", expected_launches,
              ("w8a8_kernel", "flash_kernel", "decode_kernel")),
-    "int4": ("int4", "w4a8", "int4", expected_launches_int4,
+    "int4": ("int4", "llama-2-7b", "w4a8", "int4", expected_launches_int4,
              ("w4a8_kernel", "flash_kernel", "decode_kernel", "write_int4_kernel")),
+    "gqa": ("gqa", "llama-3-8b", "w8a8", "int8", expected_launches_gqa,
+            ("w8a8_kernel", "flash_decode_kernel", "decode_combine", "flash_kernel")),
 }
 
 
-def drive_path(args, failures: list, path: str) -> dict:
-    """Drive one configuration's two requests at full 7B width with the
-    counts set to 0 just before and read just after; then profile 8 decode
-    steps. Returns the launch counts of the two requests."""
-    from hydragen_torch import HydragenLlama, SharedCacheOp
-    from hydragen_torch.models.config import PRESETS
-    from hydragen_torch.models.llama import init_params
-    from hydragen_torch.ops import cuda_lib
-
-    tag, quant, kv_quant, expected, groups = PATHS[path]
-    cfg = PRESETS["llama-2-7b"]
-    T = NEW_TOKENS
-    g = torch.Generator(device="cuda").manual_seed(args.seed)
-    t0 = time.perf_counter()
-    params = init_params(cfg, g, quantized=quant, device="cuda")
-    eng = HydragenLlama(cfg, params, quantization=quant)
-    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant=kv_quant)
-    prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
-    suffixes = torch.randint(1, cfg.vocab_size, (BATCH, SUFFIX_LEN), generator=g,
-                             device="cuda")
-    torch.cuda.synchronize()
-    print(f"[{tag}] llama-2-7b width, {cfg.num_hidden_layers} layers, {quant} + {kv_quant} "
-          f"KV: set-up {time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
-
-    # Time the decode loop apart from the prefills.
-    decode_s = [0.0]
-    decode_steps = eng._decode_steps
+def time_decode_loop(eng):
+    """Time the engine's decode loop apart from the prefills: each call of
+    ``eng._decode_steps``, fenced by synchronizes, adds its seconds to the
+    returned one-element list. Returns (the unwrapped loop, that list)."""
+    decode_steps, decode_s = eng._decode_steps, [0.0]
 
     def timed_decode(*a, **kw):
         torch.cuda.synchronize()
@@ -483,6 +625,35 @@ def drive_path(args, failures: list, path: str) -> dict:
         return out
 
     eng._decode_steps = timed_decode
+    return decode_steps, decode_s
+
+
+def drive_path(args, failures: list, path: str) -> dict:
+    """Drive one configuration's two requests at full width and depth with
+    the counts set to 0 just before and read just after; then profile 8
+    decode steps. Returns the launch counts of the two requests."""
+    from hydragen_torch import HydragenLlama, SharedCacheOp
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+    from hydragen_torch.ops import cuda_lib
+
+    tag, preset, quant, kv_quant, expected, groups = PATHS[path]
+    cfg = PRESETS[preset]
+    T = NEW_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g, quantized=quant, device="cuda")
+    eng = HydragenLlama(cfg, params, quantization=quant)
+    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant=kv_quant)
+    prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
+    suffixes = torch.randint(1, cfg.vocab_size, (BATCH, SUFFIX_LEN), generator=g,
+                             device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{tag}] {preset} width, {cfg.num_hidden_layers} layers, {quant} + {kv_quant} "
+          f"KV: set-up {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+
+    decode_steps, decode_s = time_decode_loop(eng)
     stats = {}
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
@@ -524,29 +695,33 @@ def drive_path(args, failures: list, path: str) -> dict:
         failures.append(f"{tag} path: {len(logits1)} logit steps, finite={finite}")
     print(f"[{tag}] request 1: {len(logits1)} logit steps, all finite: {finite}", flush=True)
     del logits1
-    profile_decode(eng, decode_steps, suffixes, PROFILE_STEPS, tag, groups)
+    profile_decode(eng, decode_steps, lambda: eng.generate(
+        input_ids=[suffixes], num_return_sequences=1, max_new_tokens=PROFILE_STEPS + 1,
+        temperature=0.0, shared_cache_op=SharedCacheOp.PRESERVE), tag, groups, failures)
     return launches
 
 
-def profile_decode(eng, decode_steps, suffixes, steps: int, tag: str, names) -> None:
-    """One more request over the kept prompt, its decode loop under
-    torch.profiler: device-busy share of the loop's wall time and the
-    kernels by device time, grouped by the kernel ``names`` (the rest is
-    "other"). The profiler's own host cost lengthens the wall time, so the
-    idle share read here is an upper bound. The full table goes to
+def profile_decode(eng, decode_steps, request, tag: str, names, failures: list) -> None:
+    """One more request (``request()``, PROFILE_STEPS decode steps), its
+    decode loop under torch.profiler: device-busy share of the loop's wall
+    time and the kernels by device time, grouped by the kernel ``names``
+    (the rest is "other"). The profiler's own host cost lengthens the wall
+    time, so the idle share read here is an upper bound. Fails if any copy
+    op in the loop reads half a layer of the unique cache or more: every
+    kernel reads the cache in place. The full table goes to
     chiprun_out/profile_decode.txt (main path) or profile_decode_<tag>.txt."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hydragen_torch import SharedCacheOp
-
+    steps = PROFILE_STEPS
     window = {}
 
     def profiled(*a, **kw):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t = time.perf_counter()
             out = decode_steps(*a, **kw)
             torch.cuda.synchronize()
@@ -555,9 +730,18 @@ def profile_decode(eng, decode_steps, suffixes, steps: int, tag: str, names) -> 
         return out
 
     eng._decode_steps = profiled
-    eng.generate(input_ids=[suffixes], num_return_sequences=1, max_new_tokens=steps + 1,
-                 temperature=0.0, shared_cache_op=SharedCacheOp.PRESERVE)
+    request()
     prof, wall = window["prof"], window["wall_us"]
+    layer = eng.cache.unique_k[0]
+    copies = [e for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
+              and any(len(s) >= 3 and tuple(s[-3:]) == layer.shape[-3:]
+                      and math.prod(s) * 2 >= layer.numel() for s in e.input_shapes)]
+    print(f"[profile {tag}] copies of half a unique-cache layer (a view of "
+          f"{tuple(layer.shape)}) or more in {steps} decode steps: {len(copies)}", flush=True)
+    if copies:
+        failures.append(f"{tag} decode copies the unique cache: "
+                        f"{[(e.name, e.input_shapes) for e in copies[:4]]}")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = defaultdict(lambda: [0.0, 0])
@@ -585,6 +769,100 @@ def profile_decode(eng, decode_steps, suffixes, steps: int, tag: str, names) -> 
      ).write_text(table)
 
 
+def drive_no_sharing(args, failures: list) -> dict:
+    """The no-sharing baseline against Hydragen on Llama-3-8B, one engine,
+    ``bench.py:70-96``'s protocol: Hydragen first (``setup_caches(256, 64,
+    [1], [2048])``), then the baseline (``setup_caches(256, 64 + 2,048 + 8,
+    [1], [2048])``, ``disable_hydragen=True``), each one request of a
+    2,048-token prompt with 256 greedy completions of 64 tokens (WIPE). The
+    baseline's launches are counted; its tokens must equal Hydragen's. Where
+    a bf16 tie breaks the other way, the baseline is run again on Hydragen's
+    tokens (``token_overrides``) and its logits must stay within TOL_NOSHARE
+    of Hydragen's at every step. Then 8 decode steps of the baseline are
+    profiled. Returns the baseline request's launch counts."""
+    from hydragen_torch import HydragenLlama, SharedCacheOp
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.utils.capacity import kv_cache_bytes
+
+    tag, cfg, T = "gqa no-sharing", PRESETS["llama-3-8b"], NEW_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    eng = HydragenLlama(cfg, init_params(cfg, g, quantized="w8a8", device="cuda"),
+                        quantization="w8a8")
+    prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
+    decode_steps, decode_s = time_decode_loop(eng)
+    kw = dict(input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T,
+              temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=args.seed)
+    stats = {}
+    runs = {}
+    for name, unique_len, nohydra in (("hydragen", T, False),
+                                      ("no-sharing", T + SHARED_LEN + 8, True)):
+        eng.cache = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng.setup_caches(BATCH, unique_len, [1], [SHARED_LEN], kv_quant="int8")
+        torch.cuda.synchronize()
+        print(f"[{tag}] {name}: cache {kv_cache_bytes(cfg, BATCH, unique_len, [1], [SHARED_LEN], 'int8') / 1e9:.3f} GB, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        decode_s[0] = 0.0
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        toks = eng.generate(disable_hydragen=nohydra, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[name] = (toks, {k: v for k, v in cuda_lib.LAUNCHES.items() if v})
+        stats[name] = dict(request_s=wall, decode_s=decode_s[0],
+                           decode_tok_s=BATCH * (T - 1) / decode_s[0],
+                           peak_GiB=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{tag}] {json.dumps(stats)}", flush=True)
+    print(f"[{tag}] hydragen / no-sharing decode rate: "
+          f"{stats['hydragen']['decode_tok_s'] / stats['no-sharing']['decode_tok_s']:.3f}",
+          flush=True)
+    launches = runs["no-sharing"][1]
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    want = expected_launches_no_sharing(cfg.num_hidden_layers, T)
+    if launches != want:
+        failures.append(f"{tag} launches {launches} != expected {want}")
+    th, tn = runs["hydragen"][0], runs["no-sharing"][0]
+    ok = tuple(tn.shape) == (BATCH, T) and bool((tn == tn[:1]).all())
+    same = bool(torch.equal(th, tn))
+    print(f"[{tag}] tokens {tuple(tn.shape)}, rows alike {ok}, equal to Hydragen's: {same}",
+          flush=True)
+    if not ok:
+        failures.append(f"{tag}: tokens {tuple(tn.shape)}, rows differ")
+    if not same:
+        # Both runs on Hydragen's tokens: the logits of row 0 (rows alike).
+        logits = {}
+        for name, unique_len, nohydra in (("hydragen", T, False),
+                                          ("no-sharing", T + SHARED_LEN + 8, True)):
+            eng.cache = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng.setup_caches(BATCH, unique_len, [1], [SHARED_LEN], kv_quant="int8")
+            _, lg = eng.generate(disable_hydragen=nohydra, token_overrides=th,
+                                 return_logits=True, **kw)
+            logits[name] = [x[0].float() for x in lg]
+            del lg
+        worst = 0.0
+        for step, (a, b) in enumerate(zip(logits["no-sharing"], logits["hydragen"])):
+            r = rms_rel(a, b)
+            worst = max(worst, r)
+            print(f"[{tag}]   forced step {step}: rms distance {r:.4g}, argmax equal "
+                  f"{bool(a.argmax() == b.argmax())}", flush=True)
+        print(f"[{tag}] forced stream: largest rms distance {worst:.4g} (tol {TOL_NOSHARE})",
+              flush=True)
+        if worst > TOL_NOSHARE:
+            failures.append(f"{tag}: forced-stream logits {worst:.4g} from Hydragen's > "
+                            f"{TOL_NOSHARE}")
+    eng._decode_steps = decode_steps  # the last set-up is the baseline's cache
+    profile_decode(eng, decode_steps, lambda: eng.generate(
+        disable_hydragen=True, **dict(kw, max_new_tokens=PROFILE_STEPS + 1)), "gqa_nosharing",
+        ("flash_decode_kernel", "w8a8_kernel", "flash_kernel"), failures)
+    return launches
+
+
 @contextlib.contextmanager
 def only_kernel(keep: str | None):
     """Within the block, every kernel wrapper but ``keep`` is replaced by its
@@ -592,19 +870,26 @@ def only_kernel(keep: str | None):
     ``keep=None`` leaves them all on the kernel."""
     from hydragen_torch.ops import decode, flash, gemm
 
+    # launch key: (module, the attribute the model calls, its plain version);
+    # flash_attention_bhsd routes to K2's kernel or to K5 by the two private
+    # launchers, swapped apart.
     swaps = {
-        "w8a8_matmul_cached": (gemm, gemm.w8a8_cached_plain),
-        "w4a8_matmul_cached": (gemm, gemm.w4a8_cached_plain),
-        "flash_attention_cached_bhsd": (flash, flash.flash_attention_cached_plain),
-        "decode_attention_cached": (decode, decode.decode_attention_cached_plain),
-        "flash_attention_bhsd": (flash, flash.flash_attention_bhsd_plain),
-        "write_token_int4_cached": (decode, decode.write_token_int4_cached_plain),
+        "w8a8_matmul_cached": (gemm, "w8a8_matmul_cached", gemm.w8a8_cached_plain),
+        "w4a8_matmul_cached": (gemm, "w4a8_matmul_cached", gemm.w4a8_cached_plain),
+        "flash_attention_cached_bhsd": (flash, "flash_attention_cached_bhsd",
+                                        flash.flash_attention_cached_plain),
+        "decode_attention_cached": (decode, "decode_attention_cached",
+                                    decode.decode_attention_cached_plain),
+        "flash_attention_bhsd": (flash, "_flash_bhsd", flash.flash_attention_bhsd_plain),
+        "flash_decode_bhsd": (flash, "_flash_decode_bhsd", flash.flash_attention_bhsd_plain),
+        "write_token_int4_cached": (decode, "write_token_int4_cached",
+                                    decode.write_token_int4_cached_plain),
     }
     saved = []
-    for name, (mod, plain) in swaps.items():
+    for name, (mod, attr, plain) in swaps.items():
         if keep is not None and name != keep:
-            saved.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, plain)
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, plain)
     try:
         yield
     finally:
@@ -617,13 +902,17 @@ def rms_rel(out, ref) -> float:
     return float((out - ref).norm() / ref.norm().clamp_min(1e-6))
 
 
-# The two configurations of the plain-path check: quantization, kv_quant and
-# the kernels run alone (K3 reads int4 in the int4 configuration).
+# The configurations of the plain-path check: preset, quantization, kv_quant
+# and the kernels run alone (K3 reads int4 in the int4 configuration; the GQA
+# configuration's unique read is K5).
 PLAIN_PATHS = {
-    "w8a8": ("w8a8", "int8", ("w8a8_matmul_cached", "flash_attention_cached_bhsd",
-                              "decode_attention_cached", "flash_attention_bhsd")),
-    "int4": ("w4a8", "int4", ("w4a8_matmul_cached", "decode_attention_cached",
-                              "write_token_int4_cached")),
+    "w8a8": ("llama-2-7b", "w8a8", "int8",
+             ("w8a8_matmul_cached", "flash_attention_cached_bhsd", "decode_attention_cached",
+              "flash_attention_bhsd")),
+    "int4": ("llama-2-7b", "w4a8", "int4", ("w4a8_matmul_cached", "decode_attention_cached",
+                                            "write_token_int4_cached")),
+    "gqa": ("llama-3-8b", "w8a8", "int8", ("w8a8_matmul_cached", "flash_attention_cached_bhsd",
+                                           "flash_decode_bhsd", "flash_attention_bhsd")),
 }
 
 
@@ -631,8 +920,9 @@ def check_plain_path(args, failures: list, path: str) -> None:
     """The kernel path against impl="torch" at 2 layers of full width, on
     one forced token stream, so all runs read the same tokens.
 
-    "w8a8": one request, a 2,048-token shared prompt and 256 rows, 3 forced
-    steps. "int4": the same prompt prefilled by a first request, then 256
+    "w8a8" (Llama-2-7B) and "gqa" (Llama-3-8B, whose BHSD unique cache is
+    read by K5): one request, a 2,048-token shared prompt and 256 rows, 3
+    forced steps. "int4": the same prompt prefilled by a first request, then 256
     7-token suffixes over it and 4 forced steps: the 16-token unique window
     has S = 8 byte rows, the suffix prefill (padded to the window) packs
     both planes, and decode writes slot 7 (low plane) then 8 and 9 (high
@@ -651,14 +941,14 @@ def check_plain_path(args, failures: list, path: str) -> None:
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
 
-    quant, kv_quant, kernels = PLAIN_PATHS[path]
+    preset, quant, kv_quant, kernels = PLAIN_PATHS[path]
     tag = f"plain {path}"
-    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=2)
+    cfg = dataclasses.replace(PRESETS[preset], num_hidden_layers=2)
     g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     params = init_params(cfg, g, quantized=quant, device="cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
     suffixes = torch.randint(1, cfg.vocab_size, (BATCH, 7), generator=g, device="cuda")
-    steps = 3 if path == "w8a8" else 4
+    steps = 4 if path == "int4" else 3
     forced = torch.randint(1, cfg.vocab_size, (BATCH, steps), generator=g, device="cuda")
 
     def fp32(tree):  # quantized payloads and their bf16 scales stay as they are
@@ -678,7 +968,7 @@ def check_plain_path(args, failures: list, path: str) -> None:
         eng = HydragenLlama(c, p, impl=impl, quantization=quant)
         eng.setup_caches(BATCH, 16, [1], [SHARED_LEN], kv_quant=kv_quant)
         with only_kernel(keep):
-            if path == "w8a8":
+            if path != "int4":
                 _, lg = eng.generate(input_ids=[prompt], num_return_sequences=BATCH,
                                      max_new_tokens=steps,
                                      shared_cache_op=SharedCacheOp.WIPE, **kw)
@@ -743,13 +1033,17 @@ def main() -> int:
           f"wall {time.perf_counter() - t:.2f} s into {cuda_lib.build_dir()}", flush=True)
 
     report: dict = {}
-    launches: dict = {"main": {}, "int4": {}}
+    launches: dict = {"main": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {}}
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
         ("int4 path", lambda: launches["int4"].update(drive_path(args, failures, "int4"))),
+        ("gqa path", lambda: launches["gqa"].update(drive_path(args, failures, "gqa"))),
+        ("gqa no-sharing", lambda: launches["gqa no-sharing"].update(
+            drive_no_sharing(args, failures))),
         ("plain path", lambda: check_plain_path(args, failures, "w8a8")),
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
+        ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
     )
     for name, phase in phases:
         t = time.perf_counter()
@@ -780,6 +1074,7 @@ def main() -> int:
         "w4a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:495", "int4"),
         "write_token_int4_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:729",
                                     "int4"),
+        "flash_decode_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:715", "gqa"),
     }
     kernels = []
     for name, (src, replaces, path) in sources.items():

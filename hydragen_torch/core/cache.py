@@ -408,12 +408,72 @@ def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: int,
 def repeat_unique_for_samples(cache: KVCache, current_size: int,
                               num_samples: int) -> KVCache:
     """repeat_interleave rows [0:current_size] -> [0:current_size*num_samples],
-    in place."""
+    in place. Layer by layer, as a broadcast copy of a clone of the source
+    rows: the transient is one layer's source rows, not a repeated buffer
+    (17.8 GB a buffer for the no-sharing baseline at 8B)."""
     if num_samples == 1:
         return cache
     n = current_size * num_samples
     for buf in (cache.unique_k, cache.unique_v, cache.unique_k_scale,
                 cache.unique_v_scale):
-        if buf is not None:
-            buf[:, :n] = buf[:, :current_size].repeat_interleave(num_samples, dim=1)
+        if buf is None:
+            continue
+        for li in range(buf.shape[0]):
+            src = buf[li, :current_size].clone()
+            buf[li, :n].unflatten(0, (current_size, num_samples)).copy_(src[:, None])
+    return cache
+
+
+def copy_shared_to_unique(cache: KVCache, total_num_sequences: int,
+                          sb: int | None = None) -> KVCache:
+    """Write level 0 into the front of every unique row, in place, in the
+    unique cache's storage format: the no-sharing (``disable_hydragen``)
+    baseline, where each row holds its whole history. Prefix ``i`` of the
+    level's ``sb`` filled prefixes goes to rows ``[i*rep, (i+1)*rep)``, rep =
+    ``total_num_sequences // sb``; all ``S`` allocated level tokens are
+    copied and later unique positions follow them. Layer by layer, so the
+    transient is one layer's level (quantized or dequantized where the two
+    formats differ). Port of ``hydragen_tpu.core.cache.copy_shared_to_unique``.
+    """
+    if cache.unique_bits != 8:
+        raise ValueError("copy_shared_to_unique: int4 unique KV cannot host the copied "
+                         "prefix (run the no-sharing baseline with kv_quant='int8')")
+    level = cache.shared[0]
+    if sb is None:
+        sb = level.max_batch_size
+    assert total_num_sequences % sb == 0, (total_num_sequences, sb)
+    rep = total_num_sequences // sb
+    n, S = total_num_sequences, level.max_seq_len
+    hkv = level.k.shape[2]
+
+    def stored(payload, scale):
+        """One layer's level [sb, hkv, S, hd] in the unique cache's format."""
+        if cache.quantized and scale is None:
+            return quantize_kv(payload)
+        if not cache.quantized and scale is not None:
+            return (payload.float() * scale[..., None]).to(cache.unique_k.dtype), None
+        return payload, scale
+
+    def put(dst, src):
+        """src [sb, ...] repeated into dst [n, ...] (rows of one prefix together)."""
+        dst.unflatten(0, (sb, rep)).copy_(src[:, None])
+
+    for li in range(level.k.shape[0]):
+        for buf, sbuf, lp, ls in ((cache.unique_k, cache.unique_k_scale, level.k,
+                                   level.k_scale),
+                                  (cache.unique_v, cache.unique_v_scale, level.v,
+                                   level.v_scale)):
+            p, s = stored(lp[li, :sb], None if ls is None else ls[li, :sb])
+            if cache.unique_bshd:
+                put(buf[li, :n, :S], p.transpose(1, 2))
+                if s is not None:
+                    if cache.flat_scales:
+                        # [sb, hkv, S] -> token-major head-minor [sb, S*hkv].
+                        put(sbuf[li, :n, :S * hkv], s.transpose(1, 2).reshape(sb, S * hkv))
+                    else:
+                        put(sbuf[li, :n, :S], s.transpose(1, 2))
+            else:
+                put(buf[li, :n, :, :S], p)
+                if s is not None:
+                    put(sbuf[li, :n, :, :S], s)
     return cache

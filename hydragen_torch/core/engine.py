@@ -21,6 +21,7 @@ import torch
 from hydragen_torch.core.cache import (
     KVCache,
     allocate_cache,
+    copy_shared_to_unique,
     repeat_unique_for_samples,
     set_shared_level_buffers,
     shared_len_for_batch,
@@ -171,6 +172,8 @@ class HydragenLlama:
         # steps. 0 disables.
         self.eos_chunk = eos_chunk
         self._disable_attention = False
+        # Set by generate(disable_hydragen=True) for the call's duration.
+        self._disable_hydragen = False
 
     # -- cache management ----------------------------------------------------
 
@@ -233,7 +236,7 @@ class HydragenLlama:
             level_filled=tuple(self.level_filled),
             unique_history=unique_history,
             unique_filled=self.cache.max_unique_seq_len if unique_history else 0,
-            disable_hydragen=False,
+            disable_hydragen=self._disable_hydragen,
             disable_attention=self._disable_attention,
             impl=self.impl,
             matmul=self.matmul_impl,
@@ -299,17 +302,25 @@ class HydragenLlama:
         if has_pad:
             seq_lens = self._ids(seq_lens)
         b, t = input_ids.shape
-        spec = self._spec("unique_prefill", unique_history=False)
+        nohydra = self._disable_hydragen
+        spec = self._spec("unique_prefill",
+                          unique_history=nohydra and self.num_used_levels > 0)
         shared_lens = shared_len_for_batch(self.cache, spec.num_used_levels, b,
                                            spec.level_batch or None)
         ar = torch.arange(t, device=self.device, dtype=torch.int32)[None, :]
         pos = shared_lens[:, None] + ar
-        unique_pos = ar.expand(b, t)
+        # No sharing: the prefix was copied to the front of each unique row,
+        # so unique positions are global and the copy is attention history.
+        unique_pos = pos if nohydra else ar.expand(b, t)
         hidden, nk, nv = model_forward(
             self.params, self.config, self.cache, input_ids, pos, unique_pos, spec,
+            history_lens=shared_lens if nohydra else None,
             quantize_new_kv=self.cache.unique_bits if self.cache.quantized else None,
         )
-        update_unique_prefill(self.cache, nk, nv)
+        # All rows share one prefix length (generate allows one prefix), so
+        # the suffixes are one block after the copied prefix.
+        update_unique_prefill(self.cache, nk, nv,
+                              start=int(shared_lens[0]) if nohydra and b else 0)
         return logits_from_hidden(self.params, self.config, hidden,
                                   seq_lens if has_pad else None)
 
@@ -320,7 +331,9 @@ class HydragenLlama:
         """``steps`` decode steps from ``first_token``; returns (tokens
         [b, steps], logits list, next input token)."""
         spec = self._spec("decode", unique_history=True)
-        inplace = uniform_slot is not None and is_quantized_params(self.params)
+        # No sharing writes through the batched update, as the JAX engine does.
+        inplace = (uniform_slot is not None and is_quantized_params(self.params)
+                   and not spec.disable_hydragen)
         tok = first_token
         toks, logits_seq = [], []
         for i in range(steps):
@@ -363,6 +376,7 @@ class HydragenLlama:
         stop_sequences: Optional[Sequence[Sequence[int]]] = None,
         return_logits: bool = False,
         shared_cache_op: str = SharedCacheOp.PRESERVE,
+        disable_hydragen: bool = False,
         disable_attention: bool = False,
         token_overrides=None,
         seed: int = 0,
@@ -373,7 +387,14 @@ class HydragenLlama:
         per-sequence suffixes unless ``num_return_sequences > 1``, in which
         case every given level is shared and the samples are the unique rows.
         Returns tokens ``[b, T]`` int32 (and the per-step logits when
-        ``return_logits``)."""
+        ``return_logits``).
+
+        ``disable_hydragen``: the no-sharing baseline. Exactly two levels in
+        all (kept, given and the samples' level), the first of one prefix.
+        The last given input is the unique rows' prefill, a level in use is
+        copied into the front of every unique row (``copy_shared_to_unique``)
+        and attention reads each row's whole history from the unique cache.
+        Refused with int4 unique KV."""
         assert self.cache is not None, "call setup_caches first"
         assert (input_ids is None) or (starting_logits is None)
         assert not (input_ids is None and starting_logits is None)
@@ -392,6 +413,11 @@ class HydragenLlama:
         if shared_cache_op == SharedCacheOp.WIPE:
             self.empty_shared_cache()
         og_levels = self.num_used_levels
+        if disable_hydragen:
+            total_levels = og_levels + len(input_ids) + (1 if num_return_sequences > 1 else 0)
+            assert total_levels == 2, "disable_hydragen supports exactly 2 levels"
+            if input_ids and (num_return_sequences > 1 or len(input_ids) == 2):
+                assert input_ids[0].shape[0] == 1
 
         if seq_lens is None:
             seq_lens = [None] * len(input_ids)
@@ -402,7 +428,7 @@ class HydragenLlama:
         else:
             total_batch = int(starting_logits.shape[0]) * num_return_sequences
 
-        if num_return_sequences > 1:
+        if num_return_sequences > 1 and not disable_hydragen:
             shared_ids, shared_lens_in = input_ids, seq_lens
             suffix_ids, suffix_lens = None, None
         elif input_ids:
@@ -416,14 +442,27 @@ class HydragenLlama:
         for sid, slen in zip(shared_ids, shared_lens_in):
             starting_logits = self.append_shared(sid, slen)
 
+        if disable_hydragen:
+            if self.cache.unique_bits == 4:
+                raise ValueError(
+                    "disable_hydragen is unsupported with kv_quant='int4': the copied "
+                    "prefix would need nibble packs at an offset (run the baseline with "
+                    "kv_quant='int8')")
+            self._disable_hydragen = True
+            if self.num_used_levels > 0:
+                copy_shared_to_unique(self.cache, total_batch, self.level_batch[0])
+
         suffix_lens_np = None if suffix_lens is None else np.asarray(
             suffix_lens.cpu() if torch.is_tensor(suffix_lens) else suffix_lens)
         suffix_uniform = suffix_lens_np is None or bool(
             np.all(suffix_lens_np == suffix_lens_np.flat[0]))
         if suffix_ids is not None:
+            # No bucketing under no sharing: the suffix block lands after the
+            # copied prefix, and a padded width could overflow the row.
             suffix_ids, suffix_lens, _ = _pad_to_bucket(
                 suffix_ids, None if suffix_lens is None else self._ids(suffix_lens),
-                self.prefill_bucket, self.cache.max_unique_seq_len,
+                0 if disable_hydragen else self.prefill_bucket,
+                self.cache.max_unique_seq_len,
             )
             starting_logits = self.process_unique(suffix_ids, suffix_lens)
             if num_return_sequences > 1:
@@ -459,6 +498,13 @@ class HydragenLlama:
             start_unique_pos = torch.zeros((total_batch,), dtype=torch.int32,
                                            device=self.device)
             uniform_slot = 0
+        if disable_hydragen:
+            # Unique positions are global; the slot is uniform when every
+            # row's history has one length (checked on the host, once).
+            start_unique_pos = start_pos.to(torch.int32)
+            sp = start_unique_pos.cpu()
+            uniform_slot = (int(sp[0]) if len(sp) and suffix_uniform
+                            and bool((sp == sp[0]).all()) else None)
 
         use_overrides = token_overrides is not None
         if use_overrides:
@@ -518,6 +564,8 @@ class HydragenLlama:
 
         if shared_cache_op == SharedCacheOp.PRESERVE:
             self.truncate_shared_caches(og_levels)
+        if disable_hydragen:
+            self._disable_hydragen = False
         if disable_attention:
             self._disable_attention = False
         if return_logits:

@@ -12,8 +12,12 @@ length.
 On a CUDA tensor every kernel-eligible call goes to a hand-written kernel:
 the s8 GEMMs for each projection under ``matmul="w8a8"`` (int8 weights) or
 ``"w4a8"`` (int4 weights), the cached flash read for each shared level, the
-int8 or int4 decode read (with the own token and the shared partial merged
-in), the in-place int4 decode write, and causal flash attention for prefill.
+int8 or int4 decode read of a BSHD unique cache (with the own token and the
+shared partial merged in) or the small-M flash read of a BHSD one (a GQA
+model's layout; its per-layer view read in place), the in-place int4 decode
+write, and causal flash attention for prefill. ``disable_hydragen`` (the
+no-sharing baseline) skips the level reads: each row's history, the copied
+prefix included, is in the unique cache.
 ``impl="torch"`` runs every op's plain PyTorch version instead, on any
 device.
 """

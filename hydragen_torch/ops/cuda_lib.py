@@ -36,6 +36,7 @@ LAUNCHES: dict[str, int] = {
     "w8a8_matmul": 0,
     "flash_attention_cached_bhsd": 0,
     "flash_attention_bhsd": 0,
+    "flash_decode_bhsd": 0,
     "decode_attention_cached": 0,
     "decode_attention_cached_int4": 0,
     "w4a8_matmul_cached": 0,

@@ -1,10 +1,13 @@
-"""Flash attention returning ``(out, lse)``: the CUDA kernel of
+"""Flash attention returning ``(out, lse)``: the two CUDA kernels of
 ``csrc/flash.cu`` behind two entries, each with its plain PyTorch version.
 
 Port of ``hydragen_tpu.ops.flash``:
 - ``flash_attention_bhsd``: causal prefill (diagonal aligned to the end) and
   non-causal reads, optional ``kv_seq_lens`` and int8 KV with per-token
-  scales, GQA folded into the query rows;
+  scales, GQA folded into the query rows; a non-causal call with at most 32
+  folded query rows (a decode step's read of a BHSD cache) goes to the
+  second kernel of ``csrc/flash.cu``, the small-M read (flash-decoding), which
+  reads k/v through their strides;
 - ``flash_attention_cached_bhsd``: non-causal read of ONE layer of the
   stacked shared-level buffers ``[L, SB, hkv, S, d]``, in place;
 - ``flash_attention``: the BSHD wrapper.
@@ -25,6 +28,10 @@ from hydragen_torch.ops.reference import attention_bhsd
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)
+# K5 takes non-causal calls with at most this many folded query rows (the
+# JAX package's decode-kernel threshold); its KV split covers this many keys.
+DECODE_MAX_M = 32
+DECODE_CHUNK = 512
 
 
 def _fn():
@@ -104,10 +111,23 @@ def flash_attention_bhsd(
 
     q ``[b, hq, m, d]``, k/v ``[b, hkv, s, d]`` (int8 with ``k_scale`` /
     ``v_scale`` ``[b, hkv, s]`` f32). Returns (out ``[b, hq, m, d]``, lse
-    ``[b, hq, m]`` f32), as ``ops.reference.attention_bhsd``."""
+    ``[b, hq, m]`` f32), as ``ops.reference.attention_bhsd``.
+
+    On a CUDA tensor a non-causal call with at most ``DECODE_MAX_M`` folded
+    query rows (``hq // hkv * m``) launches the small-M read (K5), as the JAX
+    package sends it to its decode kernel; every other call launches K2's
+    kernel (K4 when causal)."""
+    kw = dict(causal=causal, kv_seq_lens=kv_seq_lens, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
     if not q.is_cuda:
-        return flash_attention_bhsd_plain(q, k, v, causal=causal, kv_seq_lens=kv_seq_lens,
-                                          scale=scale, k_scale=k_scale, v_scale=v_scale)
+        return flash_attention_bhsd_plain(q, k, v, **kw)
+    if not causal and q.shape[1] // k.shape[1] * q.shape[2] <= DECODE_MAX_M:
+        return _flash_decode_bhsd(q, k, v, **kw)
+    return _flash_bhsd(q, k, v, **kw)
+
+
+def _flash_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale):
+    """K2's kernel (K4 when causal) on contiguous operands."""
     b, hq, m, d = q.shape
     _, hkv, s, _ = k.shape
     assert hq % hkv == 0 and k.shape == v.shape and k.shape[0] == b
@@ -124,6 +144,98 @@ def flash_attention_bhsd(
         causal=causal, scale=scale,
     )
     cuda_lib.LAUNCHES["flash_attention_bhsd"] += 1
+    return out.reshape(b, hq, m, d), lse.reshape(b, hq, m)
+
+
+def _decode_fn():
+    f = cuda_lib.library("flash").hydragen_flash_decode
+    f.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    f.restype = ctypes.c_int
+    return f
+
+
+def decode_splits(BH: int, S: int, n_sm: int) -> tuple[int, int]:
+    """K5's KV split: (splits, keys a split covers). One split when the
+    ``BH`` rows already fill the ``n_sm`` SMs; otherwise ``DECODE_CHUNK``-key
+    chunks, so the grid fills the card."""
+    if BH >= n_sm or S <= DECODE_CHUNK:
+        return 1, max(S, 1)
+    return -(-S // DECODE_CHUNK), DECODE_CHUNK
+
+
+def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale):
+    """K5: the small-M non-causal read, k/v and their scales read in place
+    through their strides (a cache's per-layer view is not copied)."""
+    assert not causal
+    b, hq, m, d = q.shape
+    _, hkv, s, _ = k.shape
+    if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[-1] != d:
+        raise ValueError(f"flash kernel (decode): q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    M = hq // hkv * m
+    if M > DECODE_MAX_M:
+        raise ValueError(f"flash kernel (decode): {M} folded query rows > {DECODE_MAX_M}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel (decode): head_dim {d} not in {HEAD_DIMS}")
+    dev = q.device
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash kernel (decode): q must be bfloat16, got {q.dtype}")
+    int8 = k.dtype == torch.int8
+    if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
+        raise ValueError(f"flash kernel (decode): k/v must both be bfloat16 or int8, got "
+                         f"{k.dtype} / {v.dtype}")
+    if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("flash kernel (decode): int8 k/v need f32 scales, bf16 k/v none")
+    elem = k.element_size()
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev or t.stride(-1) != 1 or any(x * elem % 16 for x in t.stride()[:3]):
+            raise ValueError(f"flash kernel (decode): {name} must lie on {dev} with its last "
+                             f"dim contiguous and 16-byte aligned rows, got strides "
+                             f"{t.stride()} on {t.device}")
+        cuda_lib.check_aligned(f"flash kernel (decode): {name}", t)
+    strides = list(k.stride()[:3]) + list(v.stride()[:3])
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != dev or t.dtype != torch.float32 or t.shape != k.shape[:3]:
+                raise ValueError(f"flash kernel (decode): {name} must be f32 {tuple(k.shape[:3])}"
+                                 f" on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            strides += list(t.stride())
+    else:
+        strides += [0] * 6
+    lens = None
+    if kv_seq_lens is not None:
+        lens = kv_seq_lens.to(device=dev, dtype=torch.int32).contiguous()
+        if lens.shape != (b,):
+            raise ValueError(f"flash kernel (decode): kv_seq_lens must be [{b}], got "
+                             f"{tuple(lens.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    BH = b * hkv
+    qf = q.contiguous().reshape(BH, M, d)  # GQA fold: a pure view of BHSD
+    out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
+    if BH and M:
+        splits, chunk = decode_splits(
+            BH, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+        o_part = lse_part = None
+        if splits > 1:
+            o_part = torch.empty((splits, BH, M, d), dtype=torch.float32, device=dev)
+            lse_part = torch.empty((splits, BH, M), dtype=torch.float32, device=dev)
+        st = (ctypes.c_longlong * 12)(*strides)
+        status = _decode_fn()(
+            qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+            lens.data_ptr() if lens is not None else None, ctypes.addressof(st),
+            out.data_ptr(), lse.data_ptr(),
+            o_part.data_ptr() if o_part is not None else None,
+            lse_part.data_ptr() if lse_part is not None else None,
+            BH, M, s, hkv, d, int(int8), splits, chunk, scale * LOG2E,
+            cuda_lib.stream_ptr(dev),
+        )
+        cuda_lib.check(status, "flash decode")
+        cuda_lib.LAUNCHES["flash_decode_bhsd"] += 1
     return out.reshape(b, hq, m, d), lse.reshape(b, hq, m)
 
 

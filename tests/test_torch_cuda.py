@@ -381,3 +381,123 @@ def test_timing_helpers_time_device_work(dev):
     times, warm = timed(lambda: x @ x, num_iters=3, num_warmup=2,
                         between_fn=lambda: x.zero_().add_(1))
     assert len(times) == 3 and len(warm) == 2 and min(times) > 0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S,lens", [(300, [300, 0, 211, 1, 64, 299]),
+                                    (2000, [2000, 0, 1500, 513, 7, 1999])],
+                         ids=["one_split", "four_splits"])
+@pytest.mark.parametrize("hq,hkv,m", [(8, 2, 1), (16, 1, 2)], ids=["M4", "M32"])
+def test_flash_decode_kernel_matches_plain(dev, d, int8, S, lens, hq, hkv, m):
+    """K5 against its plain version on strided views of a larger cache (more
+    rows, layers and slots than read), a row of length 0 (out 0, lse -inf),
+    one split (S <= 512) and four (6 * hkv rows cannot fill the card), M = 4
+    (one m16 tile) and M = 32 (two)."""
+    g = _gen(19)
+    b, L, extra = 6, 3, 16
+    shape = (L, b + 2, hkv, S + extra, d)
+    if int8:
+        k_all, v_all = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                                      generator=g) for _ in range(2))
+        ks_all, vs_all = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
+                          for _ in range(2))
+        sc = dict(k_scale=ks_all[1, :b, :, :S], v_scale=vs_all[1, :b, :, :S])
+    else:
+        k_all, v_all = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                        for _ in range(2))
+        sc = {}
+    k, v = k_all[1, :b, :, :S], v_all[1, :b, :, :S]
+    assert not k.is_contiguous()
+    q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(kv_seq_lens=torch.tensor(lens, device=dev), **sc)
+    before = dict(cuda_lib.LAUNCHES)
+    o, l = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_decode_bhsd"] == before["flash_decode_bhsd"] + 1
+    assert cuda_lib.LAUNCHES["flash_attention_bhsd"] == before["flash_attention_bhsd"]
+    po, pl = tflash.flash_attention_bhsd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+    assert torch.isneginf(l[1]).all() and (o[1] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["fp32_q", "head_dim_32", "token_stride_misaligned",
+                                  "int8_without_scales", "M40"])
+def test_flash_decode_wrapper_raises_on_operands_its_kernel_does_not_take(dev, case):
+    """On a CUDA tensor a small-M non-causal call launches K5 or raises; it
+    never falls back to K2's kernel or the plain version."""
+    g = _gen(20)
+    b, hq, hkv, m, S, d = 2, 8, 2, 1, 40, 128
+    if case == "head_dim_32":
+        d = 32
+    q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, hkv, S, d, device=dev, generator=g).to(torch.bfloat16)
+    v = k.clone()
+    kw = {}
+    if case == "fp32_q":
+        q = q.float()
+    elif case == "token_stride_misaligned":
+        k = torch.randn(b, hkv, S, d + 4, device=dev, generator=g).to(torch.bfloat16)[..., :d]
+    elif case == "int8_without_scales":
+        k = v = torch.zeros(b, hkv, S, d, dtype=torch.int8, device=dev)
+    before = dict(cuda_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="flash kernel"):
+        if case == "M40":
+            q = torch.randn(b, hq, 20, d, device=dev, generator=g).to(torch.bfloat16)
+            tflash._flash_decode_bhsd(q, k, v, causal=False, kv_seq_lens=None, scale=None,
+                                      k_scale=None, v_scale=None)
+        else:
+            tflash.flash_attention_bhsd(q, k, v, **kw)
+    assert dict(cuda_lib.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("no_sharing", [False, True], ids=["hydragen", "no_sharing"])
+def test_engine_gqa_kernel_path_matches_plain_path(dev, no_sharing):
+    """A 2-layer GQA engine (hq 4, hkv 1, head_dim 128: a BHSD unique cache),
+    w8a8 + int8 KV, along one forced token stream: the kernel path reads the
+    unique cache with K5 and never with K3, and its logits are as close to an
+    fp32 plain run as the plain bf16 path's are (mean RMS distance within
+    1.25x). With ``disable_hydragen`` the prompt is copied into every unique
+    row and K5 reads the whole history."""
+    from hydragen_torch import HydragenLlama, ModelConfig, SharedCacheOp
+    from hydragen_torch.models.llama import init_params
+
+    kw = dict(vocab_size=512, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=1, rope_theta=500000.0)
+    params = init_params(ModelConfig(**kw), _gen(21), quantized="w8a8", device=dev)
+    prompt = torch.randint(1, 512, (1, 200), generator=_gen(22), device=dev)
+    forced = torch.randint(1, 512, (8, 6), generator=_gen(23), device=dev)
+
+    def fp32(tree):  # quantized payloads and their bf16 scales stay as they are
+        if isinstance(tree, dict):
+            return {k: fp32(v) for k, v in tree.items()}
+        return tree if isinstance(tree, tuple) else tree.float()
+
+    logits = {}
+    for name, dtype, p, impl in (("fp32", "float32", fp32(params), "torch"),
+                                 ("plain", "bfloat16", params, "torch"),
+                                 ("kernel", "bfloat16", params, "kernel")):
+        e = HydragenLlama(ModelConfig(**kw, dtype=dtype), p, impl=impl, quantization="w8a8")
+        e.setup_caches(8, 16 + (208 if no_sharing else 0), [1], [256], kv_quant="int8")
+        assert not e.cache.unique_bshd
+        cuda_lib.reset_launches()
+        _, lg = e.generate(input_ids=[prompt], num_return_sequences=8, max_new_tokens=6,
+                           temperature=0.0, shared_cache_op=SharedCacheOp.WIPE,
+                           return_logits=True, token_overrides=forced,
+                           disable_hydragen=no_sharing)
+        logits[name] = [x.float() for x in lg]
+        counts = dict(cuda_lib.LAUNCHES)
+        if impl == "kernel":
+            assert counts["flash_decode_bhsd"] == 2 * 5 and counts["decode_attention_cached"] == 0
+            assert (counts["flash_attention_cached_bhsd"] == 0) == no_sharing, counts
+        else:
+            assert not any(counts.values()), counts
+
+    def mean_rms(run):
+        return sum(float((a - r).norm() / r.norm()) for a, r in zip(logits[run], logits["fp32"])
+                   ) / len(logits["fp32"])
+
+    assert all(torch.isfinite(x).all() for x in logits["kernel"])
+    assert mean_rms("kernel") <= 1.25 * mean_rms("plain"), (mean_rms("kernel"),
+                                                              mean_rms("plain"))
