@@ -11,7 +11,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    main path gives it, on the card, in bf16; its time (CUDA events), its bound
    (the larger of least bytes over 3.35 TB/s and least operations over the
    peak rate of their type) and, where one PyTorch call computes the same
-   function, that call's time.
+   function, that call's time. K2 and K4 are also timed at the other shapes
+   the paths give them (the 8B decode read, the 7B request-2 read, the 8B
+   prefill, the 7B suffix prefill), nested under their entries, and on the
+   device's clock alone (``device_ms``: a CUDA graph of the calls, no host
+   work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
+   head_dim 64.
 4. main path: ``HydragenLlama`` at ``PRESETS["llama-2-7b"]`` full width,
    random weights from a seeded ``torch.Generator``, ``quantization="w8a8"``,
    ``kv_quant="int8"``; one request with a 2,048-token shared prompt and 256
@@ -44,7 +49,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
-any phase fails or no CUDA device is present.
+any phase fails, no CUDA device is present or the package is not beside the
+script.
 """
 
 from __future__ import annotations
@@ -120,6 +126,7 @@ class Cycle:
 def check_kernels(report: dict, failures: list, time_ms) -> None:
     from hydragen_torch.ops import decode, flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -289,17 +296,38 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     kdq = dequantize_kv(lk[:, 0], lks[:, 0])[:, None]
     vdq = dequantize_kv(lv[:, 0], lvs[:, 0])[:, None]
     lms = time_ms(Cycle(lambda i: F.scaled_dot_product_attention(q, kdq[i], vdq[i]), NLV))
+    # Device time with no host work between calls (the wrapper's host time is
+    # about the kernel's here), and the same read of the dequantized bf16 k/v,
+    # which K2 takes by TMA straight into its ring: int8 against bf16 prices
+    # the int8 -> bf16 conversion and the scales.
+    dms = cuda_graph_time_ms(Cycle(
+        lambda i: flash.flash_attention_cached_bhsd(i, q, lk, lv, **kw), NLV))
+    lk16, lv16 = kdq.contiguous(), vdq.contiguous()
+    o16, lse16 = flash.flash_attention_cached_bhsd(NLV - 1, q, lk16, lv16, kv_seq_lens=lens)
+    po16, plse16 = flash.flash_attention_cached_plain(NLV - 1, q, lk16, lv16, kv_seq_lens=lens)
+    err16, rel16 = rel_err(o16, po16)
+    lerr16 = float((lse16 - plse16).abs().max())
+    dms16 = cuda_graph_time_ms(Cycle(lambda i: flash.flash_attention_cached_bhsd(
+        i, q, lk16, lv16, kv_seq_lens=lens), NLV))
+    ldms = cuda_graph_time_ms(Cycle(
+        lambda i: F.scaled_dot_product_attention(q, kdq[i], vdq[i]), NLV))
     nbytes = 2 * q.numel() * 2 + 2 * hkv * SHARED_LEN * d + 2 * hkv * SHARED_LEN * 4 \
         + hq * BATCH * 4
     ops = 4 * hq * BATCH * SHARED_LEN * d
     bms, by = bound_ms(nbytes, ops, "bf16")
     record("flash_attention_cached_bhsd", rel <= TOL_REL and lerr <= TOL_LSE,
            f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
-           f"plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}")
+           f"plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph): int8 "
+           f"{dms:.4f} bf16 {dms16:.4f} sdpa {ldms:.4f} ms")
+    record("flash_attention_cached_bhsd bf16 k/v", rel16 <= TOL_REL and lerr16 <= TOL_LSE,
+           f"max_abs_err {err16:.4g} rel {rel16:.3g} lse_err {lerr16:.3g}")
     report["flash_attention_cached_bhsd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
-        at="sb=1, 256 folded rows, S=2048 int8 (library: SDPA on bf16 dequantized k/v)",
+        device_ms=dms, bf16_device_ms=dms16, library_device_ms=ldms,
+        at="sb=1, 256 folded rows, S=2048 int8 (library: SDPA on bf16 dequantized k/v; "
+           "device_ms: from a CUDA graph of the calls; bf16_device_ms: K2 on those bf16 k/v)",
     )
+    del lk16, lv16, kdq, vdq
 
     # K3: the unique read of one decode layer: 256 rows, an int8 BSHD cache of
     # 64 slots with 63 written (the last step of a 64-token completion), own
@@ -348,16 +376,34 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     ms = time_ms(lambda: flash.flash_attention_bhsd(qp, kp, vp, causal=True))
     pms = time_ms(lambda: flash.flash_attention_bhsd_plain(qp, kp, vp, causal=True), iters=5)
     lms = time_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True))
+    dms = cuda_graph_time_ms(lambda: flash.flash_attention_bhsd(qp, kp, vp, causal=True))
+    ldms = cuda_graph_time_ms(
+        lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True))
+    # The same prefill at head_dim 64: half the products and bytes, the same
+    # number of scores, so the share of the time that does not fall with D is
+    # the per-score work (softmax, masks, a tile's synchronisation).
+    q64, k64, v64 = (x[..., :64].contiguous() for x in (qp, kp, vp))
+    o64, lse64 = flash.flash_attention_bhsd(q64, k64, v64, causal=True)
+    po64, plse64 = flash.flash_attention_bhsd_plain(q64, k64, v64, causal=True)
+    err64, rel64 = rel_err(o64, po64)
+    lerr64 = float((lse64 - plse64).abs().max())
+    dms64 = cuda_graph_time_ms(lambda: flash.flash_attention_bhsd(q64, k64, v64, causal=True))
     nbytes = 4 * qp.numel() * 2 + hq * SHARED_LEN * 4
     ops = 4 * hq * d * SHARED_LEN * (SHARED_LEN + 1) // 2
     bms, by = bound_ms(nbytes, ops, "bf16")
     record("flash_attention_bhsd causal", rel <= TOL_REL and lerr <= TOL_LSE,
            f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
-           f"plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}")
+           f"plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph): "
+           f"{dms:.4f}, at d=64 {dms64:.4f}, sdpa {ldms:.4f} ms")
+    record("flash_attention_bhsd causal d=64", rel64 <= TOL_REL and lerr64 <= TOL_LSE,
+           f"max_abs_err {err64:.4g} rel {rel64:.3g} lse_err {lerr64:.3g}")
     report["flash_attention_bhsd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
-        at="causal, 1x32 heads x 2048 x 128 bf16 (library: SDPA is_causal)",
+        device_ms=dms, d64_device_ms=dms64, library_device_ms=ldms,
+        at="causal, 1x32 heads x 2048 x 128 bf16 (library: SDPA is_causal; device_ms: "
+           "from a CUDA graph of the calls; d64_device_ms: K4 at head_dim 64)",
     )
+    del q64, k64, v64
     del qp, kp, vp, ck, cv, lk, lv
 
     # K3 at kv_bits=4: the unique read of one int4-path decode layer at its
@@ -426,6 +472,114 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     )
     del ck, cv, cks, cvs, bufs, plain
     check_gqa_kernels(report, failures, time_ms, g, record)
+    check_flash_shapes(report, time_ms, g, record)
+
+
+def check_flash_shapes(report: dict, time_ms, g, record) -> None:
+    """K2 and K4 at the other shapes the paths give them, each against its
+    plain version (one kv head at a time where the plain scores would not
+    fit), beside SDPA on the same bf16 work (``enable_gqa`` where grouped):
+    K2 at the 8B decode read and at the 7B request-2 read, K4 at the 8B
+    prefill and at the 7B suffix prefill. Nested under the 7B entries."""
+    from hydragen_torch.ops import flash
+    from hydragen_torch.ops.quant import dequantize_kv
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    d = 128
+
+    def compare(name, o, lse, po, plse):
+        err, rel = rel_err(o, po)
+        fin = torch.isfinite(plse)
+        lerr = float((lse[fin] - plse[fin]).abs().max()) if bool(fin.any()) else 0.0
+        return err, rel, lerr, rel <= TOL_REL and lerr <= TOL_LSE
+
+    def by_head(fn, q, hkv):
+        """fn(q_h, h) over kv heads h (q_h the query heads of h), stacked."""
+        group = q.shape[1] // hkv
+        outs = [fn(q[:, h * group:(h + 1) * group], h) for h in range(hkv)]
+        return torch.cat([o for o, _ in outs], 1), torch.cat([lse for _, lse in outs], 1)
+
+    # K2: one layer of an int8 level, S = 2,048, read in place.
+    for key, hq, hkv, m in (("llama_3_8b_decode", 32, 8, BATCH),
+                            ("request2_read", 32, 32, BATCH * SUFFIX_LEN)):
+        NL = 3
+        shape = (NL, 1, hkv, SHARED_LEN, d)
+        lk, lv = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+                  for _ in range(2))
+        lks, lvs = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
+                    for _ in range(2))
+        lens = torch.full((1,), SHARED_LEN, dtype=torch.int32, device=dev)
+        q = torch.randn(1, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+        kw = dict(kv_seq_lens=lens, k_scale_all=lks, v_scale_all=lvs)
+        o, lse = flash.flash_attention_cached_bhsd(NL - 1, q, lk, lv, **kw)
+
+        def plain(i):
+            return by_head(lambda qh, h: flash.flash_attention_cached_plain(
+                i, qh, lk[:, :, h:h + 1], lv[:, :, h:h + 1], kv_seq_lens=lens,
+                k_scale_all=lks[:, :, h:h + 1], v_scale_all=lvs[:, :, h:h + 1]), q, hkv)
+        err, rel, lerr, ok = compare(key, o, lse, *plain(NL - 1))
+        ms = time_ms(Cycle(lambda i: flash.flash_attention_cached_bhsd(i, q, lk, lv, **kw), NL))
+        pms = time_ms(Cycle(plain, NL), iters=2, warmup=1)
+        kdq = dequantize_kv(lk[:, 0], lks[:, 0]).to(torch.bfloat16)[:, None]
+        vdq = dequantize_kv(lv[:, 0], lvs[:, 0]).to(torch.bfloat16)[:, None]
+        lms = time_ms(Cycle(lambda i: F.scaled_dot_product_attention(
+            q, kdq[i], vdq[i], enable_gqa=hq != hkv), NL))
+        dms = cuda_graph_time_ms(Cycle(
+            lambda i: flash.flash_attention_cached_bhsd(i, q, lk, lv, **kw), NL))
+        ldms = cuda_graph_time_ms(Cycle(lambda i: F.scaled_dot_product_attention(
+            q, kdq[i], vdq[i], enable_gqa=hq != hkv), NL))
+        nbytes = 2 * q.numel() * 2 + 2 * hkv * SHARED_LEN * (d + 4) + hq * m * 4
+        bms, by = bound_ms(nbytes, 4 * hq * m * SHARED_LEN * d, "bf16")
+        splits, chunk = flash.flash_plan(
+            hkv, hq // hkv * m, SHARED_LEN,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        record(f"flash_attention_cached_bhsd {key}: hkv={hkv} M={hq // hkv * m} S={SHARED_LEN} "
+               f"int8, {splits} KV splits of {chunk}", ok,
+               f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} plain_ms "
+               f"{pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph) {dms:.4f}, "
+               f"sdpa {ldms:.4f} ms")
+        report["flash_attention_cached_bhsd"][key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+            device_ms=dms, library_device_ms=ldms,
+            at=f"hkv={hkv}, {hq // hkv * m} folded rows, S={SHARED_LEN} int8, KV splits "
+               f"{splits} (library: SDPA on bf16 dequantized k/v"
+               f"{', enable_gqa' if hq != hkv else ''}; plain: one kv head at a time)")
+        del lk, lv, lks, lvs, q, o, lse, kdq, vdq
+
+    # K4: causal bf16 prefills.
+    for key, b, hq, hkv, m in (("llama_3_8b_prefill", 1, 32, 8, SHARED_LEN),
+                               ("suffix_prefill", BATCH, 32, 32, SUFFIX_LEN)):
+        q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, m, d, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = flash.flash_attention_bhsd(q, k, v, causal=True)
+
+        def plain():
+            return by_head(lambda qh, h: flash.flash_attention_bhsd_plain(
+                qh, k[:, h:h + 1], v[:, h:h + 1], causal=True), q, hkv)
+        err, rel, lerr, ok = compare(key, o, lse, *plain())
+        ms = time_ms(lambda: flash.flash_attention_bhsd(q, k, v, causal=True))
+        pms = time_ms(plain, iters=2, warmup=1)
+        lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=hq != hkv))
+        dms = cuda_graph_time_ms(lambda: flash.flash_attention_bhsd(q, k, v, causal=True))
+        ldms = cuda_graph_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv))
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + b * hq * m * 4
+        bms, by = bound_ms(nbytes, 4 * b * hq * d * m * (m + 1) // 2, "bf16")
+        record(f"flash_attention_bhsd causal {key}: b={b} hq={hq} hkv={hkv} q_len=S={m}", ok,
+               f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} plain_ms "
+               f"{pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph) {dms:.4f}, "
+               f"sdpa {ldms:.4f} ms")
+        report["flash_attention_bhsd"][key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+            device_ms=dms, library_device_ms=ldms,
+            at=f"causal, b={b}, {hq} query heads over {hkv} kv heads, q_len=S={m}, bf16 "
+               f"(library: SDPA is_causal{', enable_gqa' if hq != hkv else ''}; plain: one kv "
+               "head at a time)")
+        del q, k, v, o, lse
 
 
 def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
@@ -602,11 +756,12 @@ def expected_launches_no_sharing(L: int, T: int) -> dict:
 # name: (tag, preset, quantization, kv_quant, expected launches, profile groups)
 PATHS = {
     "main": ("main", "llama-2-7b", "w8a8", "int8", expected_launches,
-             ("w8a8_kernel", "flash_kernel", "decode_kernel")),
+             ("w8a8_kernel", "flash_kernel", "split_combine", "decode_kernel")),
     "int4": ("int4", "llama-2-7b", "w4a8", "int4", expected_launches_int4,
-             ("w4a8_kernel", "flash_kernel", "decode_kernel", "write_int4_kernel")),
+             ("w4a8_kernel", "flash_kernel", "split_combine", "decode_kernel",
+              "write_int4_kernel")),
     "gqa": ("gqa", "llama-3-8b", "w8a8", "int8", expected_launches_gqa,
-            ("w8a8_kernel", "flash_decode_kernel", "decode_combine", "flash_kernel")),
+            ("w8a8_kernel", "flash_decode_kernel", "flash_kernel", "split_combine")),
 }
 
 
@@ -1012,8 +1167,13 @@ def main() -> int:
         return 2
     # Run from anywhere: the package is the checkout this script sits in.
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from hydragen_torch.ops import cuda_lib
-    from hydragen_torch.utils.timing import cuda_time_ms
+    try:
+        from hydragen_torch.ops import cuda_lib
+        from hydragen_torch.utils.timing import cuda_time_ms
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: {e}: run this script from the root of a checkout of the port",
+              file=sys.stderr)
+        return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

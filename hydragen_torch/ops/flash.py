@@ -19,6 +19,7 @@ or 128) or raises; a CPU tensor takes the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -32,16 +33,52 @@ HEAD_DIMS = (64, 128)
 # JAX package's decode-kernel threshold); its KV split covers this many keys.
 DECODE_MAX_M = 32
 DECODE_CHUNK = 512
+# K2/K4's block: query rows (two consumer warpgroups of 64) and keys a tile.
+FLASH_BM = 128
+FLASH_BN = 64
+# flash_plan's cost of a block, in key tiles, over and above its own tiles:
+# loading Q, filling the pipeline, writing out.
+FLASH_BLOCK_TILES = 2
 
 
+@functools.cache
 def _fn():
     f = cuda_lib.library("flash").hydragen_flash_attention
     f.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     f.restype = ctypes.c_int
     return f
+
+
+@functools.cache
+def flash_plan(BH: int, M: int, S: int, n_sm: int, causal: bool = False) -> tuple[int, int]:
+    """K2/K4's KV split: (splits, keys a split covers, a multiple of
+    ``FLASH_BN``). One block a (kv head, 128-row M block) and split, one
+    block an SM at a time. No split for a causal call, where the pairs alone
+    fill the ``n_sm`` SMs, or below 4 key tiles. Otherwise the split count
+    (each split at least 2 tiles) whose grid finishes first: waves of
+    ``n_sm`` blocks times each block's tiles plus ``FLASH_BLOCK_TILES``,
+    the fewer splits on a tie. At the 7B and 8B decode reads (64 pairs,
+    2,048 keys) that is 2 splits of 1,024 keys: 128 blocks, one wave."""
+    tiles = -(-S // FLASH_BN)
+    pairs = BH * -(-M // FLASH_BM)
+    if causal or pairs >= n_sm or tiles < 4:
+        return 1, max(tiles, 1) * FLASH_BN
+    best_cost, splits = None, 1
+    for s in range(1, tiles // 2 + 1):
+        cost = -(-pairs * s // n_sm) * (-(-tiles // s) + FLASH_BLOCK_TILES)
+        if best_cost is None or cost < best_cost:
+            best_cost, splits = cost, s
+    chunk = -(-tiles // splits) * FLASH_BN
+    return -(-S // chunk), chunk
+
+
+@functools.cache
+def _n_sm(dev: torch.device) -> int:
+    """The SM count of CUDA device ``dev`` (read once a device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(name, t, dev, dtypes):
@@ -54,7 +91,8 @@ def _check(name, t, dev, dtypes):
 
 def _launch(qf, k_rows, v_rows, ks_rows, vs_rows, lens, *, row_offset, BH, M, q_len,
             S, hkv, causal, scale):
-    """qf [BH, M, d] bf16; k/v rows [rows, S, d]; scales [rows, S] f32."""
+    """qf [BH, M, d] bf16; k/v [..., S, d] (``rows`` = the product of the
+    leading dims); scales [..., S] f32."""
     dev = qf.device
     d = qf.shape[-1]
     if d not in HEAD_DIMS:
@@ -78,12 +116,20 @@ def _launch(qf, k_rows, v_rows, ks_rows, vs_rows, lens, *, row_offset, BH, M, q_
     out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
     if BH and M:
+        splits, chunk = flash_plan(BH, M, S, _n_sm(dev), causal)
+        o_part = lse_part = None
+        if splits > 1:
+            # One f32 workspace: the partial outputs, then their lse.
+            n = splits * BH * M
+            ws = torch.empty(n * (d + 1), dtype=torch.float32, device=dev)
+            o_part, lse_part = ws.data_ptr(), ws.data_ptr() + 4 * n * d
         status = _fn()(
             qf.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
             ks_rows.data_ptr() if int8 else None, vs_rows.data_ptr() if int8 else None,
             lens.data_ptr() if lens is not None else None,
-            out.data_ptr(), lse.data_ptr(), row_offset, BH, M, q_len, S, hkv, d,
-            int(int8), int(causal), scale * LOG2E, cuda_lib.stream_ptr(dev),
+            out.data_ptr(), lse.data_ptr(), o_part, lse_part,
+            row_offset, math.prod(k_rows.shape[:-2]), BH, M, q_len, S, hkv, d,
+            int(int8), int(causal), splits, chunk, scale * LOG2E, cuda_lib.stream_ptr(dev),
         )
         cuda_lib.check(status, "flash attention")
     return out, lse
@@ -217,8 +263,7 @@ def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale)
     out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
     if BH and M:
-        splits, chunk = decode_splits(
-            BH, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+        splits, chunk = decode_splits(BH, s, _n_sm(dev))
         o_part = lse_part = None
         if splits > 1:
             o_part = torch.empty((splits, BH, M, d), dtype=torch.float32, device=dev)
@@ -284,13 +329,11 @@ def flash_attention_cached_bhsd(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qf = q.contiguous().reshape(b * hkv, group * m, d)
-    rows = L * SB * hkv
+    # The kernel reads the buffers as [L * SB * hkv, S, d] rows, in place.
     out, lse = _launch(
-        qf, k_all.reshape(rows, s, d), v_all.reshape(rows, s, d),
-        None if k_scale_all is None else k_scale_all.reshape(rows, s),
-        None if v_scale_all is None else v_scale_all.reshape(rows, s),
-        kv_seq_lens, row_offset=layer * SB * hkv, BH=b * hkv, M=group * m, q_len=m,
-        S=s, hkv=hkv, causal=False, scale=scale,
+        qf, k_all, v_all, k_scale_all, v_scale_all, kv_seq_lens,
+        row_offset=layer * SB * hkv, BH=b * hkv, M=group * m, q_len=m, S=s, hkv=hkv,
+        causal=False, scale=scale,
     )
     cuda_lib.LAUNCHES["flash_attention_cached_bhsd"] += 1
     return out.reshape(b, hq, m, d), lse.reshape(b, hq, m)

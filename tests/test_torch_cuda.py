@@ -58,8 +58,10 @@ def test_w8a8_kernel_matches_plain(dev, M, N, K, out_dtype):
     (False, False, [1, 100]),
 ])
 def test_flash_kernel_matches_plain(dev, d, causal, int8, lens):
+    """K2's kernel (K4 when causal): M = 134 or 80 folded rows, both above
+    K5's 32, so the non-causal cases reach K2 too."""
     g = _gen(2)
-    b, hq, hkv, m, s = 2, 4, 2, 67 if causal else 9, 100
+    b, hq, hkv, m, s = 2, 4, 2, 67 if causal else 40, 100
     q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
     if int8:
         k = torch.randint(-127, 128, (b, hkv, s, d), dtype=torch.int8, device=dev, generator=g)
@@ -72,11 +74,116 @@ def test_flash_kernel_matches_plain(dev, d, causal, int8, lens):
         ks = vs = None
     kw = dict(causal=causal, k_scale=ks, v_scale=vs,
               kv_seq_lens=None if lens is None else torch.tensor(lens, device=dev))
+    before = dict(cuda_lib.LAUNCHES)
     o, l = tflash.flash_attention_bhsd(q, k, v, **kw)
-    po, pl = tflash.flash_attention_bhsd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention_bhsd"] == before["flash_attention_bhsd"] + 1
+    assert cuda_lib.LAUNCHES["flash_decode_bhsd"] == before["flash_decode_bhsd"]
+    po, pl = tflash.flash_attention_bhsd_plain(q, k, v, **kw)
     torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+
+
+def _kv(dev, g, shape, int8):
+    """Random k, v (and f32 scales for int8) of ``shape`` on the card."""
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
+                  for _ in range(2))
+        return k, v, ks, vs
+    k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+    return k, v, None, None
+
+
+def _poison_tails(k, v, ks, vs, lens):
+    """Every key and value row at or past its row's length (dim 0 is the
+    batch, dim -2 or -1 the token): NaN for bf16; +127 / -128 payloads with
+    huge k scales and NaN v scales for int8."""
+    for i, n in enumerate(lens):
+        if ks is None:
+            k[i, ..., n:, :] = float("nan")
+            v[i, ..., n:, :] = float("nan")
+        else:
+            k[i, ..., n:, :] = 127
+            v[i, ..., n:, :] = -128
+            ks[i, ..., n:] = 1e30
+            vs[i, ..., n:] = float("nan")
+
+
+# name: (b, hq, hkv, m, S, lens, causal)
+FLASH_CASES = {
+    # M = 148 (not a multiple of the block's 128 rows), S = 300 (not of the
+    # 64-key tile), a row of length 0; 2 KV splits.
+    "ragged_len0_split2": (2, 8, 2, 37, 300, [300, 0], False),
+    # GQA group 4 with q_len 50 < 128: causal blocks straddle query heads.
+    "gqa4_causal_straddle": (2, 8, 2, 50, 70, [70, 61], True),
+    # 8 KV splits, one of them past a row's length, one row of length 0.
+    "split8": (4, 8, 2, 40, 1000, [1000, 999, 0, 513], False),
+    # 69 blocks of 128 rows x 2 heads fill the card: no split.
+    "no_split": (1, 8, 2, 2200, 100, [97], False),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_tails_splits_and_poisoned_rows(dev, d, int8, case):
+    """K2/K4 against its plain version on ragged shapes, GQA, KV splits and
+    rows of length 0 (out 0, lse -inf); then the same call with NaN (or
+    extreme int8 values and scales) in every key and value row past each
+    row's length gives the same output, bit for bit."""
+    b, hq, hkv, m, S, lens, causal = FLASH_CASES[case]
+    g = _gen(24)
+    k, v, ks, vs = _kv(dev, g, (b, hkv, S, d), int8)
+    q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(causal=causal, kv_seq_lens=torch.tensor(lens, device=dev), k_scale=ks,
+              v_scale=vs)
+    before = cuda_lib.LAUNCHES["flash_attention_bhsd"]
+    o, l = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention_bhsd"] == before + 1
+    po, pl = tflash.flash_attention_bhsd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(torch.isneginf(l), torch.isneginf(pl))
+    fin = torch.isfinite(pl)
+    torch.testing.assert_close(l[fin], pl[fin], atol=1e-3, rtol=1e-3)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert (o[i] == 0).all() and torch.isneginf(l[i]).all()
+    _poison_tails(k, v, ks, vs, lens)
+    kw.update(k_scale=ks, v_scale=vs)
+    o2, l2 = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(l2, l)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_flash_cached_kernel_last_layer_poisoned_rows(dev, d, int8):
+    """K2 reading the last layer of stacked level buffers in place (b < SB,
+    M = 132): against its plain version, then unchanged, bit for bit, with
+    every row past its length poisoned in every layer."""
+    g = _gen(25)
+    L, SB, hkv, S, b, hq, m = 3, 3, 2, 150, 2, 8, 33
+    k, v, ks, vs = _kv(dev, g, (L, SB, hkv, S, d), int8)
+    q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
+    lens = [150, 77]
+    kw = dict(kv_seq_lens=torch.tensor(lens, device=dev, dtype=torch.int32), k_scale_all=ks,
+              v_scale_all=vs)
+    before = cuda_lib.LAUNCHES["flash_attention_cached_bhsd"]
+    o, l = tflash.flash_attention_cached_bhsd(L - 1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention_cached_bhsd"] == before + 1
+    po, pl = tflash.flash_attention_cached_plain(L - 1, q, k, v, **kw)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
+    perm = (1, 0, 2, 3, 4)  # batch first, for _poison_tails
+    _poison_tails(k.permute(perm), v.permute(perm), None if ks is None else ks.permute(perm[:4]),
+                  None if vs is None else vs.permute(perm[:4]), lens)
+    o2, l2 = tflash.flash_attention_cached_bhsd(L - 1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(l2, l)
 
 
 def test_flash_cached_kernel_matches_plain(dev):
