@@ -586,6 +586,7 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
     """K5 at the GQA phases' shapes, and K1 at Llama-3-8B's decode shapes."""
     from hydragen_torch.ops import flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
 
     dev = torch.device("cuda")
     F = torch.nn.functional
@@ -637,6 +638,12 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
             vdq = [vc[i, :, :, :filled].contiguous() for i in range(NL)]
         lms = time_ms(Cycle(lambda i: F.scaled_dot_product_attention(q, kdq[i], vdq[i],
                                                                      enable_gqa=True), NL))
+        # Device time with no host work between calls (a CUDA graph of them):
+        # at these shapes the wrapper's host time is about the kernel's.
+        dms = cuda_graph_time_ms(Cycle(
+            lambda i: flash.flash_attention_bhsd(*args(i)[0], **args(i)[1]), NL))
+        ldms = cuda_graph_time_ms(Cycle(lambda i: F.scaled_dot_product_attention(
+            q, kdq[i], vdq[i], enable_gqa=True), NL))
         tokens = int(lens.sum())
         per_key = d + 4 if int8 else 2 * d
         nbytes = 2 * q.numel() * 2 + b * hq * 4 + 2 * tokens * hkv * per_key
@@ -645,9 +652,10 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
         record(f"flash_decode_bhsd {tag}: b={b} hkv={hkv} M=4 {'int8' if int8 else 'bf16'} "
                f"{filled} of {window} keys{' (strided)' if alloc > window else ''}", ok,
                f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} empty rows ok "
-               f"{empty_ok} ms {ms:.4f} plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}")
+               f"{empty_ok} ms {ms:.4f} plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; "
+               f"device (graph) {dms:.4f}, sdpa {ldms:.4f} ms")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                    library_ms=lms)
+                    library_ms=lms, device_ms=dms, library_device_ms=ldms)
 
     window = SUFFIX_LEN + NEW_TOKENS  # 192 slots, 191 written at the last step
     path = k5_case("gqa", BATCH, window, window + 8, window - 1, True, 4, zero_row=5)
@@ -660,7 +668,8 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
         **path,
         at=f"the gqa path's unique read of one decode layer: b=256, hkv 8, M=4, {window - 1} "
            f"of a {window}-slot int8 window, strided views, one row of length 0 (library: "
-           "SDPA enable_gqa on the written keys dequantized to bf16, no LSE)",
+           "SDPA enable_gqa on the written keys dequantized to bf16, no LSE; device_ms: "
+           "from a CUDA graph of the calls, SDPA's likewise)",
         no_sharing=dict(nosh, at=f"b=256, hkv 8, {SHARED_LEN + NEW_TOKENS - 1} of "
                                  f"{nosh_window} int8 keys"),
         split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits"),
@@ -1159,6 +1168,9 @@ def check_plain_path(args, failures: list, path: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and prompts")
+    ap.add_argument("--only", action="append", metavar="PHASE",
+                    help="run only this phase (repeatable; e.g. 'kernels'); the launch "
+                         "checks then cover only the paths the chosen phases drive")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1205,6 +1217,12 @@ def main() -> int:
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
     )
+    names = [name for name, _ in phases]
+    for name in args.only or ():
+        if name not in names:
+            print(f"chip_smoke: unknown phase {name!r}; phases: {names}", file=sys.stderr)
+            return 2
+    phases = [(n, f) for n, f in phases if not args.only or n in args.only]
     for name, phase in phases:
         t = time.perf_counter()
         try:
@@ -1236,14 +1254,16 @@ def main() -> int:
                                     "int4"),
         "flash_decode_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:715", "gqa"),
     }
+    ran = {name for name, _ in phases}
     kernels = []
     for name, (src, replaces, path) in sources.items():
         r = report.get(name)
         if r is None:
-            failures.append(f"no measurement for {name}")
+            if "kernels" in ran:
+                failures.append(f"no measurement for {name}")
             continue
         n = launches[path].get(name, 0) if path else 0
-        if path and n < 1:
+        if path and n < 1 and f"{path} path" in ran:
             failures.append(f"{name} never launched on the {path} path")
         by_path = {p: launches[p].get(name, 0) for p in launches}
         kernels.append(dict(name=name, route="cuda", source=f"hydragen_torch/{src}",

@@ -85,8 +85,7 @@
 
 namespace {
 
-constexpr int BN = 64;        // keys a tile (both kernels)
-constexpr int THREADS = 128;  // K5's block
+constexpr int BN = 64;        // keys a tile of K2/K4
 constexpr float LN2 = 0.6931471805599453f;
 
 // K2/K4's block.
@@ -137,44 +136,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem)
 __device__ __forceinline__ unsigned pack_bf16(float x, float y) {
   __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<unsigned*>(&h);
-}
-
-// Stage `rows_valid` rows of a [BN, D] tile into bf16 shared memory (row
-// stride LD elements); source rows lie `src_stride` elements apart; rows at
-// or past rows_valid are zero-filled and never loaded.
-template <int D, int LD, bool INT8>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const void* src_rows,
-                                           int rows_valid, int tid, size_t src_stride = D) {
-  if (INT8) {
-    constexpr int CPR = D / 16;  // 16-byte chunks a row
-    const int8_t* src = static_cast<const int8_t*>(src_rows);
-    for (int c = tid; c < BN * CPR; c += THREADS) {
-      const int r = c / CPR, col = (c % CPR) * 16;
-      uint4 out[2];
-      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
-      if (r < rows_valid) {
-        int4 raw = *reinterpret_cast<const int4*>(src + (size_t)r * src_stride + col);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) o[i] = __float2bfloat16_rn((float)b[i]);
-      } else {
-        out[0] = make_uint4(0, 0, 0, 0);
-        out[1] = out[0];
-      }
-      uint4* d = reinterpret_cast<uint4*>(dst + r * LD + col);
-      d[0] = out[0];
-      d[1] = out[1];
-    }
-  } else {
-    constexpr int CPR = D / 8;
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(src_rows);
-    for (int c = tid; c < BN * CPR; c += THREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * src_stride + col);
-      *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -877,9 +838,9 @@ int launch(const Params& p, const void* k, const void* v, long long rows, int sp
 // K5: the small-M non-causal read (flash-decoding).
 //
 // Replaces hydragen_tpu/ops/flash.py:_decode_kernel, launched by
-// _flash_decode_call, which flash_attention_bhsd reaches for non-causal calls
-// with M = group * m <= 32 folded query rows: the unique-cache read of a
-// decode step over a BHSD cache (GQA models, the no-sharing baseline).
+// _flash_decode_call (:715), which flash_attention_bhsd reaches for non-causal
+// calls with M = group * m <= 32 folded query rows: the unique-cache read of
+// a decode step over a BHSD cache (GQA models, the no-sharing baseline).
 //
 // Function: flash_kernel's without the causal mask, over k/v read where they
 // lie, through batch / head / token strides (the last dim contiguous): the
@@ -889,17 +850,35 @@ int launch(const Params& p, const void* k, const void* v, long long rows, int sp
 //
 // What bounds it on the H100: bytes. Each KV byte meets M <= 32 query rows,
 // at most 64 bf16 FLOP a byte (8 at the GQA path's M = 4), far below the
-// ~295 FLOP/byte ridge.
-// Design: one block of 4 warps per (b * hkv row, KV split). The M rows are
-// padded to MT m16 tiles, held as mma.sync A fragments by every warp. Each
-// 64-key tile is staged in shared memory as bf16 (int8 converted on the way
-// in, exact; rows past the row's length zero-filled and never loaded) and
-// each warp takes 16 of its keys: m16n8k16 products for QK^T and PV and an
-// online softmax in exp2 space, per warp. At the end the 4 warps' states are
-// merged through shared memory by exact LSE. When b * hkv rows cannot fill
-// the card, the keys are split into chunks (grid y); each split writes an f32
-// partial (o normalised, natural-log lse) and split_combine merges them by
-// combine_lse's rule (an empty partial adds nothing). No pipelining yet.
+// ~295 FLOP/byte ridge. So the design keeps HBM busy and the SM's work per
+// byte small:
+// - Work unit: one warp a (b * hkv row, KV split) item, with its own online
+//   softmax state and its own ring in shared memory, so no barrier but
+//   __syncwarp and no merge across warps. A block is DecCfg::WARPS such
+//   warps and nothing more; blocks are small, so the card holds 4-6 items an
+//   SM and a short row (the gqa path's 191 keys) pays only its own prologue.
+//   The M rows are padded to MT m16 tiles (mma.sync m16n8k16); Q's A
+//   fragments are loaded once, straight from global memory.
+// - The ring: DecCfg::ST stages of TK = 32 keys (K, V and, for int8, both
+//   scales) filled by cp.async, 16 bytes a lane (4 for a scale), ST - 1
+//   tiles ahead of the one computed: 3 int8 tiles, 25 KB at D = 128, stay in
+//   flight a warp, ~150 KB an SM. Keys at or past the item's end are
+//   zero-filled (src-size 0), never read. Rows are padded by 16 bytes so
+//   that every read below is free of bank conflicts at D = 128.
+// - int8 lands raw and is converted in registers after the wait, exactly,
+//   on the ALUs (i8x4_to_bf16x4: 2 ops an element; cvt runs at 1/16 of the
+//   FMA rate). Neither product needs a bf16 tile. Q K^T permutes its k
+//   dimension: lane t takes d in [t D/4, (t + 1) D/4) (Q's fragments follow),
+//   so a lane's K bytes are contiguous. P V permutes its output columns: in
+//   n-tile j lane g holds d = g D/8 + j, so a lane reads D/8 contiguous bytes
+//   of each of its 4 keys a k16 step, and a byte permute pairs two keys'
+//   bytes of one column into a bf16x2 B register. bf16 k/v go through
+//   ldmatrix (V transposed) as they lie.
+// - Splits (ops/flash.py:decode_splits): only where the rows cannot keep
+//   DECODE_WARPS_PER_SM items on every SM. The gqa and no-sharing reads (2,048
+//   rows) do not split; one 32,768-key sequence over 8 kv heads takes 64
+//   splits of 512. Each split writes an f32 partial (o normalised,
+//   natural-log lse) and split_combine merges them by combine_lse's rule.
 
 struct DecParams {
   const __nv_bfloat16* q;  // [BH, M, D], folded
@@ -913,71 +892,142 @@ struct DecParams {
   float* lse;          // [BH, M]
   float* o_part;       // [splits, BH, M, D] (several splits), else null
   float* lse_part;     // [splits, BH, M]
-  int BH, M, S, hkv, chunk;
+  int BH, M, S, hkv, chunk, splits;
   float scale_log2;
 };
 
-constexpr int WARPS = THREADS / 32;
-constexpr int WK = BN / WARPS;  // keys of a tile each warp takes
-static_assert(WK == 16, "one k16 chunk of keys a warp");
+// A warp's ring and a block's shape. Bytes of a stage: K and V tiles of TK
+// key rows (ROW bytes each, 16 of them padding), then for int8 the k and v
+// scales of the TK keys.
+template <int D, bool INT8>
+struct DecCfg {
+  static constexpr int TK = 32;
+  static constexpr int ST = INT8 ? 4 : 3;
+  static constexpr int WARPS = INT8 ? 2 : 1;
+  static constexpr int ROW = (INT8 ? D : 2 * D) + 16;
+  static constexpr int K = 0;
+  static constexpr int V = K + TK * ROW;
+  static constexpr int KS = V + TK * ROW;
+  static constexpr int VS = KS + (INT8 ? TK * 4 : 0);
+  static constexpr int STAGE = VS + (INT8 ? TK * 4 : 0);
+  static constexpr int RING = ST * STAGE;
+  static constexpr int BYTES = WARPS * RING;
+  static_assert(TK == 32, "one scale a lane");
+  static_assert(STAGE % 16 == 0, "16-byte copies");
+};
 
-template <int D, int MT>
-constexpr int decode_smem_bytes() {
-  constexpr int LD = D + 8, MP = MT * 16;
-  constexpr int stage = (MP + 2 * BN) * LD * 2 + 2 * BN * 4;
-  constexpr int merge = (WARPS * MP * D + 2 * WARPS * MP) * 4;
-  return stage > merge ? stage : merge;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(smem)));
+}
+
+// Byte e of x and byte e of y as two int8 in 16-bit lanes, to bf16x2 (x low).
+__device__ __forceinline__ uint32_t i8pair_to_bf16x2(uint32_t x, uint32_t y, int e) {
+  return i8x2_to_bf16x2(__byte_perm(x, y, 0x4400 + 0x1111 * e));
 }
 
 template <int D, bool INT8, int MT>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecParams p) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;
-  constexpr int NT = D / 8;
-  constexpr int MP = MT * 16;
+__global__ void __launch_bounds__(DecCfg<D, INT8>::WARPS * 32)
+    flash_decode_kernel(const DecParams p) {
+  using C = DecCfg<D, INT8>;
+  constexpr int TK = C::TK, ST = C::ST, NK = TK / 8;
+  constexpr int KC = D / 16;  // k16 steps of Q K^T
+  constexpr int NT = D / 8;   // n8 tiles of O
+  constexpr int ELEM = INT8 ? 1 : 2;
+  constexpr int CPR = D * ELEM / 16;  // 16-byte chunks a key row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + MP * LD;
-  __nv_bfloat16* Vs = Ks + BN * LD;
-  float* ks_s = reinterpret_cast<float*>(Vs + BN * LD);
-  float* vs_s = ks_s + BN;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int item = blockIdx.x * C::WARPS + warp;
+  if (item >= p.BH * p.splits) return;  // no block barrier follows
+  const int bh = item % p.BH, split = item / p.BH;
   const int b = bh / p.hkv, h = bh % p.hkv;
 
   int limit = p.S;
   if (p.lens != nullptr) limit = min(max(p.lens[b], 0), p.S);
   const int start = split * p.chunk;
   const int end = min(start + p.chunk, limit);
+  const int n_tiles = end > start ? (end - start + TK - 1) / TK : 0;
 
-  {
-    constexpr int CPR = D / 8;
-    const __nv_bfloat16* qsrc = p.q + (size_t)bh * p.M * D;
-    for (int c = tid; c < MP * CPR; c += THREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < p.M) val = *reinterpret_cast<const uint4*>(qsrc + (size_t)r * D + col);
-      *reinterpret_cast<uint4*>(Qs + r * LD + col) = val;
+  unsigned char* ring = smem_raw + warp * C::RING;
+  const uint32_t ring_s = smem_u32(ring);
+  const long long* st = p.st;
+  const char* kbase = static_cast<const char*>(p.k) + (b * st[0] + h * st[1]) * ELEM;
+  const char* vbase = static_cast<const char*>(p.v) + (b * st[3] + h * st[4]) * ELEM;
+  const long long ktok = st[2] * ELEM, vtok = st[5] * ELEM;  // bytes between tokens
+  const float* ksrow = INT8 ? p.k_scale + b * st[6] + h * st[7] : nullptr;
+  const float* vsrow = INT8 ? p.v_scale + b * st[9] + h * st[10] : nullptr;
+
+  // Tile i into stage i % ST (nothing past the last tile), then one commit:
+  // an empty group keeps the wait count in step.
+  auto issue = [&](int i) {
+    if (i < n_tiles) {
+      const int n0 = start + i * TK;
+      const uint32_t stage = ring_s + (i % ST) * C::STAGE;
+#pragma unroll
+      for (int it = 0; it < TK * CPR / 32; ++it) {
+        const int c = lane + 32 * it;
+        const int r = c / CPR, col = (c % CPR) * 16;
+        const bool ok = n0 + r < end;
+        const long long tok = ok ? n0 + r : start;  // a valid address; unread when !ok
+        cp_async16(stage + C::K + r * C::ROW + col, kbase + tok * ktok + col, ok);
+        cp_async16(stage + C::V + r * C::ROW + col, vbase + tok * vtok + col, ok);
+      }
+      if (INT8) {
+        const bool ok = n0 + lane < end;
+        const long long tok = ok ? n0 + lane : start;
+        cp_async4(stage + C::KS + lane * 4, ksrow + tok * st[8], ok);
+        cp_async4(stage + C::VS + lane * 4, vsrow + tok * st[11], ok);
+      }
     }
-  }
-  __syncthreads();
-  unsigned qa[MT][KC][4];
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) issue(i);
+
+  // Q as A fragments, [kc][0] row g, [1] row g + 8, [2]/[3] the second pair
+  // of k indices. int8: step kc takes d = t D/4 + 4 kc .. + 3 (the k
+  // permutation above); bf16: the plain order.
+  uint32_t qa[MT][KC][4];
+  const __nv_bfloat16* qb = p.q + (size_t)bh * p.M * D;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = mt * 16 + g;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      qa[mt][kc][0] = *reinterpret_cast<const unsigned*>(Qs + r0 * LD + kc * 16 + t * 2);
-      qa[mt][kc][1] = *reinterpret_cast<const unsigned*>(Qs + (r0 + 8) * LD + kc * 16 + t * 2);
-      qa[mt][kc][2] = *reinterpret_cast<const unsigned*>(Qs + r0 * LD + kc * 16 + 8 + t * 2);
-      qa[mt][kc][3] =
-          *reinterpret_cast<const unsigned*>(Qs + (r0 + 8) * LD + kc * 16 + 8 + t * 2);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = mt * 16 + g + 8 * hh;
+      const bool ok = row < p.M;
+      const __nv_bfloat16* qr = qb + (size_t)(ok ? row : 0) * D;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        const int d0 = INT8 ? t * (D / 4) + 4 * kc : 16 * kc + 2 * t;
+        const int d1 = INT8 ? d0 + 2 : d0 + 8;
+        qa[mt][kc][hh] = ok ? *reinterpret_cast<const uint32_t*>(qr + d0) : 0u;
+        qa[mt][kc][2 + hh] = ok ? *reinterpret_cast<const uint32_t*>(qr + d1) : 0u;
+      }
     }
   }
 
@@ -991,187 +1041,259 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecParams p
     l_run[mt][0] = l_run[mt][1] = 0.f;
   }
 
-  const size_t elem = INT8 ? 1 : 2;
-  const long long* st = p.st;
-  const char* kbase = static_cast<const char*>(p.k) + (size_t)(b * st[0] + h * st[1]) * elem;
-  const char* vbase = static_cast<const char*>(p.v) + (size_t)(b * st[3] + h * st[4]) * elem;
-  const float* ksrow = INT8 ? p.k_scale + b * st[6] + h * st[7] : nullptr;
-  const float* vsrow = INT8 ? p.v_scale + b * st[9] + h * st[10] : nullptr;
-  const int kw = warp * WK;  // this warp's first key within a tile
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncwarp();           // every lane is done with the stage tile i - 1 used
+    issue(i + ST - 1);      // which now takes tile i + ST - 1
+    cp_async_wait<ST - 1>();  // this lane's copies of tile i have landed
+    __syncwarp();           // and every lane's
+    const unsigned char* stage = ring + (i % ST) * C::STAGE;
+    const int valid = end - (start + i * TK);  // keys of the tile below the end (may pass TK)
 
-  for (int n0 = start; n0 < end; n0 += BN) {
-    const int rows_valid = min(BN, end - n0);
-    __syncthreads();  // previous tile fully consumed
-    stage_tile<D, LD, INT8>(Ks, kbase + (size_t)n0 * st[2] * elem, rows_valid, tid, st[2]);
-    stage_tile<D, LD, INT8>(Vs, vbase + (size_t)n0 * st[5] * elem, rows_valid, tid, st[5]);
-    if (INT8 && tid < BN) {
-      const bool ok = tid < rows_valid;
-      ks_s[tid] = ok ? ksrow[(long long)(n0 + tid) * st[8]] : 0.f;
-      vs_s[tid] = ok ? vsrow[(long long)(n0 + tid) * st[11]] : 0.f;
-    }
-    __syncthreads();
-    if (kw >= rows_valid) continue;  // warp-uniform: all of this warp's keys are past the end
-
-    unsigned pa[MT][4];
+    // S = Q K^T: MT x 16 rows x TK keys (NK n8 tiles).
+    float s[MT][NK][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      // S = Q K^T: 16 rows x this warp's 16 keys (two n8 tiles).
-      float s[2][4];
+    for (int nt = 0; nt < NK; ++nt) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const __nv_bfloat16* krow = Ks + (kw + nt * 8 + g) * LD;
+      for (int mt = 0; mt < MT; ++mt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+      if constexpr (INT8) {
+        const uint4* kr = reinterpret_cast<const uint4*>(stage + C::K + (nt * 8 + g) * C::ROW +
+                                                         t * (D / 4));
+        uint32_t kw[KC];
+#pragma unroll
+        for (int w = 0; w < KC / 4; ++w) {
+          const uint4 x = kr[w];
+          kw[4 * w] = x.x;
+          kw[4 * w + 1] = x.y;
+          kw[4 * w + 2] = x.z;
+          kw[4 * w + 3] = x.w;
+        }
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc) {
-          const unsigned b0 = *reinterpret_cast<const unsigned*>(krow + kc * 16 + t * 2);
-          const unsigned b1 = *reinterpret_cast<const unsigned*>(krow + kc * 16 + 8 + t * 2);
-          mma_bf16(s[nt], qa[mt][kc], b0, b1);
+          const uint2 kb = i8x4_to_bf16x4(kw[kc]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(s[mt][nt], qa[mt][kc], kb.x, kb.y);
+        }
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < KC; kc += 2) {
+          unsigned kb[4];
+          ldmatrix_x4(kb, stage + C::K + (nt * 8 + (lane & 7)) * C::ROW +
+                              (16 * kc + (lane >> 3) * 8) * 2);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][nt], qa[mt][kc], kb[0], kb[1]);
+            mma_bf16(s[mt][nt], qa[mt][kc + 1], kb[2], kb[3]);
+          }
         }
       }
+    }
+
+    // Online softmax in exp2 space; k scales (times the softmax scale) on
+    // the score columns, v scales on P's columns before it is rounded.
+    float2 kf[NK], vf[NK];
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt) {
+      if constexpr (INT8) {
+        const float2 ks = *reinterpret_cast<const float2*>(stage + C::KS + (nt * 8 + 2 * t) * 4);
+        kf[nt] = make_float2(ks.x * p.scale_log2, ks.y * p.scale_log2);
+        vf[nt] = *reinterpret_cast<const float2*>(stage + C::VS + (nt * 8 + 2 * t) * 4);
+      } else {
+        kf[nt] = make_float2(p.scale_log2, p.scale_log2);
+        vf[nt] = make_float2(1.f, 1.f);
+      }
+    }
+    const bool masked = valid < TK;
+    uint32_t pa[MT][TK / 16][4];
+    bool moved = false;
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < NK; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = kw + nt * 8 + t * 2 + (e & 1);
-          float x = s[nt][e] * p.scale_log2;
-          if (INT8) x *= ks_s[col];
-          x = col < rows_valid ? x : -INFINITY;
-          s[nt][e] = x;
+          float x = s[mt][nt][e] * ((e & 1) ? kf[nt].y : kf[nt].x);
+          if (masked && nt * 8 + 2 * t + (e & 1) >= valid) x = -INFINITY;
+          s[mt][nt][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
       }
-      float alpha[2], m_use[2];
+      float m_use[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffff, mx[hh], 1));
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffff, mx[hh], 2));
         const float m_new = fmaxf(m_run[mt][hh], mx[hh]);
         m_use[hh] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[hh] = exp2f(m_run[mt][hh] - m_use[hh]);
+        alpha[mt][hh] = fast_exp2(m_run[mt][hh] - m_use[hh]);
+        moved = moved || alpha[mt][hh] != 1.f;
         m_run[mt][hh] = m_new;
       }
       float lsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < NK; ++nt) {
         float pv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float pe = exp2f(s[nt][e] - m_use[e >> 1]);
+          const float pe = fast_exp2(s[mt][nt][e] - m_use[e >> 1]);
           lsum[e >> 1] += pe;
-          pv[e] = INT8 ? pe * vs_s[kw + nt * 8 + t * 2 + (e & 1)] : pe;
+          pv[e] = pe * ((e & 1) ? vf[nt].y : vf[nt].x);
         }
-        pa[mt][nt * 2 + 0] = pack_bf16(pv[0], pv[1]);
-        pa[mt][nt * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        // A fragment of k16 step nt / 2: n-tile 2kk gives k 2t.., 2kk + 1 k 2t + 8..
+        pa[mt][nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(pv[0], pv[1]);
+        pa[mt][nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
       }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) l_run[mt][hh] = l_run[mt][hh] * alpha[hh] + lsum[hh];
+      for (int hh = 0; hh < 2; ++hh) l_run[mt][hh] = l_run[mt][hh] * alpha[mt][hh] + lsum[hh];
+    }
+    // Rows whose maximum moved rescale O; after the first tiles most skip it.
+    if (__any_sync(0xffffffff, moved)) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        o[mt][j][0] *= alpha[0];
-        o[mt][j][1] *= alpha[0];
-        o[mt][j][2] *= alpha[1];
-        o[mt][j][3] *= alpha[1];
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          o[mt][j][0] *= alpha[mt][0];
+          o[mt][j][1] *= alpha[mt][0];
+          o[mt][j][2] *= alpha[mt][1];
+          o[mt][j][3] *= alpha[mt][1];
+        }
       }
     }
 
-    // O += P V over this warp's 16 keys: V's B fragments by ldmatrix.trans.
-    const int mi = lane >> 3, rr = lane & 7;
+    // O += P V, one k16 step (16 keys) at a time.
 #pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      unsigned vb[4];
-      ldmatrix_x4_trans(vb, Vs + (kw + (mi & 1) * 8 + rr) * LD + (j + (mi >> 1)) * 8);
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      if constexpr (INT8) {
+        // Keys 16kk + 2t, + 1, + 8, + 9: D/8 bytes each from column g D/8.
+        constexpr int W = NT / 4;  // words a key
+        uint32_t vw[4][W];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(o[mt][j], pa[mt], vb[0], vb[1]);
-        mma_bf16(o[mt][j + 1], pa[mt], vb[2], vb[3]);
+        for (int r = 0; r < 4; ++r) {
+          const unsigned char* src =
+              stage + C::V + (16 * kk + 2 * t + (r & 1) + 8 * (r >> 1)) * C::ROW + g * NT;
+          if constexpr (W == 4) {
+            const uint4 x = *reinterpret_cast<const uint4*>(src);
+            vw[r][0] = x.x;
+            vw[r][1] = x.y;
+            vw[r][2] = x.z;
+            vw[r][3] = x.w;
+          } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(src);
+            vw[r][0] = x.x;
+            vw[r][1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t b0 = i8pair_to_bf16x2(vw[0][j >> 2], vw[1][j >> 2], j & 3);
+          const uint32_t b1 = i8pair_to_bf16x2(vw[2][j >> 2], vw[3][j >> 2], j & 3);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(o[mt][j], pa[mt][kk], b0, b1);
+        }
+      } else {
+        const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(vb, stage + C::V + (16 * kk + (mi & 1) * 8 + rr) * C::ROW +
+                                    (j + (mi >> 1)) * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][j], pa[mt][kk], vb[0], vb[1]);
+            mma_bf16(o[mt][j + 1], pa[mt][kk], vb[2], vb[3]);
+          }
+        }
       }
     }
   }
 
-  // Merge the 4 warps' states through shared memory (aliasing the tiles).
+  // Row sums live split over the 4 threads of a row group; then out (or the
+  // split's f32 partial) and lse. Column of O element e of n-tile j: int8
+  // (2t + (e & 1)) D/8 + j, bf16 8j + 2t + (e & 1).
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      l_run[mt][hh] += __shfl_xor_sync(0xffffffff, l_run[mt][hh], 1);
-      l_run[mt][hh] += __shfl_xor_sync(0xffffffff, l_run[mt][hh], 2);
-    }
-  }
-  __syncthreads();
-  float* mo = reinterpret_cast<float*>(smem_raw);  // [WARPS][MP][D]
-  float* mm = mo + WARPS * MP * D;                 // [WARPS][MP]
-  float* ml = mm + WARPS * MP;                     // [WARPS][MP]
+      float l = l_run[mt][hh];
+      l += __shfl_xor_sync(0xffffffff, l, 1);
+      l += __shfl_xor_sync(0xffffffff, l, 2);
+      const int row = mt * 16 + g + 8 * hh;
+      if (row >= p.M) continue;
+      const float inv = l == 0.f ? 0.f : 1.f / l;
+      const float lse = l == 0.f ? -INFINITY : m_run[mt][hh] * LN2 + logf(l);
+      const int e0 = 2 * hh;
+      if (p.o_part != nullptr) {
+        const size_t prow = ((size_t)split * p.BH + bh) * p.M + row;
+        float* dst = p.o_part + prow * D;
+        if constexpr (INT8) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+          for (int e = 0; e < 2; ++e) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+            for (int j = 0; j < NT; j += 4)
+              *reinterpret_cast<float4*>(dst + (2 * t + e) * NT + j) =
+                  make_float4(o[mt][j][e0 + e] * inv, o[mt][j + 1][e0 + e] * inv,
+                              o[mt][j + 2][e0 + e] * inv, o[mt][j + 3][e0 + e] * inv);
+          }
+        } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * 16 + g + 8 * (e >> 1);
-        mo[(warp * MP + row) * D + j * 8 + t * 2 + (e & 1)] = o[mt][j][e];
+          for (int j = 0; j < NT; ++j)
+            *reinterpret_cast<float2*>(dst + j * 8 + 2 * t) =
+                make_float2(o[mt][j][e0] * inv, o[mt][j][e0 + 1] * inv);
+        }
+        if (t == 0) p.lse_part[prow] = lse;
+      } else {
+        const size_t orow = (size_t)bh * p.M + row;
+        __nv_bfloat16* dst = p.out + orow * D;
+        if constexpr (INT8) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int j = 0; j < NT; j += 8) {
+              uint4 w;
+              w.x = pack_bf16(o[mt][j][e0 + e] * inv, o[mt][j + 1][e0 + e] * inv);
+              w.y = pack_bf16(o[mt][j + 2][e0 + e] * inv, o[mt][j + 3][e0 + e] * inv);
+              w.z = pack_bf16(o[mt][j + 4][e0 + e] * inv, o[mt][j + 5][e0 + e] * inv);
+              w.w = pack_bf16(o[mt][j + 6][e0 + e] * inv, o[mt][j + 7][e0 + e] * inv);
+              *reinterpret_cast<uint4*>(dst + (2 * t + e) * NT + j) = w;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            *reinterpret_cast<uint32_t*>(dst + j * 8 + 2 * t) =
+                pack_bf16(o[mt][j][e0] * inv, o[mt][j][e0 + 1] * inv);
+        }
+        if (t == 0) p.lse[orow] = lse;
       }
-    }
-    if (t == 0) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = mt * 16 + g + 8 * hh;
-        mm[warp * MP + row] = m_run[mt][hh];
-        ml[warp * MP + row] = l_run[mt][hh];
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < p.M * D; idx += THREADS) {
-    const int row = idx / D, col = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, mm[w * MP + row]);
-    const float mu = mx == -INFINITY ? 0.f : mx;
-    float l = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = exp2f(mm[w * MP + row] - mu);
-      l += ml[w * MP + row] * c;
-      acc += mo[(w * MP + row) * D + col] * c;
-    }
-    const float val = l == 0.f ? 0.f : acc / l;
-    const float lse = l == 0.f ? -INFINITY : mu * LN2 + logf(l);
-    if (p.o_part != nullptr) {
-      const size_t prow = ((size_t)split * p.BH + bh) * p.M + row;
-      p.o_part[prow * D + col] = val;
-      if (col == 0) p.lse_part[prow] = lse;
-    } else {
-      const size_t orow = (size_t)bh * p.M + row;
-      p.out[orow * D + col] = __float2bfloat16_rn(val);
-      if (col == 0) p.lse[orow] = lse;
     }
   }
 }
 
 template <int D, bool INT8, int MT>
-int launch_decode(const DecParams& p, int splits, cudaStream_t st) {
-  constexpr int smem = decode_smem_bytes<D, MT>();
+int launch_decode(const DecParams& p, cudaStream_t st) {
+  using C = DecCfg<D, INT8>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<D, INT8, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  flash_decode_kernel<D, INT8, MT><<<dim3(p.BH, splits), THREADS, smem, st>>>(p);
+  const long long items = (long long)p.BH * p.splits;
+  const int blocks = (int)((items + C::WARPS - 1) / C::WARPS);
+  flash_decode_kernel<D, INT8, MT><<<blocks, C::WARPS * 32, C::BYTES, st>>>(p);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
   const int rows = p.BH * p.M;
   split_combine<D><<<(rows * (D / 4) + COMBINE_THREADS - 1) / COMBINE_THREADS, COMBINE_THREADS,
-                      0, st>>>(p.o_part, p.lse_part, p.out, p.lse, rows, splits);
+                      0, st>>>(p.o_part, p.lse_part, p.out, p.lse, rows, p.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool INT8>
-int launch_decode_mt(const DecParams& p, int splits, cudaStream_t st) {
-  return p.M <= 16 ? launch_decode<D, INT8, 1>(p, splits, st)
-                   : launch_decode<D, INT8, 2>(p, splits, st);
+int launch_decode_mt(const DecParams& p, cudaStream_t st) {
+  return p.M <= 16 ? launch_decode<D, INT8, 1>(p, st) : launch_decode<D, INT8, 2>(p, st);
 }
 
 }  // namespace
@@ -1245,13 +1367,12 @@ extern "C" int hydragen_flash_decode(const void* q, const void* k, const void* v
   p.S = S;
   p.hkv = hkv;
   p.chunk = chunk;
+  p.splits = splits;
   p.scale_log2 = scale_log2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return kv_int8 ? launch_decode_mt<128, true>(p, splits, st)
-                   : launch_decode_mt<128, false>(p, splits, st);
+    return kv_int8 ? launch_decode_mt<128, true>(p, st) : launch_decode_mt<128, false>(p, st);
   if (D == 64)
-    return kv_int8 ? launch_decode_mt<64, true>(p, splits, st)
-                   : launch_decode_mt<64, false>(p, splits, st);
+    return kv_int8 ? launch_decode_mt<64, true>(p, st) : launch_decode_mt<64, false>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,9 +30,14 @@ from hydragen_torch.ops.reference import attention_bhsd
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)
 # K5 takes non-causal calls with at most this many folded query rows (the
-# JAX package's decode-kernel threshold); its KV split covers this many keys.
+# JAX package's decode-kernel threshold). It reads keys in tiles of
+# DECODE_TILE, one warp a (row, split) item; decode_splits splits the keys
+# (at most once for every DECODE_CHUNK of them) only where the rows cannot
+# give each SM DECODE_WARPS_PER_SM items (csrc/flash.cu holds 4-6 an SM).
 DECODE_MAX_M = 32
 DECODE_CHUNK = 512
+DECODE_TILE = 32
+DECODE_WARPS_PER_SM = 4
 # K2/K4's block: query rows (two consumer warpgroups of 64) and keys a tile.
 FLASH_BM = 128
 FLASH_BN = 64
@@ -203,12 +208,19 @@ def _decode_fn():
 
 
 def decode_splits(BH: int, S: int, n_sm: int) -> tuple[int, int]:
-    """K5's KV split: (splits, keys a split covers). One split when the
-    ``BH`` rows already fill the ``n_sm`` SMs; otherwise ``DECODE_CHUNK``-key
-    chunks, so the grid fills the card."""
-    if BH >= n_sm or S <= DECODE_CHUNK:
+    """K5's KV split: (splits, keys a split covers). K5 gives each (row,
+    split) item a warp of its own; one split when the ``BH`` rows alone give
+    every one of the ``n_sm`` SMs ``DECODE_WARPS_PER_SM`` items, or when ``S``
+    is at most ``DECODE_CHUNK``. Otherwise as many splits as that many items
+    need, at most one for every ``DECODE_CHUNK`` keys, each chunk a multiple
+    of ``DECODE_TILE``. At one 32,768-key sequence over 8 kv heads: 64 splits
+    of 512."""
+    want = DECODE_WARPS_PER_SM * n_sm
+    if BH >= want or S <= DECODE_CHUNK:
         return 1, max(S, 1)
-    return -(-S // DECODE_CHUNK), DECODE_CHUNK
+    splits = min(-(-S // DECODE_CHUNK), -(-want // BH))
+    chunk = -(-S // (splits * DECODE_TILE)) * DECODE_TILE
+    return -(-S // chunk), chunk
 
 
 def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale):

@@ -490,32 +490,53 @@ def test_timing_helpers_time_device_work(dev):
     assert len(times) == 3 and len(warm) == 2 and min(times) > 0
 
 
+# K5's tile and ring: lengths on both sides of a tile, of a full ring of
+# either dtype's stages, and (at S = 2,000, 4 splits of 512) of a split.
+_T = tflash.DECODE_TILE
+_EDGES = [0, 1, _T - 1, _T, _T + 1, 3 * _T - 1, 3 * _T + 1, 4 * _T - 1, 4 * _T + 1]
+# name: (S, lens)
+DECODE_LENGTHS = {
+    "one_split": (300, [300] + _EDGES + [211, 299]),
+    "four_splits": (2000, [2000] + _EDGES + [511, 512, 513, 1500, 1999]),
+}
+# M = group * m folded rows: 1, 4 and 16 (one m16 tile), 17 and 32 (two).
+DECODE_ROWS = {"M1": (2, 2, 1), "M4": (8, 2, 1), "M16": (16, 1, 1), "M17": (1, 1, 17),
+               "M32": (16, 1, 2)}
+
+
+def _decode_case(dev, g, d, int8, S, b, hkv, layout):
+    """k, v and scales as views of a larger cache (more rows, layers and
+    slots than read): BHSD [L, B, hkv, U, d] (token stride d), or a BHSD
+    view of BSHD [L, B, U, hkv, d] (token stride hkv * d)."""
+    L, extra = 3, 16
+    shape = (L, b + 2, hkv, S + extra, d) if layout == "bhsd" else (L, b + 2, S + extra, hkv, d)
+    k_all, v_all, ks_all, vs_all = _kv(dev, g, shape, int8)
+
+    def view(x):
+        x = x[1, :b]
+        return x[:, :, :S] if layout == "bhsd" else x[:, :S].transpose(1, 2)
+
+    k, v = view(k_all), view(v_all)
+    assert not k.is_contiguous() and k.stride(2) == (d if layout == "bhsd" else hkv * d)
+    sc = {} if not int8 else dict(k_scale=view(ks_all), v_scale=view(vs_all))
+    return k, v, sc
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("S,lens", [(300, [300, 0, 211, 1, 64, 299]),
-                                    (2000, [2000, 0, 1500, 513, 7, 1999])],
-                         ids=["one_split", "four_splits"])
-@pytest.mark.parametrize("hq,hkv,m", [(8, 2, 1), (16, 1, 2)], ids=["M4", "M32"])
-def test_flash_decode_kernel_matches_plain(dev, d, int8, S, lens, hq, hkv, m):
-    """K5 against its plain version on strided views of a larger cache (more
-    rows, layers and slots than read), a row of length 0 (out 0, lse -inf),
-    one split (S <= 512) and four (6 * hkv rows cannot fill the card), M = 4
-    (one m16 tile) and M = 32 (two)."""
+@pytest.mark.parametrize("lengths", list(DECODE_LENGTHS))
+@pytest.mark.parametrize("rows", list(DECODE_ROWS))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_decode_kernel_matches_plain(dev, d, int8, lengths, rows, layout):
+    """K5 against its plain version on strided views of a larger cache, with
+    lengths across its tile, ring and split boundaries and a row of length 0
+    (out 0, lse -inf): one split (S <= 512) and four (the rows cannot fill the
+    card), M from 1 to 32 folded rows, token stride d or hkv * d."""
+    S, lens = DECODE_LENGTHS[lengths]
+    hq, hkv, m = DECODE_ROWS[rows]
     g = _gen(19)
-    b, L, extra = 6, 3, 16
-    shape = (L, b + 2, hkv, S + extra, d)
-    if int8:
-        k_all, v_all = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
-                                      generator=g) for _ in range(2))
-        ks_all, vs_all = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
-                          for _ in range(2))
-        sc = dict(k_scale=ks_all[1, :b, :, :S], v_scale=vs_all[1, :b, :, :S])
-    else:
-        k_all, v_all = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
-                        for _ in range(2))
-        sc = {}
-    k, v = k_all[1, :b, :, :S], v_all[1, :b, :, :S]
-    assert not k.is_contiguous()
+    b = len(lens)
+    k, v, sc = _decode_case(dev, g, d, int8, S, b, hkv, layout)
     q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
     kw = dict(kv_seq_lens=torch.tensor(lens, device=dev), **sc)
     before = dict(cuda_lib.LAUNCHES)
@@ -527,6 +548,28 @@ def test_flash_decode_kernel_matches_plain(dev, d, int8, S, lens, hq, hkv, m):
     torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
     assert torch.isneginf(l[1]).all() and (o[1] == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("lengths", list(DECODE_LENGTHS))
+def test_flash_decode_kernel_poisoned_rows(dev, d, int8, lengths):
+    """K5 with NaN (bf16) or +127 / -128 payloads under huge k scales and NaN
+    v scales (int8) in every key and value row at or past each row's length:
+    out and lse unchanged, bit for bit (M = 4, token stride d)."""
+    S, lens = DECODE_LENGTHS[lengths]
+    g = _gen(26)
+    b = len(lens)
+    k, v, sc = _decode_case(dev, g, d, int8, S, b, 2, "bhsd")
+    q = torch.randn(b, 8, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(kv_seq_lens=torch.tensor(lens, device=dev), **sc)
+    o, l = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _poison_tails(k, v, sc.get("k_scale"), sc.get("v_scale"), lens)
+    o2, l2 = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(l2, l)
+    assert torch.isfinite(o2).all()
 
 
 @pytest.mark.parametrize("case", ["fp32_q", "head_dim_32", "token_stride_misaligned",

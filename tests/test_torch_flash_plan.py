@@ -1,7 +1,8 @@
-"""The launch plan of K2/K4, the flash kernel of ``csrc/flash.cu``, on the CPU.
+"""The launch plans of the kernels of ``csrc/flash.cu``, on the CPU.
 
-``flash_plan`` picks the KV split; ``_block_keys`` below mirrors the key
-range each block of the kernel walks. The kernel itself runs only on the
+``flash_plan`` picks K2/K4's KV split; ``_block_keys`` below mirrors the key
+range each block of the kernel walks. ``decode_splits`` picks K5's, and
+``_decode_item_keys`` mirrors the keys each of K5's work items reads. The kernel itself runs only on the
 card (``tests/test_torch_cuda.py``). The key ranges are held against the
 plain version's own mask: ``attention_bhsd`` with all scores equal and V the
 identity gives each query row weight > 0 on exactly its unmasked keys.
@@ -14,7 +15,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from hydragen_torch.ops.flash import FLASH_BM, FLASH_BN, flash_plan
+from hydragen_torch.ops.flash import (DECODE_CHUNK, DECODE_TILE, DECODE_WARPS_PER_SM, FLASH_BM,
+                                     FLASH_BN, decode_splits, flash_plan)
 from hydragen_torch.ops.reference import attention_bhsd
 
 H100_SMS = 132
@@ -102,3 +104,38 @@ def test_flash_blocks_visit_each_unmasked_key_once(group, q_len, S, limit_frac, 
         walked = visits.nonzero()
         if len(walked):
             assert needed[int(walked.max())]
+
+
+def _decode_item_keys(split, *, chunk, limit):
+    """The keys ``[start, end)`` that K5's work item of split ``split`` reads
+    for a row of length ``limit``, in tiles of ``DECODE_TILE`` from
+    ``start``: ``flash_decode_kernel``'s own computation in ``csrc/flash.cu``
+    (keys of the last tile at or past ``end`` are zero-filled, not read)."""
+    start = split * chunk
+    return start, max(start, min(start + chunk, limit))
+
+
+@settings(max_examples=80, deadline=None, database=None)
+@given(BH=st.integers(1, 1200), S=st.integers(0, 40000),
+       lens=st.lists(st.floats(0, 1.2), min_size=1, max_size=6),
+       n_sm=st.sampled_from([8, 132]))
+def test_decode_items_visit_each_key_below_the_length_once(BH, S, lens, n_sm):
+    """Over every (row, split) item of a K5 launch: each key below a row's
+    length lies in exactly one item's range, none at or past it is read, no
+    item reads a tile that starts at or past its range's end, and the grid
+    splits only as far as it needs to keep DECODE_WARPS_PER_SM items an SM."""
+    splits, chunk = decode_splits(BH, S, n_sm)
+    assert splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
+    if splits > 1:
+        assert chunk % DECODE_TILE == 0
+        assert BH * (splits - 1) < DECODE_WARPS_PER_SM * n_sm
+        assert splits <= -(-S // DECODE_CHUNK)
+    for frac in lens:
+        limit = min(max(round(frac * S), 0), S)  # the kernel clamps a length to [0, S]
+        visits = torch.zeros(max(S, 1), dtype=torch.int32)
+        for split in range(splits):
+            start, end = _decode_item_keys(split, chunk=chunk, limit=limit)
+            n_tiles = -(-(end - start) // DECODE_TILE)
+            assert n_tiles == 0 or start + (n_tiles - 1) * DECODE_TILE < end
+            visits[start:end] += 1
+        assert (visits[:limit] == 1).all() and (visits[limit:] == 0).all()
