@@ -13,10 +13,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    peak rate of their type) and, where one PyTorch call computes the same
    function, that call's time. K2 and K4 are also timed at the other shapes
    the paths give them (the 8B decode read, the 7B request-2 read, the 8B
-   prefill, the 7B suffix prefill), nested under their entries, and on the
-   device's clock alone (``device_ms``: a CUDA graph of the calls, no host
-   work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
-   head_dim 64.
+   prefill, the 7B suffix prefill), nested under their entries. K2, K4 and
+   K5 (at the gqa and no-sharing reads and two split shapes) are also timed
+   on the device's clock alone (``device_ms``: a CUDA graph of the calls, no
+   host work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
+   head_dim 64; where K5 splits the keys, torch.profiler times its kernel
+   and ``split_combine`` apart.
 4. main path: ``HydragenLlama`` at ``PRESETS["llama-2-7b"]`` full width,
    random weights from a seeded ``torch.Generator``, ``quantization="w8a8"``,
    ``kv_quant="int8"``; one request with a 2,048-token shared prompt and 256
@@ -50,7 +52,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
 any phase fails, no CUDA device is present or the package is not beside the
-script.
+script. ``--only kernels`` (repeatable, any phase name) runs the named
+phases alone, for a quick reading of the kernels.
 """
 
 from __future__ import annotations
@@ -475,6 +478,26 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_flash_shapes(report, time_ms, g, record)
 
 
+def device_ms_by_kernel(fn, names, calls: int = 10) -> dict:
+    """Device ms a ``fn()`` call spends in the kernels whose names contain
+    each of ``names``, from torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        key = next((k for k in names if k in e.name), None)
+        if key and e.device_type == DeviceType.CUDA:
+            ms[key] += e.time_range.elapsed_us() / 1e3 / calls
+    return ms
+
+
 def check_flash_shapes(report: dict, time_ms, g, record) -> None:
     """K2 and K4 at the other shapes the paths give them, each against its
     plain version (one kv head at a time where the plain scores would not
@@ -591,6 +614,7 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
     dev = torch.device("cuda")
     F = torch.nn.functional
     hq, hkv, d = 32, 8, 128
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def k5_case(tag, b, window, alloc, filled, int8, NL, zero_row=None):
         """K5 on one layer's view [:, :, :window] of an [NL, b, hkv, alloc, d]
@@ -644,6 +668,12 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
             lambda i: flash.flash_attention_bhsd(*args(i)[0], **args(i)[1]), NL))
         ldms = cuda_graph_time_ms(Cycle(lambda i: F.scaled_dot_product_attention(
             q, kdq[i], vdq[i], enable_gqa=True), NL))
+        # Where the keys split, the device time of each of the two kernels.
+        parts = {}
+        if flash.decode_splits(b * hkv, window, n_sm)[0] > 1:
+            parts = device_ms_by_kernel(Cycle(
+                lambda i: flash.flash_attention_bhsd(*args(i)[0], **args(i)[1]), NL),
+                ("flash_decode_kernel", "split_combine"))
         tokens = int(lens.sum())
         per_key = d + 4 if int8 else 2 * d
         nbytes = 2 * q.numel() * 2 + b * hq * 4 + 2 * tokens * hkv * per_key
@@ -653,9 +683,11 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
                f"{filled} of {window} keys{' (strided)' if alloc > window else ''}", ok,
                f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} empty rows ok "
                f"{empty_ok} ms {ms:.4f} plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; "
-               f"device (graph) {dms:.4f}, sdpa {ldms:.4f} ms")
+               f"device (graph) {dms:.4f}, sdpa {ldms:.4f} ms"
+               + "".join(f"; {k} {v:.4f} ms (profiler)" for k, v in parts.items()))
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                    library_ms=lms, device_ms=dms, library_device_ms=ldms)
+                    library_ms=lms, device_ms=dms, library_device_ms=ldms,
+                    **{f"{k}_device_ms": v for k, v in parts.items()})
 
     window = SUFFIX_LEN + NEW_TOKENS  # 192 slots, 191 written at the last step
     path = k5_case("gqa", BATCH, window, window + 8, window - 1, True, 4, zero_row=5)
@@ -672,7 +704,8 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
            "from a CUDA graph of the calls, SDPA's likewise)",
         no_sharing=dict(nosh, at=f"b=256, hkv 8, {SHARED_LEN + NEW_TOKENS - 1} of "
                                  f"{nosh_window} int8 keys"),
-        split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits"),
+        split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits (*_device_ms by "
+                              "kernel: torch.profiler)"),
         split_bf16=dict(split16, at="b=1, hkv 8, 32,668 of 32,768 bf16 keys, 64 splits"),
     )
 

@@ -855,16 +855,17 @@ int launch(const Params& p, const void* k, const void* v, long long rows, int sp
 // - Work unit: one warp a (b * hkv row, KV split) item, with its own online
 //   softmax state and its own ring in shared memory, so no barrier but
 //   __syncwarp and no merge across warps. A block is DecCfg::WARPS such
-//   warps and nothing more; blocks are small, so the card holds 4-6 items an
-//   SM and a short row (the gqa path's 191 keys) pays only its own prologue.
-//   The M rows are padded to MT m16 tiles (mma.sync m16n8k16); Q's A
-//   fragments are loaded once, straight from global memory.
-// - The ring: DecCfg::ST stages of TK = 32 keys (K, V and, for int8, both
-//   scales) filled by cp.async, 16 bytes a lane (4 for a scale), ST - 1
-//   tiles ahead of the one computed: 3 int8 tiles, 25 KB at D = 128, stay in
-//   flight a warp, ~150 KB an SM. Keys at or past the item's end are
-//   zero-filled (src-size 0), never read. Rows are padded by 16 bytes so
-//   that every read below is free of bank conflicts at D = 128.
+//   warps and nothing more; blocks are small, so the card holds 4-8 items an
+//   SM, the hardware hands a free slot the next block, and a short row (the
+//   gqa path's 191 keys) pays only its own prologue. The M rows are padded
+//   to MT m16 tiles (mma.sync m16n8k16); Q's A fragments are loaded once,
+//   straight from global memory.
+// - The ring: DecCfg::ST = 3 stages of TK = 32 keys (K, V and, for int8,
+//   both scales) filled by cp.async, 16 bytes a lane (4 for a scale), 2
+//   tiles ahead of the one computed: 17 KB of int8 at D = 128 in flight a
+//   warp, ~135 KB an SM. Keys at or past the item's end are zero-filled
+//   (src-size 0), never read. Rows are padded by 16 bytes so that every
+//   read below is free of bank conflicts at D = 128.
 // - int8 lands raw and is converted in registers after the wait, exactly,
 //   on the ALUs (i8x4_to_bf16x4: 2 ops an element; cvt runs at 1/16 of the
 //   FMA rate). Neither product needs a bf16 tile. Q K^T permutes its k
@@ -898,11 +899,14 @@ struct DecParams {
 
 // A warp's ring and a block's shape. Bytes of a stage: K and V tiles of TK
 // key rows (ROW bytes each, 16 of them padding), then for int8 the k and v
-// scales of the TK keys.
+// scales of the TK keys. At D = 128: int8 9,472 bytes a stage, 28 KB a warp,
+// 8 warps an SM; bf16 17,408 a stage, 51 KB a warp, 4 warps an SM. Chosen
+// on the chip against 2, 4 and 6 stages, 1 or 4 warps a block, and
+// persistent warps that stream several rows through one ring (PERF.md §6).
 template <int D, bool INT8>
 struct DecCfg {
   static constexpr int TK = 32;
-  static constexpr int ST = INT8 ? 4 : 3;
+  static constexpr int ST = 3;
   static constexpr int WARPS = INT8 ? 2 : 1;
   static constexpr int ROW = (INT8 ? D : 2 * D) + 16;
   static constexpr int K = 0;
@@ -1054,7 +1058,10 @@ __global__ void __launch_bounds__(DecCfg<D, INT8>::WARPS * 32)
 #pragma unroll
     for (int nt = 0; nt < NK; ++nt) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+      }
       if constexpr (INT8) {
         const uint4* kr = reinterpret_cast<const uint4*>(stage + C::K + (nt * 8 + g) * C::ROW +
                                                          t * (D / 4));

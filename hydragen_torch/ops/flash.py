@@ -33,7 +33,7 @@ HEAD_DIMS = (64, 128)
 # JAX package's decode-kernel threshold). It reads keys in tiles of
 # DECODE_TILE, one warp a (row, split) item; decode_splits splits the keys
 # (at most once for every DECODE_CHUNK of them) only where the rows cannot
-# give each SM DECODE_WARPS_PER_SM items (csrc/flash.cu holds 4-6 an SM).
+# give each SM DECODE_WARPS_PER_SM items (csrc/flash.cu holds 4-8 an SM).
 DECODE_MAX_M = 32
 DECODE_CHUNK = 512
 DECODE_TILE = 32

@@ -572,6 +572,33 @@ def test_flash_decode_kernel_poisoned_rows(dev, d, int8, lengths):
     assert torch.isfinite(o2).all()
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_flash_decode_kernel_many_rows_random_lengths(dev, d, int8):
+    """More (row, split) items than the card holds warps at once (2,048
+    rows), with random lengths from 0 to S (many rows of 0-3 tiles).
+    Against the plain version, then unchanged, bit for bit, with every row
+    past its length poisoned."""
+    g = _gen(27)
+    b, hq, hkv, S = 1024, 8, 2, 80
+    lens = torch.randint(0, S + 1, (b,), device=dev, generator=g)
+    lens[:7] = torch.tensor([0, 1, 31, 32, 33, 79, 80])
+    k, v, sc = _decode_case(dev, g, d, int8, S, b, hkv, "bhsd")
+    q = torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(kv_seq_lens=lens, **sc)
+    o, l = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pl = tflash.flash_attention_bhsd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(torch.isneginf(l), torch.isneginf(pl))
+    fin = torch.isfinite(pl)
+    torch.testing.assert_close(l[fin], pl[fin], atol=1e-3, rtol=1e-3)
+    _poison_tails(k, v, sc.get("k_scale"), sc.get("v_scale"), lens.tolist())
+    o2, l2 = tflash.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(l2, l)
+
+
 @pytest.mark.parametrize("case", ["fp32_q", "head_dim_32", "token_stride_misaligned",
                                   "int8_without_scales", "M40"])
 def test_flash_decode_wrapper_raises_on_operands_its_kernel_does_not_take(dev, case):
