@@ -52,8 +52,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
 any phase fails, no CUDA device is present or the package is not beside the
-script. ``--only kernels`` (repeatable, any phase name) runs the named
-phases alone, for a quick reading of the kernels.
+script. ``kernel_times.py`` runs the kernel phase alone.
 """
 
 from __future__ import annotations
@@ -614,11 +613,11 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
     dev = torch.device("cuda")
     F = torch.nn.functional
     hq, hkv, d = 32, 8, 128
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def k5_case(tag, b, window, alloc, filled, int8, NL, zero_row=None):
+    def k5_case(tag, b, window, alloc, filled, int8, NL, zero_row=None, split=False):
         """K5 on one layer's view [:, :, :window] of an [NL, b, hkv, alloc, d]
-        buffer (strided when alloc > window), ``filled`` keys a row."""
+        buffer (strided when alloc > window), ``filled`` keys a row; ``split``:
+        a shape whose keys split, timed kernel by kernel too."""
         shape = (NL, b, hkv, alloc, d)
         if int8:
             kc, vc = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
@@ -670,7 +669,7 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
             q, kdq[i], vdq[i], enable_gqa=True), NL))
         # Where the keys split, the device time of each of the two kernels.
         parts = {}
-        if flash.decode_splits(b * hkv, window, n_sm)[0] > 1:
+        if split:
             parts = device_ms_by_kernel(Cycle(
                 lambda i: flash.flash_attention_bhsd(*args(i)[0], **args(i)[1]), NL),
                 ("flash_decode_kernel", "split_combine"))
@@ -694,8 +693,8 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
     nosh_window = -(-(NEW_TOKENS + SHARED_LEN + 8) // 16) * 16
     nosh = k5_case("no-sharing", BATCH, nosh_window, nosh_window,
                    SHARED_LEN + NEW_TOKENS - 1, True, 2)
-    split8 = k5_case("split", 1, 32768, 32768, 32768, True, 2)
-    split16 = k5_case("split", 1, 32768, 32768, 32768 - 100, False, 2)
+    split8 = k5_case("split", 1, 32768, 32768, 32768, True, 2, split=True)
+    split16 = k5_case("split", 1, 32768, 32768, 32768 - 100, False, 2, split=True)
     report["flash_decode_bhsd"] = dict(
         **path,
         at=f"the gqa path's unique read of one decode layer: b=256, hkv 8, M=4, {window - 1} "
@@ -704,9 +703,10 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
            "from a CUDA graph of the calls, SDPA's likewise)",
         no_sharing=dict(nosh, at=f"b=256, hkv 8, {SHARED_LEN + NEW_TOKENS - 1} of "
                                  f"{nosh_window} int8 keys"),
-        split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits (*_device_ms by "
-                              "kernel: torch.profiler)"),
-        split_bf16=dict(split16, at="b=1, hkv 8, 32,668 of 32,768 bf16 keys, 64 splits"),
+        split=dict(split8, at="b=1, hkv 8, 32,768 int8 keys, 64 splits of 512 (*_device_ms "
+                              "by kernel: torch.profiler)"),
+        split_bf16=dict(split16, at="b=1, hkv 8, 32,668 of 32,768 bf16 keys, 32 splits of "
+                                    "1,024"),
     )
 
     # K1 at Llama-3-8B's decode shapes: one layer's 7 projections, M = 256.
@@ -1201,9 +1201,6 @@ def check_plain_path(args, failures: list, path: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and prompts")
-    ap.add_argument("--only", action="append", metavar="PHASE",
-                    help="run only this phase (repeatable; e.g. 'kernels'); the launch "
-                         "checks then cover only the paths the chosen phases drive")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1250,12 +1247,6 @@ def main() -> int:
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
     )
-    names = [name for name, _ in phases]
-    for name in args.only or ():
-        if name not in names:
-            print(f"chip_smoke: unknown phase {name!r}; phases: {names}", file=sys.stderr)
-            return 2
-    phases = [(n, f) for n, f in phases if not args.only or n in args.only]
     for name, phase in phases:
         t = time.perf_counter()
         try:
@@ -1287,16 +1278,14 @@ def main() -> int:
                                     "int4"),
         "flash_decode_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:715", "gqa"),
     }
-    ran = {name for name, _ in phases}
     kernels = []
     for name, (src, replaces, path) in sources.items():
         r = report.get(name)
         if r is None:
-            if "kernels" in ran:
-                failures.append(f"no measurement for {name}")
+            failures.append(f"no measurement for {name}")
             continue
         n = launches[path].get(name, 0) if path else 0
-        if path and n < 1 and f"{path} path" in ran:
+        if path and n < 1:
             failures.append(f"{name} never launched on the {path} path")
         by_path = {p: launches[p].get(name, 0) for p in launches}
         kernels.append(dict(name=name, route="cuda", source=f"hydragen_torch/{src}",

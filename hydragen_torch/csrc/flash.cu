@@ -83,6 +83,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int BN = 64;        // keys a tile of K2/K4
@@ -146,10 +148,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -876,9 +874,10 @@ int launch(const Params& p, const void* k, const void* v, long long rows, int sp
 //   bytes of one column into a bf16x2 B register. bf16 k/v go through
 //   ldmatrix (V transposed) as they lie.
 // - Splits (ops/flash.py:decode_splits): only where the rows cannot keep
-//   DECODE_WARPS_PER_SM items on every SM. The gqa and no-sharing reads (2,048
-//   rows) do not split; one 32,768-key sequence over 8 kv heads takes 64
-//   splits of 512. Each split writes an f32 partial (o normalised,
+//   half the warps an SM holds of the dtype (4 int8, 2 bf16) busy on every
+//   SM. The gqa and no-sharing reads (2,048 rows) do not split; one
+//   32,768-key sequence over 8 kv heads takes 64 splits of 512 (int8) or 32
+//   of 1,024 (bf16). Each split writes an f32 partial (o normalised,
 //   natural-log lse) and split_combine merges them by combine_lse's rule.
 
 struct DecParams {
@@ -919,28 +918,6 @@ struct DecCfg {
   static_assert(TK == 32, "one scale a lane");
   static_assert(STAGE % 16 == 0, "16-byte copies");
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

@@ -24,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int BM = 64;
@@ -31,16 +33,6 @@ constexpr int BN = 128;
 constexpr int BK = 64;
 constexpr int LDS = BK + 16;  // padded smem row, bytes
 constexpr int THREADS = 128;  // 4 warps: 2 along M x 2 along N, 32x64 each
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
   asm volatile(
@@ -89,7 +81,7 @@ w8a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
       int gm = m0 + row, gk = k0 + col;
       bool ok = gm < M && gk < K;
       const int8_t* src = ok ? a + (size_t)gm * K + gk : a;
-      cp_async16(&As[stage][row][col], src, ok ? 16 : 0);
+      cp_async16(smem_u32(&As[stage][row][col]), src, ok);
     }
 #pragma unroll
     for (int i = 0; i < (BN * BK / 16) / THREADS; ++i) {
@@ -98,7 +90,7 @@ w8a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
       int gn = n0 + row, gk = k0 + col;
       bool ok = gn < N && gk < K;
       const int8_t* src = ok ? w + (size_t)gn * K + gk : w;
-      cp_async16(&Bs[stage][row][col], src, ok ? 16 : 0);
+      cp_async16(smem_u32(&Bs[stage][row][col]), src, ok);
     }
   };
 
@@ -117,7 +109,7 @@ w8a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
     const int s = kt & 1;
     if (kt + 1 < ktiles) load_tile(s ^ 1, (kt + 1) * BK);
     cp_async_commit();  // possibly empty group keeps the wait count uniform
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
@@ -247,7 +239,7 @@ w4a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
       const int gm = m0 + row;
       const bool ok = gm < M;
       const int8_t* src = ok ? a + (size_t)gm * K + plane * Kp + kp0 + col : a;
-      cp_async16(&As[stage][plane][row][col], src, ok ? 16 : 0);
+      cp_async16(smem_u32(&As[stage][plane][row][col]), src, ok);
     }
     // Packed weights: BN rows x 4 chunks.
 #pragma unroll
@@ -257,7 +249,7 @@ w4a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
       const int gn = n0 + row;
       const bool ok = gn < N;
       const int8_t* src = ok ? w + (size_t)gn * Kp + kp0 + col : w;
-      cp_async16(&Ws[stage][row][col], src, ok ? 16 : 0);
+      cp_async16(smem_u32(&Ws[stage][row][col]), src, ok);
     }
   };
 
@@ -282,7 +274,7 @@ w4a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
     const int s = kt & 1;
     if (kt + 1 < ktiles) load_tile(s ^ 1, (kt + 1) * BKP);
     cp_async_commit();
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BKP; kk += 32) {

@@ -33,11 +33,14 @@ HEAD_DIMS = (64, 128)
 # JAX package's decode-kernel threshold). It reads keys in tiles of
 # DECODE_TILE, one warp a (row, split) item; decode_splits splits the keys
 # (at most once for every DECODE_CHUNK of them) only where the rows cannot
-# give each SM DECODE_WARPS_PER_SM items (csrc/flash.cu holds 4-8 an SM).
+# give each SM DECODE_WARPS_PER_SM[k/v dtype] items: half the warps an SM
+# holds of each at D = 128 (csrc/flash.cu's DecCfg: 8 int8, 4 bf16), the
+# best of 1-16 an SM at one 32,768-key sequence (kernel_times.py
+# --split-policy).
 DECODE_MAX_M = 32
 DECODE_CHUNK = 512
 DECODE_TILE = 32
-DECODE_WARPS_PER_SM = 4
+DECODE_WARPS_PER_SM = {torch.int8: 4, torch.bfloat16: 2}
 # K2/K4's block: query rows (two consumer warpgroups of 64) and keys a tile.
 FLASH_BM = 128
 FLASH_BN = 64
@@ -207,15 +210,15 @@ def _decode_fn():
     return f
 
 
-def decode_splits(BH: int, S: int, n_sm: int) -> tuple[int, int]:
+def decode_splits(BH: int, S: int, n_sm: int, per_sm: int) -> tuple[int, int]:
     """K5's KV split: (splits, keys a split covers). K5 gives each (row,
     split) item a warp of its own; one split when the ``BH`` rows alone give
-    every one of the ``n_sm`` SMs ``DECODE_WARPS_PER_SM`` items, or when ``S``
-    is at most ``DECODE_CHUNK``. Otherwise as many splits as that many items
-    need, at most one for every ``DECODE_CHUNK`` keys, each chunk a multiple
-    of ``DECODE_TILE``. At one 32,768-key sequence over 8 kv heads: 64 splits
-    of 512."""
-    want = DECODE_WARPS_PER_SM * n_sm
+    every one of the ``n_sm`` SMs ``per_sm`` items, or when ``S`` is at most
+    ``DECODE_CHUNK``. Otherwise as many splits as that many items need, at
+    most one for every ``DECODE_CHUNK`` keys, each chunk a multiple of
+    ``DECODE_TILE``. At one 32,768-key sequence over 8 kv heads: 64 splits
+    of 512 for int8 (4 an SM), 32 of 1,024 for bf16 (2)."""
+    want = per_sm * n_sm
     if BH >= want or S <= DECODE_CHUNK:
         return 1, max(S, 1)
     splits = min(-(-S // DECODE_CHUNK), -(-want // BH))
@@ -275,7 +278,7 @@ def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale)
     out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
     if BH and M:
-        splits, chunk = decode_splits(BH, s, _n_sm(dev))
+        splits, chunk = decode_splits(BH, s, _n_sm(dev), DECODE_WARPS_PER_SM[k.dtype])
         o_part = lse_part = None
         if splits > 1:
             o_part = torch.empty((splits, BH, M, d), dtype=torch.float32, device=dev)

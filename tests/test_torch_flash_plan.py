@@ -118,17 +118,19 @@ def _decode_item_keys(split, *, chunk, limit):
 @settings(max_examples=80, deadline=None, database=None)
 @given(BH=st.integers(1, 1200), S=st.integers(0, 40000),
        lens=st.lists(st.floats(0, 1.2), min_size=1, max_size=6),
-       n_sm=st.sampled_from([8, 132]))
-def test_decode_items_visit_each_key_below_the_length_once(BH, S, lens, n_sm):
+       n_sm=st.sampled_from([8, 132]), per_sm=st.sampled_from([2, 4]))
+def test_decode_items_visit_each_key_below_the_length_once(BH, S, lens, n_sm, per_sm):
     """Over every (row, split) item of a K5 launch: each key below a row's
     length lies in exactly one item's range, none at or past it is read, no
     item reads a tile that starts at or past its range's end, and the grid
-    splits only as far as it needs to keep DECODE_WARPS_PER_SM items an SM."""
-    splits, chunk = decode_splits(BH, S, n_sm)
+    splits only as far as it needs to keep ``per_sm`` items an SM (the
+    values of DECODE_WARPS_PER_SM)."""
+    assert per_sm in DECODE_WARPS_PER_SM.values()
+    splits, chunk = decode_splits(BH, S, n_sm, per_sm)
     assert splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
     if splits > 1:
         assert chunk % DECODE_TILE == 0
-        assert BH * (splits - 1) < DECODE_WARPS_PER_SM * n_sm
+        assert BH * (splits - 1) < per_sm * n_sm
         assert splits <= -(-S // DECODE_CHUNK)
     for frac in lens:
         limit = min(max(round(frac * S), 0), S)  # the kernel clamps a length to [0, S]

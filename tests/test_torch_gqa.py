@@ -117,17 +117,24 @@ def test_small_m_read_plain_matches_jax_decode_kernel(case, monkeypatch):
 
 
 def test_small_m_read_splits_fill_the_card():
-    """One split when b * hkv rows give every SM DECODE_WARPS_PER_SM items
-    (the gqa and no-sharing reads: 2,048 rows); otherwise enough splits for
-    that many items, no more than one a DECODE_CHUNK keys (the chip's split
-    shape: 8 rows over 32,768 keys; 256 rows over as many keys)."""
-    assert tflash.decode_splits(2048, 2128, 132) == (1, 2128)
-    assert tflash.decode_splits(2048, 192, 132) == (1, 192)
-    assert tflash.decode_splits(8, 32768, 132) == (64, tflash.DECODE_CHUNK)
-    assert tflash.decode_splits(256, 32768, 132) == (3, 10944)
-    assert tflash.decode_splits(528, 32768, 132) == (1, 32768)
-    assert tflash.decode_splits(8, 300, 132) == (1, 300)
-    assert tflash.decode_splits(8, 0, 132) == (1, 1)
+    """One split when b * hkv rows give every SM the dtype's
+    DECODE_WARPS_PER_SM items (the gqa and no-sharing reads: 2,048 rows);
+    otherwise enough splits for that many items, no more than one a
+    DECODE_CHUNK keys (the chip's split shapes: 8 rows over 32,768 keys, int8
+    and bf16; 256 rows over as many keys)."""
+    per_sm = tflash.DECODE_WARPS_PER_SM
+    i8, bf16 = per_sm[torch.int8], per_sm[torch.bfloat16]
+    assert (i8, bf16) == (4, 2)
+    assert tflash.decode_splits(2048, 2128, 132, i8) == (1, 2128)
+    assert tflash.decode_splits(2048, 192, 132, i8) == (1, 192)
+    assert tflash.decode_splits(8, 32768, 132, i8) == (64, tflash.DECODE_CHUNK)
+    assert tflash.decode_splits(8, 32768, 132, bf16) == (32, 2 * tflash.DECODE_CHUNK)
+    assert tflash.decode_splits(256, 32768, 132, i8) == (3, 10944)
+    assert tflash.decode_splits(256, 32768, 132, bf16) == (2, 16384)
+    assert tflash.decode_splits(528, 32768, 132, i8) == (1, 32768)
+    assert tflash.decode_splits(264, 32768, 132, bf16) == (1, 32768)
+    assert tflash.decode_splits(8, 300, 132, i8) == (1, 300)
+    assert tflash.decode_splits(8, 0, 132, bf16) == (1, 1)
 
 
 # --- a 2-layer GQA engine -------------------------------------------------------
