@@ -11,10 +11,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    main path gives it, on the card, in bf16; its time (CUDA events), its bound
    (the larger of least bytes over 3.35 TB/s and least operations over the
    peak rate of their type) and, where one PyTorch call computes the same
-   function, that call's time. K2 and K4 are also timed at the other shapes
-   the paths give them (the 8B decode read, the 7B request-2 read, the 8B
-   prefill, the 7B suffix prefill), nested under their entries. K2, K4 and
-   K5 (at the gqa and no-sharing reads and two split shapes) are also timed
+   function, that call's time. K1 is timed at every decode and 2,048-row
+   shape of both models and at request 2's 32,768-row gate/up, and each
+   output must equal the scaled ``torch._int_mm`` product bit for bit. K2
+   and K4 are also timed at the other shapes the paths give them (the 8B
+   decode read, the 7B request-2 read, the 8B prefill, the 7B suffix
+   prefill), nested under their entries. K1, K2, K4 and K5 (at the gqa and
+   no-sharing reads and two split shapes) are also timed
    on the device's clock alone (``device_ms``: a CUDA graph of the calls, no
    host work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
    head_dim 64; where K5 splits the keys, torch.profiler times its kernel
@@ -125,6 +128,23 @@ class Cycle:
         return self.fn(self.i)
 
 
+def int_mm_oracle(a_q, a_s, wt, ws, out_dtype=torch.bfloat16):
+    """K1's function in the kernel's order from the exact i32 product of
+    ``torch._int_mm`` (``wt`` the weight transposed, [K, N]): the kernel's
+    output must equal it bit for bit. A yardstick only; the port never
+    calls ``torch._int_mm``."""
+    return (torch._int_mm(a_q, wt).float() * a_s * ws.float()[None, :]).to(out_dtype)
+
+
+def gemm_plan_of(gemm, M, N, K):
+    """K1's launch plan at this shape, as a list (None for a tree whose
+    K1 has no plan)."""
+    plan = getattr(gemm, "gemm_plan", None)
+    if plan is None:
+        return None
+    return list(plan(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count))
+
+
 def check_kernels(report: dict, failures: list, time_ms) -> None:
     from hydragen_torch.ops import decode, flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
@@ -141,7 +161,12 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
             failures.append(f"kernel {name}: {msg}")
 
     # K1: the seven projections of one layer, at decode (M = 256) and at the
-    # shared prefill (M = 2,048). The JSON reports one decode layer's sum.
+    # shared prefill (M = 2,048), then the gate/up projection of request 2's
+    # unique prefill (M = 32,768). The JSON reports one decode layer's sum;
+    # each shape's own readings are nested under "shapes". Each output must
+    # also equal the exact i32 product scaled in the kernel's order bit for
+    # bit (torch._int_mm as the oracle). device_ms: a CUDA graph of the
+    # calls (no host work between them); ms: host-paced.
     NL = 6
     shapes = {"qkvo": (H, H), "gate_up": (I_PAD, H), "down": (H, I_PAD)}
     per_layer = {"qkvo": 4, "gate_up": 2, "down": 1}
@@ -150,41 +175,57 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
         w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
         ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
         weights[key] = (w, ws, w.transpose(1, 2).contiguous())
-    k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, ops=0)
-    for M in (BATCH, SHARED_LEN):
-        for key, (N, K) in shapes.items():
-            w, ws, wt = weights[key]
-            a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
-            out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
-            ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
-            err, rel = rel_err(out, ref)
-            ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
-            pms = time_ms(Cycle(lambda i: gemm.w8a8_cached_plain(i, a_q, a_s, w, ws), NL),
-                          iters=5)
-            lms = time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
-            nbytes = M * K + M * 4 + N * K + N * 2 + M * N * 2
-            ops = 2 * M * N * K
-            bms, _ = bound_ms(nbytes, ops, "int8")
-            record(
-                f"w8a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_REL,
-                f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) ms {ms:.4f} "
-                f"plain_ms {pms:.4f} int_mm_ms {lms:.4f} bound_ms {bms:.4f} "
-                f"TOP/s {ops / ms / 1e9:.1f}",
-            )
-            if M == BATCH:
-                n = per_layer[key]
-                k1["ms"] += n * ms
-                k1["plain_ms"] += n * pms
-                k1["library_ms"] += n * lms
-                k1["bytes"] += n * nbytes
-                k1["ops"] += n * ops
-                k1["err"] = max(k1["err"], err)
+    k1 = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, int_mm_device_ms=0.0,
+              err=0.0, bytes=0, ops=0)
+    k1_shapes = {}
+    runs = [(M, key) for M in (BATCH, SHARED_LEN) for key in shapes]
+    runs.append((BATCH * SUFFIX_LEN, "gate_up"))
+    for M, key in runs:
+        N, K = shapes[key]
+        w, ws, wt = weights[key]
+        a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+        out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
+        ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
+        err, rel = rel_err(out, ref)
+        exact = torch.equal(out, int_mm_oracle(a_q, a_s, wt[NL - 1], ws[NL - 1]))
+        del ref
+        ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
+        dms = cuda_graph_time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws),
+                                       NL))
+        pms = time_ms(Cycle(lambda i: gemm.w8a8_cached_plain(i, a_q, a_s, w, ws), NL),
+                      iters=2 if M > SHARED_LEN else 5, warmup=1)
+        lms = time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
+        ldms = cuda_graph_time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
+        nbytes = M * K + M * 4 + N * K + N * 2 + M * N * 2
+        ops = 2 * M * N * K
+        bms, by = bound_ms(nbytes, ops, "int8")
+        plan = gemm_plan_of(gemm, M, N, K)
+        record(
+            f"w8a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_REL and exact,
+            f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) bit-exact vs int_mm {exact} "
+            f"ms {ms:.4f} device_ms {dms:.4f} plain_ms {pms:.4f} int_mm_ms {lms:.4f} "
+            f"int_mm_device_ms {ldms:.4f} bound_ms {bms:.4f} ({by}) device TOP/s "
+            f"{ops / dms / 1e9:.1f} plan {plan}",
+        )
+        k1_shapes[f"M={M} N={N} K={K}"] = dict(
+            max_abs_err=err, bit_exact=exact, ms=ms, device_ms=dms, plain_ms=pms,
+            library_ms=lms, int_mm_device_ms=ldms, bound_ms=bms, bound_by=by,
+            device_top_s=ops / dms / 1e9, plan=plan)
+        if M == BATCH:
+            n = per_layer[key]
+            for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                             ("library_ms", lms), ("int_mm_device_ms", ldms),
+                             ("bytes", nbytes), ("ops", ops)):
+                k1[field] += n * v
+            k1["err"] = max(k1["err"], err)
+        del a_q, a_s, out
     bms, by = bound_ms(k1["bytes"], k1["ops"], "int8")
     report["w8a8_matmul_cached"] = dict(
-        max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=bms,
-        bound_by=by, library_ms=k1["library_ms"],
+        max_abs_err=k1["err"], ms=k1["ms"], device_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=k1["library_ms"],
+        int_mm_device_ms=k1["int_mm_device_ms"], shapes=k1_shapes,
         at="sum of one decode layer's 7 projections, M=256 (library: torch._int_mm, "
-           "no scale epilogue)",
+           "no scale epilogue; device_ms: from a CUDA graph of the calls)",
     )
 
     # K1': the 2-D entry of K1's kernel (layer stride 0), through qmatmul,
@@ -200,17 +241,22 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     launched = cuda_lib.LAUNCHES["w8a8_matmul"] - before
     ref = gemm.w8a8_reference(a_q, a_s, w[0], ws[0], out_dtype=torch.float32)
     err, rel = rel_err(out.reshape(BATCH, H), ref)
+    exact = torch.equal(out.reshape(BATCH, H), int_mm_oracle(a_q, a_s, wt[0], ws[0]))
     ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul(a_q, a_s, w[i], ws[i]), NL))
+    dms = cuda_graph_time_ms(Cycle(lambda i: gemm.w8a8_matmul(a_q, a_s, w[i], ws[i]), NL))
     pms = time_ms(Cycle(lambda i: gemm.w8a8_reference(a_q, a_s, w[i], ws[i]), NL), iters=5)
     lms = time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
+    ldms = cuda_graph_time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
     nbytes = BATCH * H + BATCH * 4 + H * H + H * 2 + BATCH * H * 2
     bms, by = bound_ms(nbytes, 2 * BATCH * H * H, "int8")
     record(f"w8a8_matmul (2-D entry via qmatmul) M={BATCH} N={H} K={H}",
-           rel <= TOL_REL and launched == 1,
-           f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} ms {ms:.4f} "
-           f"plain_ms {pms:.4f} int_mm_ms {lms:.4f} bound_ms {bms:.4f}")
+           rel <= TOL_REL and exact and launched == 1,
+           f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} bit-exact vs int_mm "
+           f"{exact} ms {ms:.4f} device_ms {dms:.4f} plain_ms {pms:.4f} int_mm_ms {lms:.4f} "
+           f"int_mm_device_ms {ldms:.4f} bound_ms {bms:.4f}")
     report["w8a8_matmul"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        library_ms=lms, int_mm_device_ms=ldms,
         at="2-D weight through qmatmul(impl='w8a8'), M=256 N=4096 K=4096 (library: "
            "torch._int_mm, no scale epilogue); off both paths, whose LM head is "
            "weight-only",
@@ -709,32 +755,51 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
                                     "1,024"),
     )
 
-    # K1 at Llama-3-8B's decode shapes: one layer's 7 projections, M = 256.
+    # K1 at Llama-3-8B's decode shapes (one layer's 7 projections, M = 256)
+    # and its shared prefill's (M = 2,048), each also bit-exact against the
+    # scaled torch._int_mm product.
     NL, I8 = 4, 14336
     shapes = {"q_o": (4096, 4096, 2), "k_v": (hkv * d, 4096, 2), "gate_up": (I8, 4096, 2),
               "down": (4096, I8, 1)}
-    layer = dict(ms=0.0, bytes=0, ops=0)
+    layer = dict(ms=0.0, device_ms=0.0, int_mm_device_ms=0.0, bytes=0, ops=0)
+    k1_shapes = {}
     for key, (N, K, n) in shapes.items():
         w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
         ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
-        a_q, a_s = gemm.quantize_rows(torch.randn(BATCH, K, device=dev, generator=g))
-        out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
-        ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
-        err, rel = rel_err(out, ref)
-        ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
-        nbytes = BATCH * K + BATCH * 4 + N * K + N * 2 + BATCH * N * 2
-        bms, _ = bound_ms(nbytes, 2 * BATCH * N * K, "int8")
-        record(f"w8a8_matmul_cached llama-3-8b {key} M={BATCH} N={N} K={K}", rel <= TOL_REL,
-               f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) ms {ms:.4f} "
-               f"bound_ms {bms:.4f}")
-        layer["ms"] += n * ms
-        layer["bytes"] += n * nbytes
-        layer["ops"] += n * 2 * BATCH * N * K
-        del w, ws
+        wt = w.transpose(1, 2).contiguous()
+        for M in (BATCH, SHARED_LEN):
+            a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+            out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
+            ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
+            err, rel = rel_err(out, ref)
+            exact = torch.equal(out, int_mm_oracle(a_q, a_s, wt[NL - 1], ws[NL - 1]))
+            ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
+            dms = cuda_graph_time_ms(Cycle(
+                lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
+            ldms = cuda_graph_time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
+            nbytes = M * K + M * 4 + N * K + N * 2 + M * N * 2
+            ops = 2 * M * N * K
+            bms, by = bound_ms(nbytes, ops, "int8")
+            plan = gemm_plan_of(gemm, M, N, K)
+            record(f"w8a8_matmul_cached llama-3-8b {key} M={M} N={N} K={K}",
+                   rel <= TOL_REL and exact,
+                   f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) bit-exact vs int_mm "
+                   f"{exact} ms {ms:.4f} device_ms {dms:.4f} int_mm_device_ms {ldms:.4f} "
+                   f"bound_ms {bms:.4f} ({by}) device TOP/s {ops / dms / 1e9:.1f} plan {plan}")
+            k1_shapes[f"M={M} N={N} K={K}"] = dict(
+                max_abs_err=err, bit_exact=exact, ms=ms, device_ms=dms, int_mm_device_ms=ldms,
+                bound_ms=bms, bound_by=by, device_top_s=ops / dms / 1e9, plan=plan)
+            if M == BATCH:
+                for field, v in (("ms", ms), ("device_ms", dms), ("int_mm_device_ms", ldms),
+                                 ("bytes", nbytes), ("ops", ops)):
+                    layer[field] += n * v
+            del a_q, a_s, out, ref
+        del w, ws, wt
     bms, by = bound_ms(layer["bytes"], layer["ops"], "int8")
     report["w8a8_matmul_cached"]["llama_3_8b"] = dict(
-        ms=layer["ms"], bound_ms=bms, bound_by=by,
-        at="sum of one Llama-3-8B decode layer's 7 projections, M=256")
+        ms=layer["ms"], device_ms=layer["device_ms"],
+        int_mm_device_ms=layer["int_mm_device_ms"], bound_ms=bms, bound_by=by,
+        shapes=k1_shapes, at="sum of one Llama-3-8B decode layer's 7 projections, M=256")
 
 
 def expected_launches(L: int, T: int) -> dict:
@@ -832,7 +897,7 @@ def drive_path(args, failures: list, path: str) -> dict:
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
-    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.ops import cuda_lib, gemm
 
     tag, preset, quant, kv_quant, expected, groups = PATHS[path]
     cfg = PRESETS[preset]
@@ -852,6 +917,7 @@ def drive_path(args, failures: list, path: str) -> dict:
 
     decode_steps, decode_s = time_decode_loop(eng)
     stats = {}
+    encodes = gemm.map_encodes()
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -871,6 +937,7 @@ def drive_path(args, failures: list, path: str) -> dict:
     stats["request2_s"] = time.perf_counter() - t
     stats["request2_decode_s"] = decode_s[0] - stats["request1_decode_s"]
     launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    stats["k1_map_encodes"] = gemm.map_encodes() - encodes
 
     decoded = BATCH * (T - 1)
     stats["decode_tok_s_request1"] = decoded / stats["request1_decode_s"]

@@ -83,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -141,87 +142,14 @@ __device__ __forceinline__ unsigned pack_bf16(float x, float y) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives of K2/K4: mbarriers, TMA, wgmma.
+// K2/K4's own Hopper pieces (the shared ones are in hopper.cuh): exp2 and
+// the bf16 wgmma shapes.
 
 // 2^x on the special-function unit, flushing denormals (-inf gives 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to TMA and wgmma.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; completion counts bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. Byte offsets: lbo
-// between swizzle atoms along the leading dimension (MN-major), sbo between
-// 8-row groups. The tiles start on 1,024-byte boundaries (base offset 0).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 #define ACC8(i)                                                                           \
@@ -695,31 +623,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   }
 }
 
-// Host side of the tensor maps: cuTensorMapEncodeTiled through the
-// runtime's driver entry point, and a small cache (the level buffers are
-// fixed allocations, so the shared-level read encodes its maps once).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(f);
-  }
-  return fn;
-}
-
+// Host side of the tensor maps: a small cache over encode_fn() (hopper.cuh;
+// the level buffers are fixed allocations, so the shared-level read encodes
+// its maps once).
 struct MapEntry {
   const void* ptr;
   long long rows;

@@ -12,6 +12,7 @@ when the package is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -132,6 +133,12 @@ def check_aligned(what: str, t, nbytes: int = 16) -> None:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The SM count of CUDA device ``device`` (read once a device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -83,12 +83,6 @@ def flash_plan(BH: int, M: int, S: int, n_sm: int, causal: bool = False) -> tupl
     return -(-S // chunk), chunk
 
 
-@functools.cache
-def _n_sm(dev: torch.device) -> int:
-    """The SM count of CUDA device ``dev`` (read once a device)."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _check(name, t, dev, dtypes):
     if t.device != dev or t.dtype not in dtypes or not t.is_contiguous():
         raise ValueError(
@@ -124,7 +118,7 @@ def _launch(qf, k_rows, v_rows, ks_rows, vs_rows, lens, *, row_offset, BH, M, q_
     out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
     if BH and M:
-        splits, chunk = flash_plan(BH, M, S, _n_sm(dev), causal)
+        splits, chunk = flash_plan(BH, M, S, cuda_lib.sm_count(dev), causal)
         o_part = lse_part = None
         if splits > 1:
             # One f32 workspace: the partial outputs, then their lse.
@@ -278,7 +272,8 @@ def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale)
     out = torch.empty((BH, M, d), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((BH, M), dtype=torch.float32, device=dev)
     if BH and M:
-        splits, chunk = decode_splits(BH, s, _n_sm(dev), DECODE_WARPS_PER_SM[k.dtype])
+        splits, chunk = decode_splits(BH, s, cuda_lib.sm_count(dev),
+                                      DECODE_WARPS_PER_SM[k.dtype])
         o_part = lse_part = None
         if splits > 1:
             o_part = torch.empty((splits, BH, M, d), dtype=torch.float32, device=dev)

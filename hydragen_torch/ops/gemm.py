@@ -14,11 +14,14 @@ its group scale in f32, then applies the row scale. Both read the layer
 straight out of the stacked weight. ``w8a8_matmul`` and ``w4a8_matmul`` are
 their 2-D entries: the same kernels at one layer. A CUDA tensor goes to the
 kernels of ``csrc/gemm.cu`` (or raises); a CPU tensor to the plain versions.
+``gemm_plan`` picks the w8a8 kernel's tile and K split.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -48,14 +51,97 @@ def w8a8_cached_plain(layer: int, a_q, a_scale, w_all, w_scale_all,
 
 
 def w8a8_supported(N: int, K: int) -> bool:
-    """Shapes the w8a8 kernel takes: 16-byte rows for cp.async, paired
-    columns."""
+    """Shapes the w8a8 kernel takes: rows a whole number of 16 bytes (the
+    tensor maps' strides), paired columns."""
     return K % 16 == 0 and N % 2 == 0
 
 
+# K1's launch plan (csrc/gemm.cu: w8a8_kernel).
+GEMM_BK = 128            # bytes of K a stage of the ring
+GEMM_SPLITS = (1, 2, 4)  # K splits: the blocks of one cluster
+GEMM_GROUP_M = 16        # the kernel's raster: M fastest within groups of this many M tiles
+# The plan's cost model, fitted by least squares (on log time) to K1's device
+# times at every (bm, bn, split) at the paths' decode and prefill shapes
+# (kernel_times.py --gemm-plans, which prints the fit; NVIDIA H100 80GB HBM3,
+# 700 W). A 128-byte K step of a block takes the longer of its inflow to
+# shared memory (bm + bn rows of 128 bytes) and its products; a block adds a
+# fixed cost (ring fill, epilogue, launch), and more with a split (the
+# cluster's syncs and the exchange of partials). Microseconds.
+GEMM_STEP_US_A_ROW = 0.0020
+GEMM_STEP_US_BASE = -0.0861
+GEMM_STEP_US_PRODUCTS = 0.7826  # a 256 x 128 tile's step of products
+GEMM_BLOCK_US = 2.4832
+GEMM_SPLIT_US = 3.7417
+# Share of the SMs that clusters of 4 blocks can hold at once: the blocks of
+# a cluster share a GPC, and on the H100 the card holds 30 such clusters
+# (120 SMs; 66 of 2, 132 of 1), read with cudaOccupancyMaxActiveClusters
+# (the library's hydragen_w8a8_max_clusters).
+GEMM_CLUSTER4_SM_SHARE = 120 / 132
+
+
+class GemmPlan(NamedTuple):
+    """K1's launch: ``bm`` x ``bn`` output tiles, each computed by a cluster
+    of ``splits`` blocks along K, block s taking the K steps ``[s *
+    split_steps, (s + 1) * split_steps)`` of ``GEMM_BK`` bytes (the last
+    split the rest). The i32 partials are summed in the cluster's shared
+    memory, so none goes to device memory."""
+
+    bm: int
+    bn: int
+    splits: int
+    split_steps: int
+
+    def blocks(self, M: int, N: int) -> int:
+        return -(-M // self.bm) * -(-N // self.bn) * self.splits
+
+
+def gemm_cluster_slots(splits: int, n_sm: int) -> int:
+    """Clusters of ``splits`` blocks the card holds at once (one block an
+    SM)."""
+    share = GEMM_CLUSTER4_SM_SHARE if splits >= 4 else 1.0
+    return max(1, int(n_sm * share) // splits)
+
+
+def gemm_plan_us(plan: GemmPlan, M: int, N: int, n_sm: int) -> float:
+    """The cost model's time of a launch: waves of clusters times a block's
+    steps and fixed cost."""
+    waves = -(-plan.blocks(M, N) // plan.splits // gemm_cluster_slots(plan.splits, n_sm))
+    step = max(GEMM_STEP_US_A_ROW * (plan.bm + plan.bn) + GEMM_STEP_US_BASE,
+               GEMM_STEP_US_PRODUCTS * plan.bm * plan.bn / (256 * 128))
+    fixed = GEMM_BLOCK_US + (GEMM_SPLIT_US if plan.splits > 1 else 0.0)
+    return waves * (plan.split_steps * step + fixed)
+
+
+@functools.cache
+def gemm_plan(M: int, N: int, K: int, n_sm: int) -> GemmPlan:
+    """K1's tile and split for ``a [M, K] . w [N, K]^T`` on ``n_sm`` SMs:
+    the plan ``gemm_plan_us`` finds fastest among ``bm`` 128 or 256 (256
+    only above 128 rows), ``bn`` 128 or 64 and the splits of
+    ``GEMM_SPLITS`` (none that would leave a split without a K step); on a
+    tie the larger tile, then the fewer splits. At M <= 256 every weight
+    tile is read by at most two blocks, M tiles side by side in the raster,
+    so the second read can find the tile in L2."""
+    k_steps = -(-K // GEMM_BK)
+    best = None
+    for bm in (256, 128):
+        if bm == 256 and M <= 128:
+            continue
+        for bn in (128, 64):
+            for splits in GEMM_SPLITS:
+                per = -(-k_steps // splits)
+                if -(-k_steps // per) != splits:
+                    continue
+                plan = GemmPlan(bm, bn, splits, per)
+                key = (gemm_plan_us(plan, M, N, n_sm), -bm * bn, splits)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    return best[1]
+
+
+@functools.cache
 def _w8a8_fn():
     f = cuda_lib.library("gemm").hydragen_w8a8_gemm
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -82,9 +168,18 @@ def _check_operands(what, operands, out_dtype):
     return dev
 
 
-def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype):
+def map_encodes() -> int:
+    """Tensor maps K1 has encoded since its library was loaded: its map
+    cache's misses (the card only)."""
+    f = cuda_lib.library("gemm").hydragen_gemm_map_encodes
+    f.restype = ctypes.c_longlong
+    return int(f())
+
+
+def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype, plan=None, out=None):
     """One K1 launch on layer ``layer`` of ``w [L, N, K]`` (a 2-D weight is
-    the stack of one, read at layer stride 0)."""
+    the stack of one). ``plan`` (default ``gemm_plan``) and ``out`` (default
+    a new tensor) let the tests force a split and poison the output."""
     M, K = a_q.shape
     L, N, K2 = w.shape
     if K != K2 or not 0 <= layer < L:
@@ -98,13 +193,15 @@ def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype):
                          f"{tuple(w_scale.shape)} do not match M={M} L={L} N={N}")
     if not w8a8_supported(N, K):
         raise ValueError(f"w8a8 kernel: needs K % 16 == 0 and N % 2 == 0, got N={N} K={K}")
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out
+    plan = plan or gemm_plan(M, N, K, cuda_lib.sm_count(dev))
     status = _w8a8_fn()(
-        a_q.data_ptr(), a_scale.data_ptr(), w.data_ptr() + layer * N * K,
+        a_q.data_ptr(), a_scale.data_ptr(), w.data_ptr(),
         w_scale.data_ptr() + layer * N * w_scale.element_size(),
-        out.data_ptr(), M, N, K, int(out_dtype == torch.bfloat16),
+        out.data_ptr(), M, N, K, L, layer, *plan, int(out_dtype == torch.bfloat16),
         cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(status, counter)

@@ -9,6 +9,15 @@ success line: only ``python3 chip_smoke.py`` gives those. Copied with
 archive``), it times that checkout's kernels, so two trees compare in one
 run on one card.
 
+``--gemm-plans`` also times K1 at every launch plan its kernel takes (tile
+and K split) at the paths' decode and prefill shapes, each output held to the
+scaled ``torch._int_mm`` product bit for bit, marks ``gemm_plan``'s choice,
+and reads how many thread block clusters of each size the card holds at once:
+the readings ``ops/gemm.py``'s cost model is fitted to. ``--gemm-trace`` builds
+a copy of ``csrc/gemm.cu`` that stamps the global timer at the phases of each
+block (entry, first stage in, main loop done, reduction done, output staged,
+stored) and prints where a block's time goes at a few plans.
+
 ``--split-policy`` also times K5 at ``chip_smoke.py``'s split shapes (one
 32,768-key sequence over 8 kv heads, int8 and bf16) for each count of items
 an SM that ``ops/flash.py:decode_splits`` could aim for, each held to the
@@ -23,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -93,10 +103,203 @@ def split_policy(failures: list) -> dict:
     return times
 
 
+GEMM_SHAPES = ((4096, 4096), (11264, 4096), (4096, 11264), (1024, 4096), (14336, 4096),
+               (4096, 14336))  # (N, K) of the 7B and 8B projections
+
+
+def _gemm_case(M, N, K, g, NL=4):
+    from hydragen_torch.ops import gemm
+
+    dev = torch.device("cuda")
+    w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
+    ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
+    a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    return a_q, a_s, w, ws
+
+
+def gemm_plans(failures: list) -> dict:
+    """K1's device ms (CUDA graph) at every (bm, bn, split) at the paths'
+    shapes, each output bit-exact against the scaled torch._int_mm product,
+    and the clusters of 1-4 blocks the card holds at once."""
+    import ctypes
+
+    import chip_smoke
+    from hydragen_torch.ops import cuda_lib, gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    f = cuda_lib.library("gemm").hydragen_w8a8_max_clusters
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int(0)
+    slots = {s: f(256, 128, s, ctypes.byref(status)) for s in gemm.GEMM_SPLITS}
+    if status.value:
+        failures.append(f"hydragen_w8a8_max_clusters: CUDA error {status.value}")
+    print(f"[gemm plans] clusters the card holds at once, by blocks a cluster: {slots}",
+          flush=True)
+    n_sm = cuda_lib.sm_count(torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out: dict = {"cluster_slots": slots}
+    readings = []
+    for M in (256, 2048):
+        for N, K in GEMM_SHAPES:
+            a_q, a_s, w, ws = _gemm_case(M, N, K, g)
+            ref = chip_smoke.int_mm_oracle(a_q, a_s, w[1].t().contiguous(), ws[1])
+            steps = -(-K // gemm.GEMM_BK)
+            chosen = gemm.gemm_plan(M, N, K, n_sm)
+            times = {}
+            for bm in ((128, 256) if M > 128 else (128,)):
+                for bn in (128, 64):
+                    for s in gemm.GEMM_SPLITS:
+                        per = -(-steps // s)
+                        if -(-steps // per) != s:
+                            continue
+                        plan = gemm.GemmPlan(bm, bn, s, per)
+
+                        def call(i, plan=plan):
+                            return gemm._launch_w8a8("w8a8_matmul_cached", a_q, a_s, w, ws, i,
+                                                     torch.bfloat16, plan=plan)
+                        if not torch.equal(call(1), ref):
+                            failures.append(f"K1 M={M} N={N} K={K} {plan}: not bit-exact")
+                        times[plan] = cuda_graph_time_ms(chip_smoke.Cycle(call, w.shape[0]))
+            best = min(times, key=times.get)
+            print(f"[gemm plans] M={M} N={N} K={K}: " + " | ".join(
+                f"{p.bm}/{p.bn}/{p.splits}: {t:.4f}{' (plan)' if p == chosen else ''}"
+                for p, t in times.items())
+                + f"; best {list(best)}, plan {list(chosen)} at "
+                  f"{times[chosen] / times[best]:.3f} x the best", flush=True)
+            out[f"M={M} N={N} K={K}"] = dict(
+                device_ms={"/".join(map(str, p[:3])): t for p, t in times.items()},
+                plan=list(chosen), best=list(best))
+            readings += [((M, N, K), p, t * 1e3) for p, t in times.items()]
+            del a_q, a_s, w, ws, ref
+    out["fit"] = fit_gemm_model(readings, n_sm)
+    print(f"[gemm plans] cost model fitted to these readings: {out['fit']}", flush=True)
+    return out
+
+
+def fit_gemm_model(readings, n_sm) -> dict:
+    """The constants of ops/gemm.py's cost model, fitted by least squares
+    on the log of each reading's time (us)."""
+    import math
+
+    from scipy.optimize import least_squares
+
+    from hydragen_torch.ops import gemm
+
+    names = ("GEMM_STEP_US_A_ROW", "GEMM_STEP_US_BASE", "GEMM_STEP_US_PRODUCTS",
+             "GEMM_BLOCK_US", "GEMM_SPLIT_US")
+    keep = {n: getattr(gemm, n) for n in names}
+
+    def residuals(x):
+        for n, v in zip(names, x):
+            setattr(gemm, n, v)
+        return [math.log(gemm.gemm_plan_us(p, M, N, n_sm) / us)
+                for (M, N, _), p, us in readings]
+    try:
+        fit = least_squares(residuals, [keep[n] for n in names])
+    finally:
+        for n, v in keep.items():
+            setattr(gemm, n, v)
+    return dict(zip(names, (round(float(v), 4) for v in fit.x)),
+                rms_log_error=round(float(math.sqrt((fit.fun ** 2).mean())), 4))
+
+
+# (search, insertion before it) in csrc/gemm.cu: the global timer's stamps.
+_TRACE_MARKS = (
+    ("  if (threadIdx.x == 0) {\n    for (int s = 0; s < C::ST; ++s) {", "  TR(0)\n"),
+    ("    const uint32_t a_base = ring + s * C::STAGE", "    if (i == 0) TR(1)\n"),
+    ("\n  // The K split's reduction.", "  TR(2)\n"),
+    ("  named_sync(w8::SCALES_BAR, w8::THREADS);\n#pragma unroll", "  TR(3)\n"),
+    ("  constexpr int CH = 16 / static_cast<int>(sizeof(OutT));", "  TR(4)\n"),
+    ("}\n\n// ---------------------------------------------------------------------------\n"
+     "// w4a8_kernel", "  TR(5)\n"),
+)
+TRACE_PHASES = ("fill", "main loop", "reduction", "output staged", "stored")
+
+
+def gemm_trace(failures: list) -> dict:
+    """Where a K1 block's time goes: a copy of csrc/gemm.cu whose block
+    thread 0 stamps %globaltimer at six points, run once at a few plans;
+    per phase the min / median / max over blocks (us), and the launch's
+    span against its device time in a CUDA graph of 20 calls."""
+    import ctypes
+    import subprocess
+
+    import numpy as np
+
+    import chip_smoke
+    from hydragen_torch.ops import cuda_lib, gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    src = (cuda_lib.CSRC / "gemm.cu").read_text()
+    src = src.replace("namespace {\n", "__device__ unsigned long long g_trace[1 << 16][6];\n"
+                      "#define TR(i) if (threadIdx.x == 0) asm volatile(\"mov.u64 %0, "
+                      "%%globaltimer;\" : \"=l\"(g_trace[blockIdx.x][i]));\nnamespace {\n", 1)
+    for mark, stamp in _TRACE_MARKS:
+        if src.count(mark) != 1:
+            failures.append(f"gemm trace: mark not found once: {mark!r}")
+            return {}
+        src = src.replace(mark, stamp + mark)
+    src += ('\nextern "C" int hydragen_k1_trace(void* dst, int n) {\n'
+            "  return (int)cudaMemcpyFromSymbol(dst, g_trace, (size_t)n * 48);\n}\n")
+    out_dir = cuda_lib.build_dir() / "trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "gemm_trace.cu").write_text(src)
+    so = out_dir / "libgemm_trace.so"
+    r = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC), "-o",
+                        str(so), str(out_dir / "gemm_trace.cu")], capture_output=True, text=True)
+    if r.returncode:
+        failures.append(f"gemm trace: nvcc failed:\n{r.stdout}{r.stderr}")
+        return {}
+    lib = ctypes.CDLL(str(so))
+    lib.hydragen_k1_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    keep = cuda_lib._LIBS["gemm"]
+    cuda_lib._LIBS["gemm"] = lib
+    gemm._w8a8_fn.cache_clear()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    n_sm = cuda_lib.sm_count(torch.device("cuda"))
+    out = {}
+    try:
+        for M, N, K in ((256, 4096, 4096), (256, 11264, 4096), (256, 4096, 11264),
+                        (2048, 4096, 4096)):
+            a_q, a_s, w, ws = _gemm_case(M, N, K, g)
+            plan = gemm.gemm_plan(M, N, K, n_sm)
+
+            def call(i):
+                return gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws)
+            ms = cuda_graph_time_ms(chip_smoke.Cycle(call, w.shape[0]))
+            call(0)
+            torch.cuda.synchronize()
+            stamps = np.zeros((plan.blocks(M, N), 6), dtype=np.uint64)
+            if lib.hydragen_k1_trace(stamps.ctypes.data, len(stamps)):
+                failures.append("gemm trace: reading the stamps failed")
+                return out
+            t = (stamps.astype(np.int64) - int(stamps[:, 0].min())) / 1e3
+            phases = {name: [float(np.min(d)), float(np.median(d)), float(np.max(d))]
+                      for name, d in zip(TRACE_PHASES, np.diff(t, axis=1).T)}
+            span = float(t[:, 5].max())
+            print(f"[gemm trace] M={M} N={N} K={K} plan {list(plan)}: device {ms * 1e3:.2f} "
+                  f"us a call (graph), span {span:.2f} us, block entry spread "
+                  f"{float(t[:, 0].max()):.2f} us; min/median/max us: " + "; ".join(
+                      f"{k} {v[0]:.2f}/{v[1]:.2f}/{v[2]:.2f}" for k, v in phases.items())
+                  + f"; main loop a K step {phases['main loop'][1] / plan.split_steps:.3f}",
+                  flush=True)
+            out[f"M={M} N={N} K={K}"] = dict(plan=list(plan), device_us=ms * 1e3,
+                                             span_us=span, phases_us=phases)
+            del a_q, a_s, w, ws
+    finally:
+        cuda_lib._LIBS["gemm"] = keep
+        gemm._w8a8_fn.cache_clear()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split-policy", action="store_true",
                     help="also time K5's split shapes at each items-an-SM count")
+    ap.add_argument("--gemm-plans", action="store_true",
+                    help="also time K1 at every tile and split its kernel takes")
+    ap.add_argument("--gemm-trace", action="store_true",
+                    help="also stamp the phases of K1's blocks (an instrumented copy)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; the port's kernels run only on the card",
@@ -116,11 +319,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}", flush=True)
     cuda_lib.build()
+    for name, log in cuda_lib.BUILD_LOG.items():  # ptxas' report of each kernel built here
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '_ZN\w+?_cu_[0-9a-f]{8}\d+(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            elif kernel and ("Used" in line or "spill" in line):
+                print(f"[ptxas] {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
     report: dict = {}
     failures: list[str] = []
     chip_smoke.check_kernels(report, failures, cuda_time_ms)
     if args.split_policy:
         report["k5_split_policy"] = split_policy(failures)
+    if args.gemm_plans:
+        report["k1_plans"] = gemm_plans(failures)
+    if args.gemm_trace:
+        report["k1_trace"] = gemm_trace(failures)
     if failures:
         print("kernel_times FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

@@ -52,6 +52,83 @@ def test_w8a8_kernel_matches_plain(dev, M, N, K, out_dtype):
     assert _rel(out, ref) < tol
 
 
+def _w8a8_oracle(a_q, a_s, w, ws, out_dtype):
+    """The kernel's function in its order, from an exact i32 product:
+    ``torch._int_mm`` where it takes the shape, else an f64 product (every
+    partial sum is an integer below 2^31, exact in f64)."""
+    M, K = a_q.shape
+    N = w.shape[0]
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        acc = torch._int_mm(a_q, w.t())
+    else:
+        acc = (a_q.double() @ w.double().t()).to(torch.int32)
+    return (acc.float() * a_s * ws.float()[None, :]).to(out_dtype)
+
+
+def _w8a8_plans(M, N, K):
+    """gemm_plan's own choice and every (bm, bn, split) the kernel takes at
+    this shape."""
+    auto = tgemm.gemm_plan(M, N, K, cuda_lib.sm_count(torch.device("cuda")))
+    steps = -(-K // tgemm.GEMM_BK)
+    plans = {auto}
+    for bm in (128, 256):
+        for bn in (64, 128):
+            for s in tgemm.GEMM_SPLITS:
+                per = -(-steps // s)
+                if -(-steps // per) == s:
+                    plans.add(tgemm.GemmPlan(bm, bn, s, per))
+    return sorted(plans)
+
+
+W8A8_EXACT_SHAPES = [(5, 130, 96), (70, 11264, 256), (300, 1026, 4112), (256, 1024, 4096)]
+
+
+@pytest.mark.parametrize("M,N,K", W8A8_EXACT_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_kernel_is_bit_exact_at_every_split(dev, M, N, K, out_dtype):
+    """K1 and K1' equal the scaled exact product bit for bit at every plan
+    the kernel takes (integer sums do not depend on the split), into an
+    output pre-filled with NaN."""
+    g = _gen(11)
+    a_q, a_s = tgemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    w = torch.randint(-128, 128, (3, N, K), dtype=torch.int8, device=dev, generator=g)
+    ws = (torch.rand(3, N, device=dev, generator=g) * 0.01 + 1e-3).to(torch.bfloat16)
+    ref = _w8a8_oracle(a_q, a_s, w[1], ws[1], out_dtype)
+    for plan in _w8a8_plans(M, N, K):
+        out = torch.full((M, N), float("nan"), dtype=out_dtype, device=dev)
+        tgemm._launch_w8a8("w8a8_matmul_cached", a_q, a_s, w, ws, 1, out_dtype, plan=plan,
+                           out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+    assert torch.equal(tgemm.w8a8_matmul_cached(1, a_q, a_s, w, ws, out_dtype), ref)
+    assert torch.equal(tgemm.w8a8_matmul(a_q, a_s, w[1].clone(), ws[1].clone(), out_dtype), ref)
+
+
+def test_w8a8_kernel_graph_replays_give_the_same_bits(dev):
+    """Two replays of a captured K1 launch (a split plan) give the same
+    bits: the launch keeps no state between calls."""
+    g = _gen(12)
+    M, N, K = 256, 1024, 4096
+    a_q, a_s = tgemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    w = torch.randint(-128, 128, (2, N, K), dtype=torch.int8, device=dev, generator=g)
+    ws = (torch.rand(2, N, device=dev, generator=g) * 0.01 + 1e-3).to(torch.bfloat16)
+    assert tgemm.gemm_plan(M, N, K, cuda_lib.sm_count(dev)).splits > 1
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    tgemm._launch_w8a8("w8a8_matmul_cached", a_q, a_s, w, ws, 1, torch.bfloat16, out=out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tgemm._launch_w8a8("w8a8_matmul_cached", a_q, a_s, w, ws, 1, torch.bfloat16, out=out)
+    runs = []
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(out.clone())
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], _w8a8_oracle(a_q, a_s, w[1], ws[1], torch.bfloat16))
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal,int8,lens", [
     (True, False, None), (False, True, [70, 0]), (True, True, [100, 37]),
