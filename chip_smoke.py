@@ -16,8 +16,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    output must equal the scaled ``torch._int_mm`` product bit for bit. K2
    and K4 are also timed at the other shapes the paths give them (the 8B
    decode read, the 7B request-2 read, the 8B prefill, the 7B suffix
-   prefill), nested under their entries. K1, K2, K4 and K5 (at the gqa and
-   no-sharing reads and two split shapes) are also timed
+   prefill), nested under their entries. K6 is held to its f32 oracle at
+   every decode and 2,048-row shape of the 7B int4 layer and at its 2-D
+   entry. K1, K2, K4, K5 (at the gqa and no-sharing reads and two split
+   shapes) and K6 (at each of its shapes) are also timed
    on the device's clock alone (``device_ms``: a CUDA graph of the calls, no
    host work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
    head_dim 64; where K5 splits the keys, torch.profiler times its kernel
@@ -145,6 +147,21 @@ def gemm_plan_of(gemm, M, N, K):
     return list(plan(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count))
 
 
+def print_ptxas(build_log: dict) -> None:
+    """ptxas' registers, barriers and spills of each kernel built in this
+    process (``cuda_lib.BUILD_LOG``), one ``[ptxas]`` line each."""
+    import re
+
+    for name, log in build_log.items():
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '_ZN\w+?_cu_[0-9a-f]{8}\d+(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            elif kernel and ("Used" in line or "spill" in line):
+                print(f"[ptxas] {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
 def check_kernels(report: dict, failures: list, time_ms) -> None:
     from hydragen_torch.ops import decode, flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
@@ -264,7 +281,9 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     del weights
 
     # K6: the int4 projections of one layer (group 128), at decode and at the
-    # shared prefill, then the 2-D entry. The JSON reports one decode layer.
+    # shared prefill, then the 2-D entry. The JSON reports one decode layer's
+    # sum; each shape's own readings are nested under "shapes". device_ms: a
+    # CUDA graph of the calls (no host work between them); ms: host-paced.
     weights4 = {}
     for key, (N, K) in shapes.items():
         qp = torch.randint(-128, 128, (NL, N, K // 2), dtype=torch.int8, device=dev,
@@ -272,7 +291,8 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
         gs = (torch.rand(NL, K // 128, N, device=dev, generator=g) * 2e-3 + 1e-4
               ).to(torch.bfloat16)
         weights4[key] = (qp, gs)
-    k6 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, ops=0)
+    k6 = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, err=0.0, bytes=0, ops=0)
+    k6_shapes = {}
     for M in (BATCH, SHARED_LEN):
         for key, (N, K) in shapes.items():
             qp, gs = weights4[key]
@@ -281,25 +301,33 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
             ref = gemm.w4a8_cached_plain(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
             err, rel = rel_err(out, ref)
             ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+            dms = cuda_graph_time_ms(
+                Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
             pms = time_ms(Cycle(lambda i: gemm.w4a8_cached_plain(i, a_q, a_s, qp, gs), NL),
                           iters=5)
             nbytes = M * K + M * 4 + N * K // 2 + (K // 128) * N * 2 + M * N * 2
             ops = 2 * M * N * K
-            bms, _ = bound_ms(nbytes, ops, "int8")
+            bms, by = bound_ms(nbytes, ops, "int8")
             record(
                 f"w4a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_W4A8,
                 f"max_abs_err {err:.4g} rel {rel:.3g} (fp32 out, tol {TOL_W4A8}) ms {ms:.4f} "
-                f"plain_ms {pms:.4f} bound_ms {bms:.4f} TOP/s {ops / ms / 1e9:.1f}",
+                f"device_ms {dms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) device "
+                f"TOP/s {ops / dms / 1e9:.1f}",
             )
+            k6_shapes[f"M={M} N={N} K={K}"] = dict(
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, device_top_s=ops / dms / 1e9)
             if M == BATCH:
                 n = per_layer[key]
-                k6["ms"] += n * ms
-                k6["plain_ms"] += n * pms
-                k6["bytes"] += n * nbytes
-                k6["ops"] += n * ops
+                for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                 ("bytes", nbytes), ("ops", ops)):
+                    k6[field] += n * v
                 k6["err"] = max(k6["err"], err)
+            del a_q, a_s, out, ref
     from hydragen_torch.ops.quant import Quantized4Tensor
 
+    # The 2-D entry: one launch through qmatmul (bf16 out), and fp32 out
+    # against the oracle at the f32 tolerance.
     qp, gs = weights4["qkvo"]
     x = torch.randn(BATCH, 1, H, device=dev, generator=g).to(torch.bfloat16)
     a_q, a_s = gemm.quantize_rows(x.reshape(BATCH, H))
@@ -307,19 +335,26 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     out = qmatmul(x, Quantized4Tensor(qp[0], gs[0]), "bth,hd->btd", impl="w4a8")
     launched = cuda_lib.LAUNCHES["w4a8_matmul"] - before
     ref = gemm.w4a8_reference(a_q, a_s, qp[0], gs[0], out_dtype=torch.float32)
-    err, rel = rel_err(out.reshape(BATCH, H), ref)
-    ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul(a_q, a_s, qp[i], gs[i]), NL))
+    _, rel = rel_err(out.reshape(BATCH, H), ref)
+    err32, rel32 = rel_err(gemm.w4a8_matmul(a_q, a_s, qp[0], gs[0], torch.float32), ref)
+    ms2 = time_ms(Cycle(lambda i: gemm.w4a8_matmul(a_q, a_s, qp[i], gs[i]), NL))
+    dms2 = cuda_graph_time_ms(Cycle(lambda i: gemm.w4a8_matmul(a_q, a_s, qp[i], gs[i]), NL))
     record(f"w4a8_matmul (2-D entry via qmatmul) M={BATCH} N={H} K={H}",
-           rel <= TOL_REL and launched == 1,
-           f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} ms {ms:.4f}")
+           rel <= TOL_REL and rel32 <= TOL_W4A8 and launched == 1,
+           f"launches {launched} rel {rel:.3g} (bf16 out); fp32 out max_abs_err {err32:.4g} "
+           f"rel {rel32:.3g} (tol {TOL_W4A8}) ms {ms2:.4f} device_ms {dms2:.4f}")
     bms, by = bound_ms(k6["bytes"], k6["ops"], "int8")
+    print(f"[kernel] w4a8_matmul_cached, one decode layer (7 projections, M={BATCH}): "
+          f"device_ms {k6['device_ms']:.4f} ms {k6['ms']:.4f} bound_ms {bms:.4f} ({by})",
+          flush=True)
     report["w4a8_matmul_cached"] = dict(
-        max_abs_err=k6["err"], ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=bms,
-        bound_by=by, library_ms=None,
+        max_abs_err=k6["err"], ms=k6["ms"], device_ms=k6["device_ms"], plain_ms=k6["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=None, shapes=k6_shapes,
+        entry_2d=dict(max_abs_err=err32, ms=ms2, device_ms=dms2),
         at="sum of one decode layer's 7 int4 projections, M=256, group 128; the 2-D "
-           f"entry (w4a8_matmul, hydragen_tpu/ops/gemm.py:377) checked apart, {ms:.4f} ms "
-           "at N=K=4096 (library: none, no PyTorch call multiplies packed int4 weights "
-           "with group scales)",
+           "entry (w4a8_matmul, hydragen_tpu/ops/gemm.py:377) under entry_2d, at N=K=4096 "
+           "(library: none, no PyTorch call multiplies packed int4 weights with group "
+           "scales; device_ms: from a CUDA graph of the calls)",
     )
     del weights4
 
@@ -1300,6 +1335,7 @@ def main() -> int:
     seconds = cuda_lib.build()
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"wall {time.perf_counter() - t:.2f} s into {cuda_lib.build_dir()}", flush=True)
+    print_ptxas(cuda_lib.BUILD_LOG)
 
     report: dict = {}
     launches: dict = {"main": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {}}

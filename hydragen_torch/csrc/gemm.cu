@@ -61,14 +61,6 @@
 
 namespace {
 
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store2(float* out, float x, float y) {
   *reinterpret_cast<float2*>(out) = make_float2(x, y);
 }
@@ -76,10 +68,6 @@ __device__ __forceinline__ void store2(float* out, float x, float y) {
 __device__ __forceinline__ void store2(__nv_bfloat16* out, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x, y);
 }
-
-__device__ __forceinline__ void store1(float* out, float x) { *out = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* out, float x) { *out = __float2bfloat16_rn(x); }
 
 namespace w8 {
 
@@ -341,208 +329,311 @@ __global__ void __launch_bounds__(w8::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// w4a8_kernel: y[M,N] = row_scale[M] * sum_g gscale[g,N] * i32(a_s8[M, K_g] .
-// w4[N, K_g]^T), the int4 weight planar-packed [N, K/2] (byte j: in-feature j
-// in the low nibble, j + K/2 in the high one) with bf16 group scales [G, N].
-// Replaces the TPU kernels hydragen_tpu/ops/gemm.py:_w4a8_cached_kernel
-// (entry w4a8_matmul_cached) and _w4a8_kernel (entry w4a8_matmul).
+// w4a8_kernel: y[M,N] = row_scale[M] * sum_g gscale[layer][g,N] * i32(a_s8[M,
+// K_g] . w4[layer][N, K_g]^T), the int4 weight planar-packed [L, N, K/2]
+// (byte j: in-feature j in the low nibble, j + K/2 in the high one) with bf16
+// group scales [L, G, N]. Replaces the TPU kernels
+// hydragen_tpu/ops/gemm.py:_w4a8_cached_kernel (entry w4a8_matmul_cached) and
+// _w4a8_kernel (entry w4a8_matmul, the same kernel at L = 1).
 //
 // What bounds it on the H100: at decode (M = 256) each packed weight byte is
 // two int4 weights used 256 times each, 1,024 int8 operations a byte, above
 // the card's ~590 op/byte ridge: the int8 tensor-core rate bounds it, with
 // the weight read (half of w8a8's) close behind. At prefill the tensor cores
 // bound it by far.
-// Design: mma.sync s8 m16n8k32, a 64x128 block tile and a two-stage
-// cp.async ring over the PACKED K: each step loads 64 packed
-// bytes of 128 weight rows, and the two matching 64-byte column tiles of the
-// activations, at column k and at column K/2 + k. The weight fragments are
-// unpacked in registers as they are read from shared memory: four packed
-// bytes in one 32-bit word give four sign-extended low nibbles and four high
-// ones (mask, then (u ^ 8) - 8 per byte), so both planes come from one load.
-// The low plane's products go to one i32 accumulator and the high plane's to
-// another; at the end of each scale group (a whole number of 64-byte steps,
-// inside one plane) each is multiplied by its group's scale into the f32
-// accumulator and cleared, and the row scale is applied at the store: the
-// TPU kernel's order (i32 group sum x group scale, summed in f32, x row
-// scale). 8 warps of 32x32 keep the three accumulators in registers.
+//
+// Design.
+// - The product is computed transposed, D^T[n, m] = W[n, :] . A[m, :]^T:
+//   the weight rows are wgmma's M (BW = 64 a block) and the activation rows
+//   its N, so a block tile of 64 weight rows x BA activation rows fills the
+//   card at decode without a K split (M = 256, BA = 128: 128 blocks at
+//   N = 4,096, 352 at 11,264), and the group scales, which belong to weight
+//   rows, belong to accumulator rows.
+// - A block is 3 warpgroups. Warpgroup 2 produces: one thread keeps a ring
+//   of stages in flight by TMA, each the packed weight tile [64 rows x 128
+//   packed bytes] (one 3-D map over [L, N, K/2], the layer a coordinate) and
+//   the two activation tiles it meets, [BA rows x 128 bytes] at column k0
+//   and at K/2 + k0, all with the 128-byte swizzle, each stage guarded by a
+//   full and an empty mbarrier. TMA zero-fills what lies past N, M and K/2;
+//   a zero packed byte is two zero weights, so ragged packed K needs no mask.
+// - Warpgroups 0-1 consume, each BA / 2 activation rows against all 64
+//   weight rows, with wgmma m64nNk32 s32.s8.s8 in its register-A form: at a
+//   stage's start each lane reads its sixteen packed words of the weight
+//   tile through the swizzle (conflict-free), and each k32 step unpacks four
+//   of them in registers into the A fragments of both planes, 16 x each int4
+//   value in two logic ops a plane (a sign extension takes six); B is the
+//   activation tile, K-major, from shared memory. A k32 step (one wgmma a
+//   plane) is a commit group, and PIPE of them stay in flight, each with
+//   its own A registers.
+// - The low plane's products go to one i32 accumulator and the high plane's
+//   to another. At the end of each scale group (a whole number of k32 steps,
+//   inside one plane, ending in both planes at the same packed column) the
+//   warpgroup waits for its products, converts each sum to f32 and adds it
+//   x its group's scale / 16 to the f32 sum: the TPU kernel's order (i32
+//   group sum x group scale, summed in f32, x row scale), bit for bit as
+//   with unscaled sums. The next group's first products overwrite the i32
+//   sums. This flush, one conversion and one FMA an output element a plane
+//   a group, is the kernel's largest cost after the products; it cannot
+//   overlap them (ptxas serialises every wgmma where a second accumulator
+//   set is read while the first is in flight). The group scales come by
+//   cp.async into shared memory two groups ahead of their flush.
+// - Epilogue: x row scale (staged in shared memory by the producer's idle
+//   warps), rounded once to the output type, transposed through the idle
+//   ring and stored 16 bytes a thread along N.
+// - The grid raster runs M fastest within groups of 16 M tiles, so the
+//   blocks that read one weight tile are side by side and its second read
+//   finds it in L2.
 
 namespace w4 {
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BKP = 64;        // packed bytes (= in-features of one plane) per step
-constexpr int LDS = BKP + 16;  // padded smem row, bytes
-constexpr int THREADS = 256;   // 8 warps: 2 along M x 4 along N, 32x32 each
+constexpr int BW = 64;             // weight rows a block: wgmma's M
+constexpr int BKP = 128;           // packed bytes a stage: one 128-byte swizzle atom
+constexpr int THREADS = 384;       // consumer warpgroups 0-1, producer 2
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int RING = 225280;       // bytes of the ring at most
+constexpr int GROUP_M = 16;        // M tiles a raster group
+constexpr int SCALES_BAR = 1;      // named barrier: the row scales are staged
+constexpr int STAGE_BAR = 2;       // named barrier: the consumers' ring / output tile
 
-// Four packed bytes -> four sign-extended int4 values as s8, per plane.
-__device__ __forceinline__ unsigned nibbles_lo(unsigned x) {
-  return __vsub4((x & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+// NA: activation rows a consumer warpgroup (wgmma's N); BA = 2 NA a block.
+template <int NA>
+struct Cfg {
+  static constexpr int BA = 2 * NA;
+  // k32 steps in flight a warpgroup: one A buffer (8 registers) each.
+  static constexpr int PIPE = NA == 64 ? 4 : 2;
+  static constexpr int W_BYTES = BW * BKP;
+  static constexpr int A_BYTES = BA * BKP;  // one plane's activation tile
+  static constexpr int STAGE = W_BYTES + 2 * A_BYTES;
+  static constexpr int ST = RING / STAGE < 8 ? RING / STAGE : 8;
+  static constexpr int BARS = ST * STAGE;       // full, then empty barriers
+  static constexpr int SCALES = BARS + 2 * ST * 8;  // f32 row scales [BA]
+  // Group scales: a slot of bf16 [2 planes][16 rows] for each consumer warp
+  // and each of 3 groups in flight.
+  static constexpr int GSCALES = SCALES + BA * 4;
+  static constexpr int ALLOC = GSCALES + 8 * 3 * 64 + 1024;  // room to round the base up
+  static_assert(ALLOC <= 232448, "shared memory of one block");
+  // The staged output tile (f32 at most) fits in the ring.
+  static_assert(BA * (BW * 4 + 16) <= BARS, "the output tile fits in the ring");
+};
+
+// Four packed bytes -> 16 x their four int4 values as s8, per plane: the
+// nibble lands in the high half of its byte, its sign bit in the byte's.
+// Two logic ops where a sign extension takes six; the group sums are 16 x
+// the true ones, and the scales are taken / 16 (exact in f32).
+__device__ __forceinline__ unsigned nibbles16_lo(unsigned x) { return (x << 4) & 0xF0F0F0F0u; }
+__device__ __forceinline__ unsigned nibbles16_hi(unsigned x) { return x & 0xF0F0F0F0u; }
+
+template <int NA>
+__device__ __forceinline__ void wgmma_rs(int* d, const unsigned* a, uint64_t b, int scale_d) {
+  if constexpr (NA == 128) {
+    wgmma_s8_m64n128_rs(d, a, b, scale_d);
+  } else {
+    wgmma_s8_m64n64_rs(d, a, b, scale_d);
+  }
 }
 
-__device__ __forceinline__ unsigned nibbles_hi(unsigned x) {
-  return __vsub4(((x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 }  // namespace w4
 
-template <typename OutT>
-__global__ void __launch_bounds__(w4::THREADS)
-w4a8_kernel(const int8_t* __restrict__ a, const float* __restrict__ row_scale,
-            const int8_t* __restrict__ w, const __nv_bfloat16* __restrict__ gscale,
-            OutT* __restrict__ out, int M, int N, int K, int group) {
-  constexpr int BM = w4::BM, BN = w4::BN, BKP = w4::BKP, LDS = w4::LDS;
-  constexpr int THREADS = w4::THREADS;
-  __shared__ __align__(16) int8_t As[2][2][BM][LDS];  // [stage][plane]
-  __shared__ __align__(16) int8_t Ws[2][BN][LDS];
+// Grid: one block a (BA x 64) tile of the output. gscale is the layer's
+// [G, N]; group: in-features a scale group (a multiple of 64 dividing K/2).
+template <int NA, typename OutT>
+__global__ void __launch_bounds__(w4::THREADS, 1)
+    w4a8_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ row_scale, const __nv_bfloat16* __restrict__ gscale,
+                OutT* __restrict__ out, int M, int N, int K, int layer, int group) {
+  using W = w4::Cfg<NA>;
+  constexpr int BA = W::BA, BW = w4::BW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::BARS);
+  uint64_t* empty = full + W::ST;
+  float* srs = reinterpret_cast<float*>(smem + W::SCALES);
 
+  // Tile of this block: M fastest within groups of GROUP_M M tiles.
+  const int m_tiles = (M + BA - 1) / BA, n_tiles = (N + BW - 1) / BW;
+  const int first_m = blockIdx.x / (w4::GROUP_M * n_tiles) * w4::GROUP_M;
+  const int group_m = min(m_tiles - first_m, w4::GROUP_M);
+  const int in_group = blockIdx.x % (w4::GROUP_M * n_tiles);
+  const int m0 = (first_m + in_group % group_m) * BA;
+  const int n0 = (in_group / group_m) * BW;
   const int Kp = K / 2;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = (warp >> 2) * 32;
-  const int wn = (warp & 3) * 32;
+  const int n_k = (Kp + w4::BKP - 1) / w4::BKP;
 
-  auto load_tile = [&](int stage, int kp0) {
-    // Activations: 2 planes x BM rows x 4 chunks of 16 bytes.
-#pragma unroll
-    for (int i = 0; i < (2 * BM * BKP / 16) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int plane = c / (BM * BKP / 16);
-      const int cc = c % (BM * BKP / 16);
-      const int row = cc >> 2, col = (cc & 3) * 16;
-      const int gm = m0 + row;
-      const bool ok = gm < M;
-      const int8_t* src = ok ? a + (size_t)gm * K + plane * Kp + kp0 + col : a;
-      cp_async16(smem_u32(&As[stage][plane][row][col]), src, ok);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < W::ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
     }
-    // Packed weights: BN rows x 4 chunks.
-#pragma unroll
-    for (int i = 0; i < (BN * BKP / 16) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c >> 2, col = (c & 3) * 16;
-      const int gn = n0 + row;
-      const bool ok = gn < N;
-      const int8_t* src = ok ? w + (size_t)gn * Kp + kp0 + col : w;
-      cp_async16(smem_u32(&Ws[stage][row][col]), src, ok);
-    }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  int acc[2][2][4][4];  // [plane][mi][ni][r]: this group's i32 sums
-  float accf[2][4][4];  // scaled sums of the groups done
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[0][mi][ni][r] = acc[1][mi][ni][r] = 0;
-        accf[mi][ni][r] = 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(w4::PRODUCER_REGS));
+    const int pt = threadIdx.x - 256;
+    if (pt >= 32) {
+      // Warps 1-3 of the producer stage the tile's row scales (0 past M)
+      // while the ring fills, for the epilogue.
+      for (int i = pt - 32; i < BA; i += 96) srs[i] = m0 + i < M ? row_scale[m0 + i] : 0.f;
+    } else if (pt == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&amap))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&wmap))
+                   : "memory");
+      for (int i = 0; i < n_k; ++i) {
+        const int st = i % W::ST;
+        mbar_wait(&empty[st], ((i / W::ST) & 1) ^ 1);
+        mbar_expect_tx(&full[st], W::STAGE);
+        const int k0 = i * w4::BKP;
+        unsigned char* dst = smem + st * W::STAGE;
+        tma_load_3d(dst, &wmap, &full[st], k0, n0, layer);
+        tma_load_2d(dst + W::W_BYTES, &amap, &full[st], k0, m0);
+        tma_load_2d(dst + W::W_BYTES + W::A_BYTES, &amap, &full[st], Kp + k0, m0);
       }
+    }
+    __syncwarp();
+    named_arrive(w4::SCALES_BAR, w4::THREADS);  // the row scales are staged
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(w4::CONSUMER_REGS));
 
-  const int ktiles = Kp / BKP;
-  const int tiles_per_group = group / BKP;
-  const int half_groups = Kp / group;  // groups in one plane
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < ktiles) load_tile(s ^ 1, (kt + 1) * BKP);
+  // The m64nNA accumulator layout, transposed: thread (warp, g = lane / 4,
+  // t = lane % 4) holds weight rows 16 warp + g (d[4j], d[4j + 1]) and + 8
+  // (d[4j + 2], d[4j + 3]), activation rows wg NA + 8j + 2t, + 1.
+  constexpr int NR = NA / 2;
+  int acc_lo[NR], acc_hi[NR];
+  float accf[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    acc_lo[j] = acc_hi[j] = 0;
+    accf[j] = 0.f;
+  }
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x % 128) / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;  // the thread's first weight row in the tile
+  const int group_steps = group / 32, half_groups = Kp / group;
+  const uint32_t ring = smem_u32(smem);
+  unsigned afrag[W::PIPE][8];  // [buffer][low plane a0-a3, high plane a0-a3]
+
+  // The group scales, staged by cp.async two groups ahead of their flush
+  // (a load into registers would stall the warp at its first use): lanes
+  // 0-15 of each consumer warp copy its 16 weight rows' scales of both
+  // planes (0 past N) into the warp's slot for the group.
+  const unsigned char* gslot0 = smem + W::GSCALES + (threadIdx.x / 32) * 3 * 64;
+  const uint32_t gslots = smem_u32(gslot0);
+  auto stage_scales = [&](int gi) {
+    if (lane < 16 && gi < half_groups) {
+      const int n = n0 + warp * 16 + 2 * (lane & 7);
+      const __nv_bfloat16* src = gscale + (size_t)(gi + (lane >> 3) * half_groups) * N + n;
+      cp_async4(gslots + (gi % 3) * 64 + lane * 4, n < N ? src : gscale, n < N);
+    }
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+  };
+  stage_scales(0);
+  stage_scales(1);
+
+  int gstep = 0, gi = 0, scale_d = 1;
+  for (int i = 0; i < n_k; ++i) {
+    const int st = i % W::ST;
+    mbar_wait(&full[st], (i / W::ST) & 1);
+    const unsigned char* wt = smem + st * W::STAGE;
+    const uint32_t lo_base = ring + st * W::STAGE + W::W_BYTES + wg * NA * w4::BKP;
+    const uint32_t hi_base = lo_base + W::A_BYTES;
+    // The stage's packed words at the A-fragment positions, read at once (the
+    // wgmmas' fences keep a read from moving past them): step kc's rows r0
+    // and r0 + 8 (both = g mod 8), 16-byte chunks 2 kc and 2 kc + 1 of the
+    // swizzled row, chunk c lying at c ^ (row mod 8).
+    unsigned packed[w4::BKP / 32][4];
 #pragma unroll
-    for (int kk = 0; kk < BKP; kk += 32) {
-      unsigned af[2][2][4], bl[4][2], bh[4][2];
+    for (int kc = 0; kc < w4::BKP / 32; ++kc)
 #pragma unroll
-      for (int plane = 0; plane < 2; ++plane)
+      for (int q = 0; q < 4; ++q)
+        packed[kc][q] = *reinterpret_cast<const unsigned*>(
+            wt + (r0 + 8 * (q & 1)) * w4::BKP + (((2 * kc + (q >> 1)) ^ g) << 4) + 4 * t);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm + mi * 16 + g;
-          af[plane][mi][0] = *reinterpret_cast<const unsigned*>(&As[s][plane][r][kk + t * 4]);
-          af[plane][mi][1] = *reinterpret_cast<const unsigned*>(&As[s][plane][r + 8][kk + t * 4]);
-          af[plane][mi][2] = *reinterpret_cast<const unsigned*>(&As[s][plane][r][kk + 16 + t * 4]);
-          af[plane][mi][3] =
-              *reinterpret_cast<const unsigned*>(&As[s][plane][r + 8][kk + 16 + t * 4]);
-        }
+    for (int kc = 0; kc < w4::BKP / 32; ++kc) {
+      unsigned* a = afrag[kc % W::PIPE];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int r = wn + ni * 8 + g;
-        const unsigned x0 = *reinterpret_cast<const unsigned*>(&Ws[s][r][kk + t * 4]);
-        const unsigned x1 = *reinterpret_cast<const unsigned*>(&Ws[s][r][kk + 16 + t * 4]);
-        bl[ni][0] = w4::nibbles_lo(x0);
-        bl[ni][1] = w4::nibbles_lo(x1);
-        bh[ni][0] = w4::nibbles_hi(x0);
-        bh[ni][1] = w4::nibbles_hi(x1);
+      for (int q = 0; q < 4; ++q) {
+        a[q] = w4::nibbles16_lo(packed[kc][q]);
+        a[4 + q] = w4::nibbles16_hi(packed[kc][q]);
       }
+      wgmma_fence();
+      w4::wgmma_rs<NA>(acc_lo, a, sw128_desc(lo_base + kc * 32, 16, 1024), scale_d);
+      w4::wgmma_rs<NA>(acc_hi, a + 4, sw128_desc(hi_base + kc * 32, 16, 1024), scale_d);
+      wgmma_commit();
+      scale_d = 1;
+      // Past K/2 (a last stage half zero) no group ends.
+      if (++gstep == group_steps && gi < half_groups) {
+        // End of group gi of each plane: low plane group gi, high plane
+        // group gi + G/2 of the [G, N] scales, / 16 for the unpacked x16.
+        // The next group's first products overwrite the i32 sums.
+        gstep = 0;
+        cp_async_wait<1>();  // group gi's scales are in (gi + 1's may not be)
+        __syncwarp();
+        const __nv_bfloat16* gsc =
+            reinterpret_cast<const __nv_bfloat16*>(gslot0 + (gi % 3) * 64);
+        const float sc[4] = {__bfloat162float(gsc[g]) * 0.0625f,
+                             __bfloat162float(gsc[g + 8]) * 0.0625f,
+                             __bfloat162float(gsc[16 + g]) * 0.0625f,
+                             __bfloat162float(gsc[16 + g + 8]) * 0.0625f};
+        wgmma_wait<0>();
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_s8(acc[0][mi][ni], af[0][mi], bl[ni]);
-          mma_s8(acc[1][mi][ni], af[1][mi], bh[ni]);
+        for (int j = 0; j < NR; ++j) {
+          const int h = (j >> 1) & 1;  // d[4j + 2], d[4j + 3]: row + 8
+          accf[j] = __fmaf_rn(static_cast<float>(acc_lo[j]), sc[h], accf[j]);
+          accf[j] = __fmaf_rn(static_cast<float>(acc_hi[j]), sc[2 + h], accf[j]);
         }
-    }
-    __syncthreads();
-    if ((kt + 1) % tiles_per_group == 0) {
-      // End of group gi of each plane: low plane group gi, high plane group
-      // gi + G/2 of the [G, N] scales.
-      const int gi = kt / tiles_per_group;
-      const __nv_bfloat16* gs_lo = gscale + (size_t)gi * N;
-      const __nv_bfloat16* gs_hi = gscale + (size_t)(gi + half_groups) * N;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + t * 2;
-        float slo[2], shi[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const bool ok = col + c < N;
-          slo[c] = ok ? __bfloat162float(gs_lo[col + c]) : 0.f;
-          shi[c] = ok ? __bfloat162float(gs_hi[col + c]) : 0.f;
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            accf[mi][ni][r] += (float)acc[0][mi][ni][r] * slo[r & 1];
-            accf[mi][ni][r] += (float)acc[1][mi][ni][r] * shi[r & 1];
-            acc[0][mi][ni][r] = acc[1][mi][ni][r] = 0;
-          }
+        __syncwarp();  // every lane has read the slot group gi + 3 will take
+        stage_scales(++gi + 1);
+        scale_d = 0;
+      } else {
+        // The step PIPE - 1 back is done: its A buffer takes the next step.
+        wgmma_wait<W::PIPE - 1>();
       }
+      // Stage i - 1's last step (PIPE - 1 steps back) is done: release it.
+      if (kc == W::PIPE - 2 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % W::ST]);
     }
   }
+  wgmma_wait<0>();
 
-  // Epilogue: acc * row_scale, the TPU kernel's emit.
+  // Epilogue: x row scale, staged transposed as a row-major [BA, 64] tile of
+  // OutT in the idle ring, then stored 16 bytes a thread, rows contiguous.
+  constexpr int PITCH = BW * static_cast<int>(sizeof(OutT)) + 16;  // bytes a staged row
+  named_sync(w4::SCALES_BAR, w4::THREADS);
+  named_sync(w4::STAGE_BAR, 256);  // both consumer warpgroups are done with the ring
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float rs = row_scale[row];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + t * 2;
-        if (col >= N) continue;
-        const float x = accf[mi][ni][half * 2] * rs;
-        OutT* dst = out + (size_t)row * N + col;
-        if (col + 1 < N) {
-          store2(dst, x, accf[mi][ni][half * 2 + 1] * rs);
-        } else {
-          store1(dst, x);
-        }
-      }
+  for (int j = 0; j < NR; ++j) {
+    const int ml = wg * NA + (j >> 2) * 8 + 2 * t + (j & 1);
+    const int nl = r0 + 8 * ((j >> 1) & 1);
+    w4::put(reinterpret_cast<OutT*>(smem + ml * PITCH) + nl, accf[j] * srs[ml]);
+  }
+  named_sync(w4::STAGE_BAR, 256);
+  constexpr int VEC = 16 / static_cast<int>(sizeof(OutT));  // elements a 16-byte store
+  const bool vec = (N * static_cast<int>(sizeof(OutT))) % 16 == 0;
+  for (int i = threadIdx.x; i < BA * (BW / VEC); i += 256) {
+    const int lr = i / (BW / VEC), c = (i % (BW / VEC)) * VEC;
+    const int row = m0 + lr, col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const unsigned char* src = smem + lr * PITCH + c * static_cast<int>(sizeof(OutT));
+    OutT* dst = out + (size_t)row * N + col;
+    if (vec && col + VEC <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < VEC && col + e < N; ++e) dst[e] = reinterpret_cast<const OutT*>(src)[e];
     }
   }
 }
 
-// K1's tensor maps, cached by pointer and shape: the weight [L, N, K] with
-// boxes [1, BN, 128] and an activation [M, K] with boxes [BM, 128], bytes
-// with the 128-byte swizzle. An entry is only an address and a shape, so a
-// stale one is harmless.
+// The GEMMs' tensor maps, cached by pointer and shape: a weight [L, N, K]
+// (K1) or [L, N, K/2] (K6) with boxes [1, rows, 128] and an activation
+// [M, K] with boxes [rows, 128], bytes with the 128-byte swizzle. An entry is
+// only an address and a shape, so a stale one is harmless.
 struct GemmMap {
   const void* ptr;
   long long dims[3];
@@ -644,6 +735,41 @@ int dispatch_w8a8(const W8a8Call& c, int bm, int bn, cudaStream_t st, int* max_c
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// One K6 launch of the (NA, OutT) instantiation; gscale is the layer's [G, N].
+template <int NA, typename OutT>
+int launch_w4a8(const void* a, const void* row_scale, const void* w, const void* gscale,
+                void* out, int M, int N, int K, int L, int layer, int group, cudaStream_t st) {
+  using W = w4::Cfg<NA>;
+  auto kernel = w4a8_kernel<NA, OutT>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::ALLOC);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  CUtensorMap amap, wmap;
+  int e = gemm_map(&amap, a, 2, K, M, 1, W::BA);
+  if (e == 0) e = gemm_map(&wmap, w, 3, K / 2, N, L, w4::BW);
+  if (e != 0) return e;
+  const int blocks = ((M + W::BA - 1) / W::BA) * ((N + w4::BW - 1) / w4::BW);
+  kernel<<<blocks, w4::THREADS, W::ALLOC, st>>>(
+      amap, wmap, static_cast<const float*>(row_scale),
+      static_cast<const __nv_bfloat16*>(gscale), static_cast<OutT*>(out), M, N, K, layer, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int dispatch_w4a8(const void* a, const void* row_scale, const void* w, const void* gscale,
+                  void* out, int M, int N, int K, int L, int layer, int group, int ba,
+                  cudaStream_t st) {
+  if (ba == 128)
+    return launch_w4a8<64, OutT>(a, row_scale, w, gscale, out, M, N, K, L, layer, group, st);
+  if (ba == 256)
+    return launch_w4a8<128, OutT>(a, row_scale, w, gscale, out, M, N, K, L, layer, group, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" int hydragen_w8a8_gemm(const void* a, const void* row_scale, const void* w,
@@ -670,27 +796,22 @@ extern "C" int hydragen_w8a8_max_clusters(int bm, int bn, int splits, int* statu
   return n;
 }
 
-// Tensor maps K1 has encoded since the library was loaded (cache misses).
+// Tensor maps K1 and K6 have encoded since the library was loaded (cache
+// misses).
 extern "C" long long hydragen_gemm_map_encodes() { return g_gemm_encodes; }
 
+// K6 on layer `layer` of the packed weight w [L, N, K/2]; gscale is that
+// layer's [G, N]; ba: activation rows a block (128 or 256, ops/gemm.py:
+// w4a8_tile).
 extern "C" int hydragen_w4a8_gemm(const void* a, const void* row_scale, const void* w,
-                                  const void* gscale, void* out, int M, int N, int K,
-                                  int group, int out_bf16, void* stream) {
-  if (K % 2 || group % w4::BKP || (K / 2) % group) {
+                                  const void* gscale, void* out, int M, int N, int K, int L,
+                                  int layer, int group, int ba, int out_bf16, void* stream) {
+  if (M < 1 || N < 2 || N % 2 || K % 2 || group < 64 || group % 64 || (K / 2) % group ||
+      layer < 0 || layer >= L)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid((N + w4::BN - 1) / w4::BN, (M + w4::BM - 1) / w4::BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    w4a8_kernel<__nv_bfloat16><<<grid, w4::THREADS, 0, st>>>(
-        static_cast<const int8_t*>(a), static_cast<const float*>(row_scale),
-        static_cast<const int8_t*>(w), static_cast<const __nv_bfloat16*>(gscale),
-        static_cast<__nv_bfloat16*>(out), M, N, K, group);
-  } else {
-    w4a8_kernel<float><<<grid, w4::THREADS, 0, st>>>(
-        static_cast<const int8_t*>(a), static_cast<const float*>(row_scale),
-        static_cast<const int8_t*>(w), static_cast<const __nv_bfloat16*>(gscale),
-        static_cast<float*>(out), M, N, K, group);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return out_bf16 ? dispatch_w4a8<__nv_bfloat16>(a, row_scale, w, gscale, out, M, N, K, L,
+                                                 layer, group, ba, st)
+                  : dispatch_w4a8<float>(a, row_scale, w, gscale, out, M, N, K, L, layer,
+                                         group, ba, st);
 }

@@ -2,8 +2,8 @@
 // wgmma synchronisation and descriptors, the s8 wgmma shapes, thread block
 // clusters and their distributed shared memory, and, on the host, the
 // driver's tensor-map encoder reached through the runtime. K2/K4
-// (flash.cu) and K1 (gemm.cu) use them; the bf16 wgmma shapes stay with
-// K2/K4.
+// (flash.cu), K1 and K6 (gemm.cu) use them; the bf16 wgmma shapes stay
+// with K2/K4.
 
 #pragma once
 
@@ -132,6 +132,42 @@ __device__ __forceinline__ void wgmma_s8_m64n128(int* d, uint64_t a, uint64_t b,
       "}, %64, %65, p;\n}\n"
       : IACC8(0), IACC8(8), IACC8(16), IACC8(24), IACC8(32), IACC8(40), IACC8(48), IACC8(56)
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 32] * B[32 x 64], s8 x s8 -> s32, the register-A
+// form: each warp holds 16 rows of A as mma.sync m16n8k32's A fragment
+// (lane g = lane / 4, t = lane % 4: a[0] row g, bytes 4t..4t+3; a[1] row
+// g + 8; a[2] row g, bytes 16 + 4t; a[3] row g + 8, bytes 16 + 4t); B
+// K-major in shared memory (descriptor); scale_d = 0 overwrites d. The
+// registers of A must stay unchanged until a wgmma_wait covers the
+// instruction.
+__device__ __forceinline__ void wgmma_s8_m64n64_rs(int* d, const unsigned* a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : IACC8(0), IACC8(8), IACC8(16), IACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The same, d[64 x 128] (+)= A[64 x 32] * B[32 x 128].
+__device__ __forceinline__ void wgmma_s8_m64n128_rs(int* d, const unsigned* a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : IACC8(0), IACC8(8), IACC8(16), IACC8(24), IACC8(32), IACC8(40), IACC8(48), IACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 #undef IACC8

@@ -14,7 +14,8 @@ its group scale in f32, then applies the row scale. Both read the layer
 straight out of the stacked weight. ``w8a8_matmul`` and ``w4a8_matmul`` are
 their 2-D entries: the same kernels at one layer. A CUDA tensor goes to the
 kernels of ``csrc/gemm.cu`` (or raises); a CPU tensor to the plain versions.
-``gemm_plan`` picks the w8a8 kernel's tile and K split.
+``gemm_plan`` picks the w8a8 kernel's tile and K split, ``w4a8_tile`` the
+w4a8 kernel's.
 """
 
 from __future__ import annotations
@@ -146,9 +147,10 @@ def _w8a8_fn():
     return f
 
 
+@functools.cache
 def _w4a8_fn():
     f = cuda_lib.library("gemm").hydragen_w4a8_gemm
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -169,8 +171,8 @@ def _check_operands(what, operands, out_dtype):
 
 
 def map_encodes() -> int:
-    """Tensor maps K1 has encoded since its library was loaded: its map
-    cache's misses (the card only)."""
+    """Tensor maps K1 and K6 have encoded since their library was loaded:
+    its map cache's misses (the card only)."""
     f = cuda_lib.library("gemm").hydragen_gemm_map_encodes
     f.restype = ctypes.c_longlong
     return int(f())
@@ -261,15 +263,38 @@ def w4a8_cached_plain(layer: int, a_q, a_scale, w_qp_all, w_gscale_all,
 
 
 def w4a8_supported(N: int, Kp: int, group: int) -> bool:
-    """Shapes the w4a8 kernel takes: whole 64-byte packed tiles in each
-    scale group, paired columns."""
+    """Shapes the w4a8 kernel takes: a scale group a multiple of 64
+    in-features inside one nibble plane (``Kp`` a whole number of groups),
+    paired columns."""
     return group % 64 == 0 and Kp % group == 0 and N % 2 == 0
 
 
-def _launch_w4a8(counter, a_q, a_scale, w_qp, w_gscale, layer, out_dtype):
+# K6's tile (csrc/gemm.cu: w4a8_kernel): a block computes the transposed
+# product of W4A8_BW weight rows (wgmma's M) and ``w4a8_tile`` activation
+# rows over the whole of K (no split).
+W4A8_BW = 64
+W4A8_TILES = (128, 256)  # activation rows a block: 64 or 128 a consumer warpgroup
+W4A8_GROUP_M = 16        # the raster: M fastest within groups of this many M tiles
+
+
+def w4a8_blocks(M: int, N: int, ba: int) -> int:
+    """K6's grid: one block an (activation tile, weight tile)."""
+    return -(-M // ba) * -(-N // W4A8_BW)
+
+
+def w4a8_tile(M: int, N: int, n_sm: int) -> int:
+    """Activation rows a K6 block: 256 where that tile still gives every SM
+    two blocks (the prefills), else 128, which fills the card at decode
+    (M = 256: 128 blocks at N = 4,096, 352 at 11,264)."""
+    return 256 if w4a8_blocks(M, N, 256) >= 2 * n_sm else 128
+
+
+def _launch_w4a8(counter, a_q, a_scale, w_qp, w_gscale, layer, out_dtype, ba=None,
+                 out=None):
     """One K6 launch on layer ``layer`` of ``w_qp [L, N, K/2]``, group
-    scales ``w_gscale [L, G, N]`` (a 2-D weight is the stack of one, read at
-    layer stride 0)."""
+    scales ``w_gscale [L, G, N]`` (a 2-D weight is the stack of one).
+    ``ba`` (default ``w4a8_tile``) and ``out`` (default a new tensor) let
+    the tests force a tile and poison the output."""
     M, K = a_q.shape
     L, N, Kp = w_qp.shape
     if K != 2 * Kp or not 0 <= layer < L:
@@ -289,13 +314,15 @@ def _launch_w4a8(counter, a_q, a_scale, w_qp, w_gscale, layer, out_dtype):
         raise ValueError(f"w4a8 kernel: needs a group size that is a multiple of 64 "
                          f"within one nibble plane and N % 2 == 0, got N={N} K={K} "
                          f"group={group}")
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out
+    ba = ba or w4a8_tile(M, N, cuda_lib.sm_count(dev))
     status = _w4a8_fn()(
-        a_q.data_ptr(), a_scale.data_ptr(), w_qp.data_ptr() + layer * N * Kp,
+        a_q.data_ptr(), a_scale.data_ptr(), w_qp.data_ptr(),
         w_gscale.data_ptr() + layer * G * N * w_gscale.element_size(),
-        out.data_ptr(), M, N, K, group, int(out_dtype == torch.bfloat16),
+        out.data_ptr(), M, N, K, L, layer, group, ba, int(out_dtype == torch.bfloat16),
         cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(status, counter)
@@ -322,7 +349,7 @@ def w4a8_matmul_cached(
 
 def w4a8_matmul(a_q, a_scale, w_qp, w_gscale, out_dtype=torch.bfloat16) -> torch.Tensor:
     """2-D entry of K6: one ``[N, K/2]`` packed weight with group scales
-    ``[G, N]``, the same kernel at layer stride 0."""
+    ``[G, N]``, the same kernel at L = 1."""
     if not a_q.is_cuda:
         return w4a8_reference(a_q, a_scale, w_qp, w_gscale, out_dtype)
     if w_qp.ndim != 2:

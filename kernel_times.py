@@ -18,6 +18,13 @@ a copy of ``csrc/gemm.cu`` that stamps the global timer at the phases of each
 block (entry, first stage in, main loop done, reduction done, output staged,
 stored) and prints where a block's time goes at a few plans.
 
+``--k6-variants`` times K6 at a 7B int4 layer at each activation tile, at
+decode and at the 2,048-row prefill (the readings behind
+``ops/gemm.py:w4a8_tile``), and builds copies of ``csrc/gemm.cu`` whose K6
+leaves out a part of its per-group flush, or runs it another way, timed
+beside it at decode: where K6's time goes (the variants' outputs are wrong
+by design; only the kernel's is checked).
+
 ``--split-policy`` also times K5 at ``chip_smoke.py``'s split shapes (one
 32,768-key sequence over 8 kv heads, int8 and bf16) for each count of items
 an SM that ``ops/flash.py:decode_splits`` could aim for, each held to the
@@ -32,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 from pathlib import Path
 
@@ -292,6 +298,111 @@ def gemm_trace(failures: list) -> dict:
     return out
 
 
+# K6 variants: (name, [(search, replacement)]) applied to csrc/gemm.cu.
+_K6_FLUSH_LO = ("          accf[j] = __fmaf_rn(static_cast<float>(acc_lo[j]), sc[h], "
+                "accf[j]);\n")
+_K6_FLUSH_HI = ("          accf[j] = __fmaf_rn(static_cast<float>(acc_hi[j]), sc[2 + h], "
+                "accf[j]);\n")
+K6_VARIANTS = (
+    ("no flush", [(_K6_FLUSH_LO, ""), (_K6_FLUSH_HI, "")]),
+    ("low plane's flush only", [(_K6_FLUSH_HI, "")]),
+    ("flush without cvt", [("static_cast<float>(acc_lo[j])", "__int_as_float(acc_lo[j])"),
+                           ("static_cast<float>(acc_hi[j])", "__int_as_float(acc_hi[j])")]),
+    ("two steps in flight", [("static constexpr int PIPE = NA == 64 ? 4 : 2;",
+                              "static constexpr int PIPE = 2;")]),
+)
+K6_LAYER = ((4096, 4096, 4), (11264, 4096, 2), (4096, 11264, 1))  # (N, K, calls a layer)
+K6_REPS = 2
+
+
+def k6_variants(failures: list) -> dict:
+    """K6's device ms (CUDA graph) a 7B int4 layer: the kernel at each
+    activation tile at M = 256 and 2,048, and each of K6_VARIANTS (built
+    from edited copies of csrc/gemm.cu) at M = 256 and the 128-row tile,
+    in K6_REPS interleaved rounds."""
+    import ctypes
+    import subprocess
+
+    import chip_smoke
+    from hydragen_torch.ops import cuda_lib, gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    src = (cuda_lib.CSRC / "gemm.cu").read_text()
+    out_dir = cuda_lib.build_dir() / "k6_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = {"kernel": src}
+    for name, edits in K6_VARIANTS:
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                failures.append(f"k6 variant {name}: edit not found once: {old!r}")
+                return {}
+            text = text.replace(old, new)
+        sources[name] = text
+    procs = {}
+    for i, (name, text) in enumerate(sources.items()):
+        (out_dir / f"v{i}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC), "-o",
+             str(out_dir / f"libv{i}.so"), str(out_dir / f"v{i}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for i, (name, proc) in enumerate(procs.items()):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failures.append(f"k6 variant {name}: nvcc failed:\n{log}")
+            return {}
+        libs[name] = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    NL = 6
+    weights = []
+    for N, K, n in K6_LAYER:
+        qp = torch.randint(-128, 128, (NL, N, K // 2), dtype=torch.int8, device=dev, generator=g)
+        gs = (torch.rand(NL, K // 128, N, device=dev, generator=g) * 2e-3 + 1e-4
+              ).to(torch.bfloat16)
+        weights.append((K, n, qp, gs))
+    acts = {M: [gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+                for K, *_ in weights] for M in (256, 2048)}
+
+    def layer_ms(M, ba, check):
+        ms = 0.0
+        for (K, n, qp, gs), (a_q, a_s) in zip(weights, acts[M]):
+            def call(i):
+                return gemm._launch_w4a8("w4a8_matmul_cached", a_q, a_s, qp, gs, i,
+                                         torch.float32, ba=ba)
+            if check:
+                ref = gemm.w4a8_cached_plain(1, a_q, a_s, qp, gs, torch.float32)
+                _, rel = chip_smoke.rel_err(call(1), ref)
+                if rel > chip_smoke.TOL_W4A8:
+                    failures.append(f"k6 variants: the kernel's rel err {rel:.3g} at M={M} "
+                                    f"ba={ba}")
+            ms += n * cuda_graph_time_ms(chip_smoke.Cycle(call, NL))
+        return ms
+
+    keep = cuda_lib._LIBS["gemm"]
+    # The kernel at each activation tile, at decode and at the 2,048-row
+    # prefill (the readings behind ops/gemm.py:w4a8_tile), and each variant.
+    out: dict = {f"kernel M={M} ba={ba}": [] for M in (256, 2048) for ba in gemm.W4A8_TILES}
+    out.update({name: [] for name in sources if name != "kernel"})
+    try:
+        for rep in range(K6_REPS):
+            for name, lib in libs.items():
+                cuda_lib._LIBS["gemm"] = lib
+                gemm._w4a8_fn.cache_clear()
+                tiles = [(M, ba) for M in (256, 2048) for ba in gemm.W4A8_TILES]
+                for M, ba in tiles if name == "kernel" else [(256, 128)]:
+                    ms = layer_ms(M, ba, name == "kernel" and rep == 0)
+                    key = f"kernel M={M} ba={ba}" if name == "kernel" else name
+                    out[key].append(ms)
+                    print(f"[k6 variants] rep {rep}: {key}: {ms:.4f} device ms a 7B int4 "
+                          f"layer (M={M}, {ba}-row tile)", flush=True)
+    finally:
+        cuda_lib._LIBS["gemm"] = keep
+        gemm._w4a8_fn.cache_clear()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split-policy", action="store_true",
@@ -300,6 +411,8 @@ def main() -> int:
                     help="also time K1 at every tile and split its kernel takes")
     ap.add_argument("--gemm-trace", action="store_true",
                     help="also stamp the phases of K1's blocks (an instrumented copy)")
+    ap.add_argument("--k6-variants", action="store_true",
+                    help="also time K6 beside copies that leave out parts of its flush")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; the port's kernels run only on the card",
@@ -319,14 +432,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}", flush=True)
     cuda_lib.build()
-    for name, log in cuda_lib.BUILD_LOG.items():  # ptxas' report of each kernel built here
-        kernel = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '_ZN\w+?_cu_[0-9a-f]{8}\d+(\w+)'", line)
-            if m:
-                kernel = m.group(1)
-            elif kernel and ("Used" in line or "spill" in line):
-                print(f"[ptxas] {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
+    chip_smoke.print_ptxas(cuda_lib.BUILD_LOG)
     report: dict = {}
     failures: list[str] = []
     chip_smoke.check_kernels(report, failures, cuda_time_ms)
@@ -336,6 +442,8 @@ def main() -> int:
         report["k1_plans"] = gemm_plans(failures)
     if args.gemm_trace:
         report["k1_trace"] = gemm_trace(failures)
+    if args.k6_variants:
+        report["k6_variants"] = k6_variants(failures)
     if failures:
         print("kernel_times FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

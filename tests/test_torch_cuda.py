@@ -382,8 +382,16 @@ def test_w8a8_stacked_raises_on_a_shape_the_kernel_does_not_take(dev):
         qmatmul_stacked(x, w, 1, "bth,hd->btd", impl="w8a8")
 
 
-@pytest.mark.parametrize("M,N,K,group", [(5, 130, 256, 128), (256, 512, 4096, 128),
-                                         (70, 11264, 512, 64), (33, 256, 1024, 256)])
+# Ragged M (1, 129, 257), N off the 64-row weight tile (130, 258, 1026),
+# groups of 64, 128 and 256, K/2 shorter than one 128-byte stage (64) and
+# ending half-way through one (320); a group of 1,024, whose sums the kernel
+# converts by cvt and whose warpgroups do not take turns.
+W4A8_SHAPES = [(5, 130, 256, 128), (256, 512, 4096, 128), (70, 11264, 512, 64),
+               (33, 256, 1024, 256), (1, 130, 128, 64), (129, 258, 640, 64),
+               (257, 1026, 1536, 256), (129, 130, 1024, 128), (33, 130, 2048, 1024)]
+
+
+@pytest.mark.parametrize("M,N,K,group", W4A8_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_w4a8_kernel_matches_plain(dev, M, N, K, group, out_dtype):
     """K6 against w4a8_reference: only the f32 order of the scaled group
@@ -399,6 +407,57 @@ def test_w4a8_kernel_matches_plain(dev, M, N, K, group, out_dtype):
     ref = tgemm.w4a8_cached_plain(2, a_q, a_s, qp, gs, out_dtype=torch.float32)
     tol = 1e-2 if out_dtype == torch.bfloat16 else 1e-5
     assert _rel(out, ref) < tol
+
+
+def _w4a8_case(dev, M, N, K, group, seed, L=3):
+    g = _gen(seed)
+    a_q, a_s = tgemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    qp = torch.randint(-128, 128, (L, N, K // 2), dtype=torch.int8, device=dev, generator=g)
+    gs = (torch.rand(L, K // group, N, device=dev, generator=g) * 0.01 + 1e-3
+          ).to(torch.bfloat16)
+    return a_q, a_s, qp, gs
+
+
+@pytest.mark.parametrize("M,N,K,group", W4A8_SHAPES)
+def test_w4a8_kernel_every_tile_into_nan(dev, M, N, K, group):
+    """K6 at each activation tile it takes, into an output pre-filled with
+    NaN (a tile left unstored shows), held to the f32 oracle; the 2-D entry
+    gives the bits of the stacked one."""
+    a_q, a_s, qp, gs = _w4a8_case(dev, M, N, K, group, 14)
+    ref = tgemm.w4a8_cached_plain(1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+    for ba in tgemm.W4A8_TILES:
+        out = torch.full((M, N), float("nan"), dtype=torch.float32, device=dev)
+        tgemm._launch_w4a8("w4a8_matmul_cached", a_q, a_s, qp, gs, 1, torch.float32, ba=ba,
+                           out=out)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), ba
+        assert _rel(out, ref) < 1e-5, ba
+    cached = tgemm.w4a8_matmul_cached(1, a_q, a_s, qp, gs, torch.bfloat16)
+    flat = tgemm.w4a8_matmul(a_q, a_s, qp[1].clone(), gs[1].clone(), torch.bfloat16)
+    assert torch.equal(flat, cached)
+
+
+def test_w4a8_kernel_graph_replays_give_the_same_bits(dev):
+    """Two replays of a captured K6 launch give the same bits: the launch
+    keeps no state between calls."""
+    M, N, K, group = 256, 1024, 4096, 128
+    a_q, a_s, qp, gs = _w4a8_case(dev, M, N, K, group, 15, L=2)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    tgemm._launch_w4a8("w4a8_matmul_cached", a_q, a_s, qp, gs, 1, torch.bfloat16, out=out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tgemm._launch_w4a8("w4a8_matmul_cached", a_q, a_s, qp, gs, 1, torch.bfloat16,
+                           out=out)
+    runs = []
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(out.clone())
+    assert torch.equal(runs[0], runs[1])
+    ref = tgemm.w4a8_cached_plain(1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+    assert _rel(runs[0], ref) < 1e-2
 
 
 @pytest.mark.parametrize("impl", ["w8a8", "w4a8"])

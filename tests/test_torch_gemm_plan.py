@@ -1,10 +1,12 @@
-"""K1's launch plan (``ops/gemm.py:gemm_plan``), on the CPU.
+"""K1's launch plan (``ops/gemm.py:gemm_plan``) and K6's tile rule
+(``ops/gemm.py:w4a8_tile``), on the CPU.
 
 ``_block_work`` below mirrors the work each block of ``csrc/gemm.cu``'s
 ``w8a8_kernel`` takes: its output tile (the grid raster) and its K steps.
 Over a launch, every (M tile, N tile, K step) must be taken exactly once,
-and every row of a tile stored by exactly one block of its cluster. The
-kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+and every row of a tile stored by exactly one block of its cluster.
+``_w4a8_tiles`` mirrors ``w4a8_kernel``'s raster likewise. The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -12,8 +14,9 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from hydragen_torch.ops.gemm import (GEMM_BK, GEMM_GROUP_M, GemmPlan, gemm_cluster_slots,
-                                     gemm_plan)
+from hydragen_torch.ops.gemm import (GEMM_BK, GEMM_GROUP_M, W4A8_BW, W4A8_GROUP_M, W4A8_TILES,
+                                     GemmPlan, gemm_cluster_slots, gemm_plan, w4a8_blocks,
+                                     w4a8_tile)
 
 H100_SMS = 132
 
@@ -136,3 +139,66 @@ def test_gemm_plan_is_memoized():
        K=st.integers(1, 1200).map(lambda k: 16 * k), n_sm=st.sampled_from([8, 132]))
 def test_gemm_plan_covers_random_shapes(M, N, K, n_sm):
     _check_cover(gemm_plan(M, N, K, n_sm), M, N, K)
+
+
+# --- K6 ---------------------------------------------------------------------
+
+# (N, K) of the 7B int4 layer's projections (the int4 path) and of the 8B's.
+W4A8_SHAPES = {"7b_qkvo": (4096, 4096), "7b_gate_up": (11264, 4096),
+               "7b_down": (4096, 11264), "8b_kv": (1024, 4096), "ragged": (130, 256)}
+
+
+def _w4a8_tiles(M: int, N: int, ba: int):
+    """Per block of a K6 launch (arrays over the block index): its M tile
+    and N tile, as the kernel's raster computes them."""
+    m_tiles, n_tiles = -(-M // ba), -(-N // W4A8_BW)
+    b = np.arange(w4a8_blocks(M, N, ba))
+    first_m = b // (W4A8_GROUP_M * n_tiles) * W4A8_GROUP_M
+    group_m = np.minimum(m_tiles - first_m, W4A8_GROUP_M)
+    in_group = b % (W4A8_GROUP_M * n_tiles)
+    return first_m + in_group % group_m, in_group // group_m
+
+
+@pytest.mark.parametrize("M", ROWS)
+@pytest.mark.parametrize("shape", list(W4A8_SHAPES))
+def test_w4a8_tile_covers_every_output_tile_once(shape, M):
+    """Every (M tile, N tile) of the output is one block's, at the tile the
+    rule picks; no K split, so a block owns its tile whole."""
+    N, _ = W4A8_SHAPES[shape]
+    ba = w4a8_tile(M, N, H100_SMS)
+    assert ba in W4A8_TILES
+    m_tiles, n_tiles = -(-M // ba), -(-N // W4A8_BW)
+    mt, nt = _w4a8_tiles(M, N, ba)
+    cover = np.zeros((m_tiles, n_tiles), dtype=np.int32)
+    np.add.at(cover, (mt, nt), 1)
+    assert (cover == 1).all()
+    # Within a raster group the blocks of one weight tile are consecutive.
+    first = np.flatnonzero(np.diff(nt, prepend=-1) != 0)
+    assert len(first) == n_tiles * -(-m_tiles // W4A8_GROUP_M)
+
+
+@pytest.mark.parametrize("shape,blocks", [("7b_qkvo", 128), ("7b_gate_up", 352),
+                                          ("7b_down", 128), ("8b_kv", 32)])
+def test_w4a8_tile_at_decode(shape, blocks):
+    """At M = 256 a block is 64 weight rows x 128 activation rows: every 7B
+    decode projection fills at least 128 of the 132 SMs without a K split,
+    and the two blocks that read one weight tile are side by side, so the
+    second read can find it in L2."""
+    N, _ = W4A8_SHAPES[shape]
+    ba = w4a8_tile(256, N, H100_SMS)
+    assert ba == 128 and w4a8_blocks(256, N, ba) == blocks
+    mt, nt = _w4a8_tiles(256, N, ba)
+    assert (mt[0::2] == 0).all() and (mt[1::2] == 1).all()
+    assert (nt[0::2] == nt[1::2]).all()
+
+
+@pytest.mark.parametrize("M,N,want", [(1, 4096, 128), (256, 11264, 128), (2048, 4096, 256),
+                                      (2048, 11264, 256), (32768, 11264, 256),
+                                      (2048, 130, 128)])
+def test_w4a8_tile_at_the_paths_shapes(M, N, want):
+    """The wider activation tile only where it still gives every SM two
+    blocks: the prefills, not decode."""
+    ba = w4a8_tile(M, N, H100_SMS)
+    assert ba == want
+    if ba == 256:
+        assert w4a8_blocks(M, N, 256) >= 2 * H100_SMS
