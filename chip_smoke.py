@@ -281,7 +281,9 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     del weights
 
     # K6: the int4 projections of one layer (group 128), at decode and at the
-    # shared prefill, then the 2-D entry. The JSON reports one decode layer's
+    # shared prefill, then the gate/up projection of request 2's unique
+    # prefill (M = 32,768: more M tiles than one raster group, and a short
+    # last group), then the 2-D entry. The JSON reports one decode layer's
     # sum; each shape's own readings are nested under "shapes". device_ms: a
     # CUDA graph of the calls (no host work between them); ms: host-paced.
     weights4 = {}
@@ -293,37 +295,38 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
         weights4[key] = (qp, gs)
     k6 = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, err=0.0, bytes=0, ops=0)
     k6_shapes = {}
-    for M in (BATCH, SHARED_LEN):
-        for key, (N, K) in shapes.items():
-            qp, gs = weights4[key]
-            a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
-            out = gemm.w4a8_matmul_cached(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
-            ref = gemm.w4a8_cached_plain(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
-            err, rel = rel_err(out, ref)
-            ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
-            dms = cuda_graph_time_ms(
-                Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
-            pms = time_ms(Cycle(lambda i: gemm.w4a8_cached_plain(i, a_q, a_s, qp, gs), NL),
-                          iters=5)
-            nbytes = M * K + M * 4 + N * K // 2 + (K // 128) * N * 2 + M * N * 2
-            ops = 2 * M * N * K
-            bms, by = bound_ms(nbytes, ops, "int8")
-            record(
-                f"w4a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_W4A8,
-                f"max_abs_err {err:.4g} rel {rel:.3g} (fp32 out, tol {TOL_W4A8}) ms {ms:.4f} "
-                f"device_ms {dms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) device "
-                f"TOP/s {ops / dms / 1e9:.1f}",
-            )
-            k6_shapes[f"M={M} N={N} K={K}"] = dict(
-                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, device_top_s=ops / dms / 1e9)
-            if M == BATCH:
-                n = per_layer[key]
-                for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
-                                 ("bytes", nbytes), ("ops", ops)):
-                    k6[field] += n * v
-                k6["err"] = max(k6["err"], err)
-            del a_q, a_s, out, ref
+    for M, key in runs:
+        N, K = shapes[key]
+        qp, gs = weights4[key]
+        a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+        out = gemm.w4a8_matmul_cached(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+        ref = gemm.w4a8_cached_plain(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+        err, rel = rel_err(out, ref)
+        del out, ref
+        ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+        dms = cuda_graph_time_ms(
+            Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+        pms = time_ms(Cycle(lambda i: gemm.w4a8_cached_plain(i, a_q, a_s, qp, gs), NL),
+                      iters=2 if M > SHARED_LEN else 5, warmup=1)
+        nbytes = M * K + M * 4 + N * K // 2 + (K // 128) * N * 2 + M * N * 2
+        ops = 2 * M * N * K
+        bms, by = bound_ms(nbytes, ops, "int8")
+        record(
+            f"w4a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_W4A8,
+            f"max_abs_err {err:.4g} rel {rel:.3g} (fp32 out, tol {TOL_W4A8}) ms {ms:.4f} "
+            f"device_ms {dms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) device "
+            f"TOP/s {ops / dms / 1e9:.1f}",
+        )
+        k6_shapes[f"M={M} N={N} K={K}"] = dict(
+            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+            bound_by=by, device_top_s=ops / dms / 1e9)
+        if M == BATCH:
+            n = per_layer[key]
+            for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                             ("bytes", nbytes), ("ops", ops)):
+                k6[field] += n * v
+            k6["err"] = max(k6["err"], err)
+        del a_q, a_s
     from hydragen_torch.ops.quant import Quantized4Tensor
 
     # The 2-D entry: one launch through qmatmul (bf16 out), and fp32 out

@@ -38,6 +38,7 @@ its plain version, 2 without a CUDA device or the package beside the script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -222,13 +223,71 @@ _TRACE_MARKS = (
 TRACE_PHASES = ("fill", "main loop", "reduction", "output staged", "stored")
 
 
+def _edited_gemm_libs(copies: dict, tag: str, failures: list) -> dict | None:
+    """Build edited copies of csrc/gemm.cu, one nvcc each, all started
+    together. ``copies`` maps a name to its edits, (search, replacement)
+    pairs whose search must occur once; an empty search appends. The
+    loaded libraries by name, or None with the fault added to
+    ``failures``."""
+    import ctypes
+    import subprocess
+
+    from hydragen_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC / "gemm.cu").read_text()
+    out_dir = cuda_lib.build_dir() / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    texts = {}
+    for name, edits in copies.items():
+        text = src
+        for old, new in edits:
+            if not old:
+                text += new
+                continue
+            if text.count(old) != 1:
+                failures.append(f"{tag} {name}: edit not found once: {old!r}")
+                return None
+            text = text.replace(old, new)
+        texts[name] = text
+    procs = {}
+    for i, (name, text) in enumerate(texts.items()):
+        (out_dir / f"v{i}.cu").write_text(text)
+        procs[name] = (out_dir / f"libv{i}.so", subprocess.Popen(
+            [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC), "-o",
+             str(out_dir / f"libv{i}.so"), str(out_dir / f"v{i}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: (so, proc.communicate()[0], proc.returncode)
+            for name, (so, proc) in procs.items()}
+    for name, (_, log, rc) in logs.items():
+        if rc:
+            failures.append(f"{tag} {name}: nvcc failed:\n{log}")
+            return None
+    return {name: ctypes.CDLL(str(so)) for name, (so, _, _) in logs.items()}
+
+
+@contextlib.contextmanager
+def _gemm_lib(lib):
+    """The GEMM wrappers launch from ``lib`` inside the block."""
+    from hydragen_torch.ops import cuda_lib, gemm
+
+    keep = cuda_lib._LIBS["gemm"]
+    cuda_lib._LIBS["gemm"] = lib
+    gemm._w8a8_fn.cache_clear()
+    gemm._w4a8_fn.cache_clear()
+    try:
+        yield
+    finally:
+        cuda_lib._LIBS["gemm"] = keep
+        gemm._w8a8_fn.cache_clear()
+        gemm._w4a8_fn.cache_clear()
+
+
 def gemm_trace(failures: list) -> dict:
     """Where a K1 block's time goes: a copy of csrc/gemm.cu whose block
     thread 0 stamps %globaltimer at six points, run once at a few plans;
     per phase the min / median / max over blocks (us), and the launch's
     span against its device time in a CUDA graph of 20 calls."""
     import ctypes
-    import subprocess
 
     import numpy as np
 
@@ -236,35 +295,22 @@ def gemm_trace(failures: list) -> dict:
     from hydragen_torch.ops import cuda_lib, gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
-    src = (cuda_lib.CSRC / "gemm.cu").read_text()
-    src = src.replace("namespace {\n", "__device__ unsigned long long g_trace[1 << 16][6];\n"
-                      "#define TR(i) if (threadIdx.x == 0) asm volatile(\"mov.u64 %0, "
-                      "%%globaltimer;\" : \"=l\"(g_trace[blockIdx.x][i]));\nnamespace {\n", 1)
-    for mark, stamp in _TRACE_MARKS:
-        if src.count(mark) != 1:
-            failures.append(f"gemm trace: mark not found once: {mark!r}")
-            return {}
-        src = src.replace(mark, stamp + mark)
-    src += ('\nextern "C" int hydragen_k1_trace(void* dst, int n) {\n'
-            "  return (int)cudaMemcpyFromSymbol(dst, g_trace, (size_t)n * 48);\n}\n")
-    out_dir = cuda_lib.build_dir() / "trace"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "gemm_trace.cu").write_text(src)
-    so = out_dir / "libgemm_trace.so"
-    r = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC), "-o",
-                        str(so), str(out_dir / "gemm_trace.cu")], capture_output=True, text=True)
-    if r.returncode:
-        failures.append(f"gemm trace: nvcc failed:\n{r.stdout}{r.stderr}")
+    head = "namespace {\n"
+    edits = [(head, "__device__ unsigned long long g_trace[1 << 16][6];\n"
+              "#define TR(i) if (threadIdx.x == 0) asm volatile(\"mov.u64 %0, "
+              "%%globaltimer;\" : \"=l\"(g_trace[blockIdx.x][i]));\n" + head)]
+    edits += [(mark, stamp + mark) for mark, stamp in _TRACE_MARKS]
+    edits.append(("", '\nextern "C" int hydragen_k1_trace(void* dst, int n) {\n'
+                  "  return (int)cudaMemcpyFromSymbol(dst, g_trace, (size_t)n * 48);\n}\n"))
+    libs = _edited_gemm_libs({"trace": edits}, "trace", failures)
+    if libs is None:
         return {}
-    lib = ctypes.CDLL(str(so))
+    lib = libs["trace"]
     lib.hydragen_k1_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    keep = cuda_lib._LIBS["gemm"]
-    cuda_lib._LIBS["gemm"] = lib
-    gemm._w8a8_fn.cache_clear()
     g = torch.Generator(device="cuda").manual_seed(6)
     n_sm = cuda_lib.sm_count(torch.device("cuda"))
     out = {}
-    try:
+    with _gemm_lib(lib):
         for M, N, K in ((256, 4096, 4096), (256, 11264, 4096), (256, 4096, 11264),
                         (2048, 4096, 4096)):
             a_q, a_s, w, ws = _gemm_case(M, N, K, g)
@@ -292,9 +338,6 @@ def gemm_trace(failures: list) -> dict:
             out[f"M={M} N={N} K={K}"] = dict(plan=list(plan), device_us=ms * 1e3,
                                              span_us=span, phases_us=phases)
             del a_q, a_s, w, ws
-    finally:
-        cuda_lib._LIBS["gemm"] = keep
-        gemm._w8a8_fn.cache_clear()
     return out
 
 
@@ -303,56 +346,31 @@ _K6_FLUSH_LO = ("          accf[j] = __fmaf_rn(static_cast<float>(acc_lo[j]), sc
                 "accf[j]);\n")
 _K6_FLUSH_HI = ("          accf[j] = __fmaf_rn(static_cast<float>(acc_hi[j]), sc[2 + h], "
                 "accf[j]);\n")
-K6_VARIANTS = (
-    ("no flush", [(_K6_FLUSH_LO, ""), (_K6_FLUSH_HI, "")]),
-    ("low plane's flush only", [(_K6_FLUSH_HI, "")]),
-    ("flush without cvt", [("static_cast<float>(acc_lo[j])", "__int_as_float(acc_lo[j])"),
-                           ("static_cast<float>(acc_hi[j])", "__int_as_float(acc_hi[j])")]),
-    ("two steps in flight", [("static constexpr int PIPE = NA == 64 ? 4 : 2;",
-                              "static constexpr int PIPE = 2;")]),
-)
+K6_VARIANTS = {
+    "no flush": [(_K6_FLUSH_LO, ""), (_K6_FLUSH_HI, "")],
+    "low plane's flush only": [(_K6_FLUSH_HI, "")],
+    "flush without cvt": [("static_cast<float>(acc_lo[j])", "__int_as_float(acc_lo[j])"),
+                          ("static_cast<float>(acc_hi[j])", "__int_as_float(acc_hi[j])")],
+    "two steps in flight": [("static constexpr int PIPE = NA == 64 ? 4 : 2;",
+                             "static constexpr int PIPE = 2;")],
+}
 K6_LAYER = ((4096, 4096, 4), (11264, 4096, 2), (4096, 11264, 1))  # (N, K, calls a layer)
 K6_REPS = 2
 
 
 def k6_variants(failures: list) -> dict:
     """K6's device ms (CUDA graph) a 7B int4 layer: the kernel at each
-    activation tile at M = 256 and 2,048, and each of K6_VARIANTS (built
-    from edited copies of csrc/gemm.cu) at M = 256 and the 128-row tile,
-    in K6_REPS interleaved rounds."""
-    import ctypes
-    import subprocess
-
+    activation tile at M = 256 and 2,048 (the readings behind
+    ops/gemm.py:w4a8_tile), and each of K6_VARIANTS (edited copies of
+    csrc/gemm.cu, whose outputs are wrong by design) at M = 256 and the
+    128-row tile, in K6_REPS interleaved rounds."""
     import chip_smoke
     from hydragen_torch.ops import cuda_lib, gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
-    src = (cuda_lib.CSRC / "gemm.cu").read_text()
-    out_dir = cuda_lib.build_dir() / "k6_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {"kernel": src}
-    for name, edits in K6_VARIANTS:
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                failures.append(f"k6 variant {name}: edit not found once: {old!r}")
-                return {}
-            text = text.replace(old, new)
-        sources[name] = text
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        (out_dir / f"v{i}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC), "-o",
-             str(out_dir / f"libv{i}.so"), str(out_dir / f"v{i}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for i, (name, proc) in enumerate(procs.items()):
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failures.append(f"k6 variant {name}: nvcc failed:\n{log}")
-            return {}
-        libs[name] = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
+    libs = _edited_gemm_libs(K6_VARIANTS, "k6_variants", failures)
+    if libs is None:
+        return {}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     NL = 6
@@ -380,26 +398,17 @@ def k6_variants(failures: list) -> dict:
             ms += n * cuda_graph_time_ms(chip_smoke.Cycle(call, NL))
         return ms
 
-    keep = cuda_lib._LIBS["gemm"]
-    # The kernel at each activation tile, at decode and at the 2,048-row
-    # prefill (the readings behind ops/gemm.py:w4a8_tile), and each variant.
-    out: dict = {f"kernel M={M} ba={ba}": [] for M in (256, 2048) for ba in gemm.W4A8_TILES}
-    out.update({name: [] for name in sources if name != "kernel"})
-    try:
-        for rep in range(K6_REPS):
-            for name, lib in libs.items():
-                cuda_lib._LIBS["gemm"] = lib
-                gemm._w4a8_fn.cache_clear()
-                tiles = [(M, ba) for M in (256, 2048) for ba in gemm.W4A8_TILES]
-                for M, ba in tiles if name == "kernel" else [(256, 128)]:
-                    ms = layer_ms(M, ba, name == "kernel" and rep == 0)
-                    key = f"kernel M={M} ba={ba}" if name == "kernel" else name
-                    out[key].append(ms)
-                    print(f"[k6 variants] rep {rep}: {key}: {ms:.4f} device ms a 7B int4 "
-                          f"layer (M={M}, {ba}-row tile)", flush=True)
-    finally:
-        cuda_lib._LIBS["gemm"] = keep
-        gemm._w4a8_fn.cache_clear()
+    runs = [(f"kernel M={M} ba={ba}", cuda_lib._LIBS["gemm"], M, ba)
+            for M in (256, 2048) for ba in gemm.W4A8_TILES]
+    runs += [(name, lib, 256, 128) for name, lib in libs.items()]
+    out: dict = {key: [] for key, *_ in runs}
+    for rep in range(K6_REPS):
+        for key, lib, M, ba in runs:
+            with _gemm_lib(lib):
+                ms = layer_ms(M, ba, key.startswith("kernel") and rep == 0)
+            out[key].append(ms)
+            print(f"[k6 variants] rep {rep}: {key}: {ms:.4f} device ms a 7B int4 "
+                  f"layer (M={M}, {ba}-row tile)", flush=True)
     return out
 
 

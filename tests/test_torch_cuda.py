@@ -384,11 +384,14 @@ def test_w8a8_stacked_raises_on_a_shape_the_kernel_does_not_take(dev):
 
 # Ragged M (1, 129, 257), N off the 64-row weight tile (130, 258, 1026),
 # groups of 64, 128 and 256, K/2 shorter than one 128-byte stage (64) and
-# ending half-way through one (320); a group of 1,024, whose sums the kernel
-# converts by cvt and whose warpgroups do not take turns.
+# ending half-way through one (320); a group of 1,024, longer than one
+# 128-byte stage, so a flush takes the sums of several stages; M = 4,353,
+# more M tiles than one raster group at both tiles (35 and 18), the last
+# group short.
 W4A8_SHAPES = [(5, 130, 256, 128), (256, 512, 4096, 128), (70, 11264, 512, 64),
                (33, 256, 1024, 256), (1, 130, 128, 64), (129, 258, 640, 64),
-               (257, 1026, 1536, 256), (129, 130, 1024, 128), (33, 130, 2048, 1024)]
+               (257, 1026, 1536, 256), (129, 130, 1024, 128), (33, 130, 2048, 1024),
+               (4353, 130, 1024, 128)]
 
 
 @pytest.mark.parametrize("M,N,K,group", W4A8_SHAPES)
