@@ -415,43 +415,6 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     )
     del lk16, lv16, kdq, vdq
 
-    # K3: the unique read of one decode layer: 256 rows, an int8 BSHD cache of
-    # 64 slots with 63 written (the last step of a 64-token completion), own
-    # token and shared partial merged.
-    NLU, S_U, filled = 4, 64, 63
-    cshape = (NLU, BATCH, S_U, hkv, d)
-    ck = torch.randint(-127, 128, cshape, dtype=torch.int8, device=dev, generator=g)
-    cv = torch.randint(-127, 128, cshape, dtype=torch.int8, device=dev, generator=g)
-    cks = torch.rand(NLU, BATCH, S_U * hkv, device=dev, generator=g) * 0.02 + 1e-3
-    cvs = torch.rand(NLU, BATCH, S_U * hkv, device=dev, generator=g) * 0.02 + 1e-3
-    qd = torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
-    own = tuple(torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
-                for _ in range(2))
-    sh = (torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
-          torch.randn(BATCH, hq, 1, device=dev, generator=g) * 2)
-    ulens = torch.full((BATCH,), filled, dtype=torch.int32, device=dev)
-    kw = dict(kv_seq_lens=ulens, k_scale_all=cks, v_scale_all=cvs, own_kv=own,
-              shared_partial=sh)
-    o, lse = decode.decode_attention_cached(NLU - 1, qd, ck, cv, **kw)
-    po, plse = decode.decode_attention_cached_plain(NLU - 1, qd, ck, cv, **kw)
-    err, rel = rel_err(o, po)
-    lerr = float((lse - plse).abs().max())
-    ms = time_ms(Cycle(lambda i: decode.decode_attention_cached(i, qd, ck, cv, **kw), NLU))
-    pms = time_ms(Cycle(lambda i: decode.decode_attention_cached_plain(i, qd, ck, cv, **kw),
-                        NLU), iters=5)
-    nbytes = (qd.numel() * 2 * 2 + 2 * BATCH * filled * hkv * (d + 4)
-              + 2 * own[0].numel() * 2 + sh[0].numel() * 2 + 2 * BATCH * hq * 4 * 2)
-    ops = 4 * BATCH * hq * (filled + 1) * d
-    bms, by = bound_ms(nbytes, ops, "fp32")
-    record("decode_attention_cached", rel <= TOL_REL and lerr <= TOL_LSE,
-           f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
-           f"plain_ms {pms:.4f} bound_ms {bms:.4f}")
-    report["decode_attention_cached"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-        at="b=256, 63 of 64 int8 slots, own token + shared partial (no single "
-           "library call returns the LSE this merge needs)",
-    )
-
     # K4: causal attention of the shared prefill, one layer at 2,048 tokens.
     qp, kp, vp = (torch.randn(1, hq, SHARED_LEN, d, device=dev, generator=g)
                   .to(torch.bfloat16) for _ in range(3))
@@ -490,75 +453,158 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
            "from a CUDA graph of the calls; d64_device_ms: K4 at head_dim 64)",
     )
     del q64, k64, v64
-    del qp, kp, vp, ck, cv, lk, lv
+    del qp, kp, vp, lk, lv
 
-    # K3 at kv_bits=4: the unique read of one int4-path decode layer at its
-    # last step: 256 rows, a 192-token window (S = 96 byte rows) with 190
-    # tokens written, so every row reads the high plane (lengths above S).
-    S4, filled4 = (SUFFIX_LEN + NEW_TOKENS) // 2, SUFFIX_LEN + NEW_TOKENS - 2
-    cshape = (NLU, BATCH, S4, hkv, d)
-    ck = torch.randint(-128, 128, cshape, dtype=torch.int8, device=dev, generator=g)
-    cv = torch.randint(-128, 128, cshape, dtype=torch.int8, device=dev, generator=g)
-    cks = torch.rand(NLU, BATCH, 2 * S4 * hkv, device=dev, generator=g) * 0.2 + 1e-2
-    cvs = torch.rand(NLU, BATCH, 2 * S4 * hkv, device=dev, generator=g) * 0.2 + 1e-2
+    check_decode_kernels(report, time_ms, g, record)
+    check_gqa_kernels(report, failures, time_ms, g, record)
+    check_flash_shapes(report, time_ms, g, record)
+
+
+def check_decode_kernels(report: dict, time_ms, g, record) -> None:
+    """K3 at the three unique reads of the 7B paths' decode steps, and K7 at
+    the int4 path's write. Each K3 shape: 256 rows, 32 kv heads of 128, own
+    token and shared partial merged, against its plain version; ``ms``
+    host-paced, ``device_ms`` from a CUDA graph of the calls, and SDPA over
+    bf16 copies of the same keys (every row at the shape's length) as a
+    yardstick of another function: no LSE, no own token, no merge."""
+    from hydragen_torch.ops import decode
+    from hydragen_torch.ops.quant import unpack4
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    NL, hq, hkv, d = 4, 32, 32, 128
+    qd = torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    own = tuple(torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+    sh = (torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
+          torch.randn(BATCH, hq, 1, device=dev, generator=g) * 2)
+
+    def k3_case(name, S, filled, bits, lens=None):
+        """K3 over [NL, 256, S, 32, 128] caches (S byte rows; int4 holds 2S
+        tokens), ``filled`` tokens a row unless ``lens`` says otherwise.
+        Returns its readings and the cache buffers."""
+        planes = 2 if bits == 4 else 1
+        shape = (NL, BATCH, S, hkv, d)
+        ck, cv = (torch.randint(-128 if bits == 4 else -127, 128, shape, dtype=torch.int8,
+                                device=dev, generator=g) for _ in range(2))
+        lo_s, span = (1e-2, 0.2) if bits == 4 else (1e-3, 0.02)
+        cks, cvs = (torch.rand(NL, BATCH, planes * S * hkv, device=dev, generator=g) * span
+                    + lo_s for _ in range(2))
+        ulens = torch.full((BATCH,), filled, dtype=torch.int32, device=dev) if lens is None \
+            else lens
+        kw = dict(kv_seq_lens=ulens, k_scale_all=cks, v_scale_all=cvs, own_kv=own,
+                  shared_partial=sh, kv_bits=bits)
+
+        def call(i):
+            return decode.decode_attention_cached(i, qd, ck, cv, **kw)
+
+        o, lse = call(NL - 1)
+        po, plse = decode.decode_attention_cached_plain(NL - 1, qd, ck, cv, **kw)
+        err, rel = rel_err(o, po)
+        lerr = float((lse - plse).abs().max())
+        ms = time_ms(Cycle(call, NL))
+        dms = cuda_graph_time_ms(Cycle(call, NL))
+        pms = time_ms(Cycle(lambda i: decode.decode_attention_cached_plain(
+            i, qd, ck, cv, **kw), NL), iters=5)
+
+        def bf16_copy(buf, scales, i):  # [b, hkv, filled, d], dequantized
+            x = buf[i]
+            if bits == 4:
+                x = torch.cat(unpack4(x), dim=1)
+            sc = scales[i].reshape(BATCH, planes * S, hkv)[:, :filled, :, None]
+            return (x[:, :filled].float() * sc).to(torch.bfloat16).transpose(1, 2).contiguous()
+
+        kb = [bf16_copy(ck, cks, i) for i in range(NL)]
+        vb = [bf16_copy(cv, cvs, i) for i in range(NL)]
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(qd, kb[i], vb[i])
+
+        lms = time_ms(Cycle(sdpa, NL))
+        ldms = cuda_graph_time_ms(Cycle(sdpa, NL))
+        del kb, vb
+        tokens = int(torch.clamp(ulens, max=planes * S).sum())
+        rows_read = int(torch.clamp(ulens, max=S).sum())
+        nbytes = (qd.numel() * 2 * 2 + 2 * rows_read * hkv * d + 2 * tokens * hkv * 4
+                  + 2 * own[0].numel() * 2 + sh[0].numel() * 2 + 2 * BATCH * hq * 4)
+        ops = 4 * hq * d * (tokens + BATCH)
+        bms, by = bound_ms(nbytes, ops, "bf16")
+        record(name, rel <= TOL_REL and lerr <= TOL_LSE,
+               f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
+               f"plain_ms {pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph) "
+               f"{dms:.4f}, sdpa {ldms:.4f} ms")
+        return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=lms, library_device_ms=ldms), (ck, cv, cks, cvs)
+
+    yardstick = ("library: SDPA over bf16 copies of the written keys, every row at {n}, "
+                 "not the same function: no LSE, no own token, no merge; device_ms: from a "
+                 "CUDA graph of the calls, SDPA's likewise")
+    # int8, request 1's last step: 63 of a 64-slot window.
+    r1, bufs = k3_case("decode_attention_cached", 64, 63, 8)
+    # int8, request 2's last step: the window the engine allocates for the
+    # main path (128 suffix + 64 new tokens), 128 + 63 written.
+    window = SUFFIX_LEN + NEW_TOKENS
+    del bufs
+    r2, bufs = k3_case("decode_attention_cached request 2", window, window - 1, 8)
+    report["decode_attention_cached"] = dict(
+        **r1, at="b=256, 63 of 64 int8 slots, own token + shared partial ("
+                 + yardstick.format(n=63) + ")",
+        request2=dict(r2, at=f"b=256, {window - 1} of {window} int8 slots ("
+                             + yardstick.format(n=window - 1) + ")"),
+    )
+    del bufs
+    # int4, request 2's last step: a 192-token window (S = 96 byte rows),
+    # 190 tokens written, so every row reads the high plane; every 7th row
+    # one token past the plane boundary.
+    S4, filled4 = window // 2, window - 2
     ulens = torch.full((BATCH,), filled4, dtype=torch.int32, device=dev)
-    ulens[::7] = S4 + 1  # some rows one token past the plane boundary
-    kw = dict(kv_seq_lens=ulens, k_scale_all=cks, v_scale_all=cvs, own_kv=own,
-              shared_partial=sh, kv_bits=4)
-    o, lse = decode.decode_attention_cached(NLU - 1, qd, ck, cv, **kw)
-    po, plse = decode.decode_attention_cached_plain(NLU - 1, qd, ck, cv, **kw)
-    err, rel = rel_err(o, po)
-    lerr = float((lse - plse).abs().max())
-    ms = time_ms(Cycle(lambda i: decode.decode_attention_cached(i, qd, ck, cv, **kw), NLU))
-    pms = time_ms(Cycle(lambda i: decode.decode_attention_cached_plain(i, qd, ck, cv, **kw),
-                        NLU), iters=5)
-    tokens = int(ulens.sum())
-    rows_read = int(torch.clamp(ulens, max=S4).sum())
-    nbytes = (qd.numel() * 2 * 2 + 2 * rows_read * hkv * d + 2 * tokens * hkv * 4
-              + 2 * own[0].numel() * 2 + sh[0].numel() * 2 + 2 * BATCH * hq * 4 * 2)
-    ops = 4 * hq * d * (tokens + BATCH)
-    bms, by = bound_ms(nbytes, ops, "fp32")
-    record("decode_attention_cached kv_bits=4", rel <= TOL_REL and lerr <= TOL_LSE,
-           f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} "
-           f"plain_ms {pms:.4f} bound_ms {bms:.4f} (S={S4} byte rows, lengths "
-           f"{S4 + 1} and {filled4})")
+    ulens[::7] = S4 + 1
+    r4, (ck, cv, cks, cvs) = k3_case(
+        f"decode_attention_cached kv_bits=4 (S={S4} byte rows, lengths {S4 + 1} and "
+        f"{filled4})", S4, filled4, 4, ulens)
     report["decode_attention_cached_int4"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-        at=f"b=256, int4 window of {2 * S4} tokens ({S4} byte rows), {filled4} written "
-           f"(every 7th row {S4 + 1}), own token + shared partial (library: none, no "
-           "single call reads packed int4 or returns the LSE this merge needs)",
+        **r4, at=f"b=256, int4 window of {2 * S4} tokens ({S4} byte rows), {filled4} written "
+                 f"(every 7th row {S4 + 1}), own token + shared partial ("
+                 + yardstick.format(n=filled4) + ")",
     )
 
     # K7: the int4 decode write of one layer at the path's shapes, bit-exact
     # against its plain version at a low-plane slot and a high-plane slot.
-    ok7, ms7 = True, []
+    from_slot = {}
     for slot in (S4 // 2, S4 + 7):
         kv = [torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).mul(2).to(torch.bfloat16)
               for _ in range(2)]
         bufs = [ck, cv, cks, cvs]
         plain = [t.clone() for t in bufs]
-        decode.write_token_int4_cached(NLU - 1, *kv, *bufs, slot)
-        decode.write_token_int4_cached_plain(NLU - 1, *kv, *plain, slot)
+        decode.write_token_int4_cached(NL - 1, *kv, *bufs, slot)
+        decode.write_token_int4_cached_plain(NL - 1, *kv, *plain, slot)
         exact = all(torch.equal(a, b) for a, b in zip(bufs, plain))
-        ok7 = ok7 and exact
-        ms7.append(time_ms(Cycle(lambda i: decode.write_token_int4_cached(
-            i, *kv, *bufs, slot), NLU)))
-        pms7 = time_ms(Cycle(lambda i: decode.write_token_int4_cached_plain(
-            i, *kv, *plain, slot), NLU), iters=5)
-        record(f"write_token_int4_cached slot {slot} ({'high' if slot >= S4 else 'low'} "
-               f"plane)", exact, f"bit-exact {exact} ms {ms7[-1]:.4f} plain_ms {pms7:.4f}")
+
+        def write(i):
+            decode.write_token_int4_cached(i, *kv, *bufs, slot)
+
+        ms = time_ms(Cycle(write, NL))
+        dms = cuda_graph_time_ms(Cycle(write, NL))
+        pms = time_ms(Cycle(lambda i: decode.write_token_int4_cached_plain(
+            i, *kv, *plain, slot), NL), iters=5)
+        plane = "high" if slot >= S4 else "low"
+        from_slot[plane] = dict(exact=exact, ms=ms, device_ms=dms, plain_ms=pms)
+        record(f"write_token_int4_cached slot {slot} ({plane} plane)", exact,
+               f"bit-exact {exact} ms {ms:.4f} plain_ms {pms:.4f} device (graph) {dms:.4f}")
+        del plain
     nbytes = 2 * kv[0].numel() * 2 + 2 * 2 * BATCH * hkv * d + 2 * BATCH * hkv * 4
     bms, by = bound_ms(nbytes, 0, "fp32")
+    slots = from_slot.values()
     report["write_token_int4_cached"] = dict(
-        max_abs_err=0.0 if ok7 else float("nan"), ms=max(ms7), plain_ms=pms7, bound_ms=bms,
-        bound_by=by, library_ms=None,
+        max_abs_err=0.0 if all(r["exact"] for r in slots) else float("nan"),
+        ms=max(r["ms"] for r in slots), device_ms=max(r["device_ms"] for r in slots),
+        plain_ms=max(r["plain_ms"] for r in slots), bound_ms=bms, bound_by=by,
+        library_ms=None, by_plane=from_slot,
         at="one layer's K and V token, b=256, 32 heads x 128, into 96 byte rows; the "
-           "slower of a low-plane and a high-plane slot (library: none, no PyTorch call "
-           "quantizes to int4 and merges nibbles)",
+           "slower of a low-plane and a high-plane slot (device_ms: from a CUDA graph of "
+           "the calls; library: none, no PyTorch call quantizes to int4 and merges nibbles)",
     )
-    del ck, cv, cks, cvs, bufs, plain
-    check_gqa_kernels(report, failures, time_ms, g, record)
-    check_flash_shapes(report, time_ms, g, record)
 
 
 def device_ms_by_kernel(fn, names, calls: int = 10) -> dict:

@@ -85,6 +85,7 @@
 
 #include "hopper.cuh"
 #include "ptx.cuh"
+#include "warp.cuh"
 
 namespace {
 
@@ -121,14 +122,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -136,21 +129,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem)
                : "r"(s));
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
 // ---------------------------------------------------------------------------
-// K2/K4's own Hopper pieces (the shared ones are in hopper.cuh): exp2 and
-// the bf16 wgmma shapes.
-
-// 2^x on the special-function unit, flushing denormals (-inf gives 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// K2/K4's own Hopper pieces (the shared ones are in hopper.cuh and
+// warp.cuh): the bf16 wgmma shapes.
 
 #define ACC8(i)                                                                           \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -211,23 +192,6 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;  // room to round the base up
   static_assert(ALLOC <= 232448, "shared memory of one block");
 };
-
-// Four int8 (one word) to four bf16 (two words), exactly, without the
-// conversion unit (a sixteenth of the FMA rate): each byte v, moved into a
-// 16-bit lane, gives the bf16 pair 128 + (v & 127) and 128 + (v & 128) (the
-// exponent of 128 and v's bits as mantissa); their difference is v.
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t lanes) {
-  const uint32_t a = (lanes & 0x007F007Fu) | 0x43004300u;
-  const uint32_t b = (lanes & 0x00800080u) | 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                             *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
-__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
-  return make_uint2(i8x2_to_bf16x2(__byte_perm(w, 0, 0x4140)),
-                    i8x2_to_bf16x2(__byte_perm(w, 0, 0x4342)));
-}
 
 // The int8 K and V tiles [BN x D] (raw, rows D bytes apart) to bf16 in the
 // swizzled layout; rows at or past `valid` become 0. The producer
@@ -829,11 +793,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(smem)));
-}
-
-// Byte e of x and byte e of y as two int8 in 16-bit lanes, to bf16x2 (x low).
-__device__ __forceinline__ uint32_t i8pair_to_bf16x2(uint32_t x, uint32_t y, int e) {
-  return i8x2_to_bf16x2(__byte_perm(x, y, 0x4400 + 0x1111 * e));
 }
 
 template <int D, bool INT8, int MT>

@@ -169,6 +169,9 @@ def decode_attention_cached(
     if shared_partial is not None:
         o_sh = small(shared_partial[0], (b, hq, 1, d), torch.bfloat16, "shared out")
         lse_sh = small(shared_partial[1].float(), (b, hq, 1), torch.float32, "shared lse")
+    for name, t in (("q", qc), ("own k", k1), ("own v", v1), ("shared out", o_sh)):
+        if t is not None:  # read as 16-byte vectors
+            cuda_lib.check_aligned(f"decode kernel: {name}", t)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, hq, 1, d), dtype=torch.bfloat16, device=dev)

@@ -25,6 +25,12 @@ leaves out a part of its per-group flush, or runs it another way, timed
 beside it at decode: where K6's time goes (the variants' outputs are wrong
 by design; only the kernel's is checked).
 
+``--k3-variants`` times K3 at its three shapes (``chip_smoke.py``'s) beside
+copies of ``csrc/decode.cu`` with another ring depth or another count of
+warps a block (each held to the plain version), and copies that leave out
+work: the ring's copies and waits alone, and the scores without the value
+product.
+
 ``--split-policy`` also times K5 at ``chip_smoke.py``'s split shapes (one
 32,768-key sequence over 8 kv heads, int8 and bf16) for each count of items
 an SM that ``ops/flash.py:decode_splits`` could aim for, each held to the
@@ -223,8 +229,8 @@ _TRACE_MARKS = (
 TRACE_PHASES = ("fill", "main loop", "reduction", "output staged", "stored")
 
 
-def _edited_gemm_libs(copies: dict, tag: str, failures: list) -> dict | None:
-    """Build edited copies of csrc/gemm.cu, one nvcc each, all started
+def _edited_libs(source: str, copies: dict, tag: str, failures: list) -> dict | None:
+    """Build edited copies of csrc/<source>.cu, one nvcc each, all started
     together. ``copies`` maps a name to its edits, (search, replacement)
     pairs whose search must occur once; an empty search appends. The
     loaded libraries by name, or None with the fault added to
@@ -232,9 +238,10 @@ def _edited_gemm_libs(copies: dict, tag: str, failures: list) -> dict | None:
     import ctypes
     import subprocess
 
+    import chip_smoke
     from hydragen_torch.ops import cuda_lib
 
-    src = (cuda_lib.CSRC / "gemm.cu").read_text()
+    src = (cuda_lib.CSRC / f"{source}.cu").read_text()
     out_dir = cuda_lib.build_dir() / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     texts = {}
@@ -262,6 +269,7 @@ def _edited_gemm_libs(copies: dict, tag: str, failures: list) -> dict | None:
         if rc:
             failures.append(f"{tag} {name}: nvcc failed:\n{log}")
             return None
+    chip_smoke.print_ptxas({f"{tag}/{name}": log for name, (_, log, _) in logs.items()})
     return {name: ctypes.CDLL(str(so)) for name, (so, _, _) in logs.items()}
 
 
@@ -302,7 +310,7 @@ def gemm_trace(failures: list) -> dict:
     edits += [(mark, stamp + mark) for mark, stamp in _TRACE_MARKS]
     edits.append(("", '\nextern "C" int hydragen_k1_trace(void* dst, int n) {\n'
                   "  return (int)cudaMemcpyFromSymbol(dst, g_trace, (size_t)n * 48);\n}\n"))
-    libs = _edited_gemm_libs({"trace": edits}, "trace", failures)
+    libs = _edited_libs("gemm", {"trace": edits}, "trace", failures)
     if libs is None:
         return {}
     lib = libs["trace"]
@@ -368,7 +376,7 @@ def k6_variants(failures: list) -> dict:
     from hydragen_torch.ops import cuda_lib, gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
-    libs = _edited_gemm_libs(K6_VARIANTS, "k6_variants", failures)
+    libs = _edited_libs("gemm", K6_VARIANTS, "k6_variants", failures)
     if libs is None:
         return {}
     dev = torch.device("cuda")
@@ -412,6 +420,112 @@ def k6_variants(failures: list) -> dict:
     return out
 
 
+# K3 variants: (name, [(search, replacement)]) applied to csrc/decode.cu.
+# The first five change the ring's depth or the warps a block, and "P V in
+# one bf16 term" drops the second term of P (its rounding's remainder):
+# whole kernels, each held to the plain version. The other two leave out
+# work (wrong output by design): "copies only" keeps the ring and its waits
+# and computes nothing, "no P V" computes the scores and the softmax but not
+# the value product (its conversion goes with it).
+_K3_FOLD = "    fold_tile<D, BITS, false>(stage, qa, valid, 0, ksc, o, m_run, l_run, g, t);\n"
+_K3_FOLD_HI = ("        fold_tile<D, BITS, true>(stage, qa, valid, valid_hi, ksc, o, m_run, l_run, "
+               "g, t);\n")
+_K3_ST = "  static constexpr int ST = 2;\n"
+_K3_WARPS = "  static constexpr int WARPS = 2;\n"
+K3_VARIANTS = {
+    "ST=3": [(_K3_ST, _K3_ST.replace("2", "3"))],
+    "ST=4": [(_K3_ST, _K3_ST.replace("2", "4"))],
+    "WARPS=1": [(_K3_WARPS, _K3_WARPS.replace("2", "1"))],
+    "WARPS=4": [(_K3_WARPS, _K3_WARPS.replace("2", "4"))],
+    "WARPS=8": [(_K3_WARPS, _K3_WARPS.replace("2", "8"))],
+    "copies only": [(_K3_FOLD, "    (void)stage;\n"), (_K3_FOLD_HI, "        (void)stage;\n")],
+    "no P V": [("        mma_bf16(o[j], pa[0][kk], b0, b1);\n", ""),
+               ("        mma_bf16(o[j], pa[0][kk], lo0, lo1);\n", ""),
+               ("        if constexpr (HIGH) mma_bf16(o[j], pa[P - 1][kk], hi0, hi1);\n", "")],
+    "P V in one bf16 term": [
+        ("      pa[pl][nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x0 - hf.x, x1 - hf.y);\n",
+         "      pa[pl][nt >> 1][(nt & 1) * 2 + 1] = 0u;\n")],
+}
+K3_WHOLE = ("ST=3", "ST=4", "WARPS=1", "WARPS=4", "WARPS=8", "P V in one bf16 term")
+# (name, byte rows S, tokens written, kv bits): chip_smoke.py's three K3
+# shapes; at int4 every 7th row holds S + 1 tokens.
+K3_SHAPES = (("int8 63 of 64", 64, 63, 8), ("int8 191 of 192", 192, 191, 8),
+             ("int4 190 of 192", 96, 190, 4))
+K3_REPS = 2
+
+
+@contextlib.contextmanager
+def _decode_lib(lib):
+    """The decode wrappers launch from ``lib`` inside the block."""
+    from hydragen_torch.ops import cuda_lib
+
+    keep = cuda_lib._LIBS["decode"]
+    cuda_lib._LIBS["decode"] = lib
+    try:
+        yield
+    finally:
+        cuda_lib._LIBS["decode"] = keep
+
+
+def k3_variants(failures: list) -> dict:
+    """K3's device ms (CUDA graph) at its three shapes: the kernel and each
+    of K3_VARIANTS (edited copies of csrc/decode.cu), in K3_REPS interleaved
+    rounds; the kernel and the whole variants held to the plain version."""
+    import re
+
+    import chip_smoke
+    from hydragen_torch.ops import cuda_lib, decode
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    libs = _edited_libs("decode", K3_VARIANTS, "k3_variants", failures)
+    if libs is None:
+        return {}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    NL, b, hq, hkv, d = 4, 256, 32, 32, 128
+    q = torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    own = tuple(torch.randn(b, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+    sh = (torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
+          torch.randn(b, hq, 1, device=dev, generator=g) * 2)
+    cases = {}
+    for name, S, filled, bits in K3_SHAPES:
+        planes = 2 if bits == 4 else 1
+        ck, cv = (torch.randint(-128, 128, (NL, b, S, hkv, d), dtype=torch.int8, device=dev,
+                                generator=g) for _ in range(2))
+        cks, cvs = (torch.rand(NL, b, planes * S * hkv, device=dev, generator=g) * 0.02 + 1e-3
+                    for _ in range(2))
+        lens = torch.full((b,), filled, dtype=torch.int32, device=dev)
+        if bits == 4:
+            lens[::7] = S + 1
+        kw = dict(kv_seq_lens=lens, k_scale_all=cks, v_scale_all=cvs, own_kv=own,
+                  shared_partial=sh, kv_bits=bits)
+        cases[name] = (ck, cv, kw, decode.decode_attention_cached_plain(NL - 1, q, ck, cv, **kw))
+    src = (cuda_lib.CSRC / "decode.cu").read_text()
+    cfg = " ".join(k + "=" + re.search(r"int %s = (\d+);" % k, src).group(1)
+                   for k in ("ST", "WARPS"))
+    runs = [(f"kernel ({cfg})", cuda_lib.library("decode")), *libs.items()]
+    out: dict = {}
+    for rep in range(K3_REPS):
+        for key, lib in runs:
+            with _decode_lib(lib):
+                for shape, (ck, cv, kw, (ref, ref_lse)) in cases.items():
+                    def call(i, ck=ck, cv=cv, kw=kw):
+                        return decode.decode_attention_cached(i, q, ck, cv, **kw)
+                    if rep == 0 and (key.startswith("kernel") or key in K3_WHOLE):
+                        o, lse = call(NL - 1)
+                        _, rel = chip_smoke.rel_err(o, ref)
+                        lerr = float((lse - ref_lse).abs().max())
+                        if rel > chip_smoke.TOL_REL or lerr > chip_smoke.TOL_LSE:
+                            failures.append(f"k3 variants {key} {shape}: rel err {rel:.3g}, "
+                                            f"lse err {lerr:.3g}")
+                    ms = cuda_graph_time_ms(chip_smoke.Cycle(call, NL))
+                    out.setdefault(key, {}).setdefault(shape, []).append(ms)
+                    print(f"[k3 variants] rep {rep}: {key}: {shape}: {ms:.4f} device ms",
+                          flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split-policy", action="store_true",
@@ -422,6 +536,9 @@ def main() -> int:
                     help="also stamp the phases of K1's blocks (an instrumented copy)")
     ap.add_argument("--k6-variants", action="store_true",
                     help="also time K6 beside copies that leave out parts of its flush")
+    ap.add_argument("--k3-variants", action="store_true",
+                    help="also time K3 beside copies with another ring depth or block, or "
+                         "that leave out work")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; the port's kernels run only on the card",
@@ -453,6 +570,8 @@ def main() -> int:
         report["k1_trace"] = gemm_trace(failures)
     if args.k6_variants:
         report["k6_variants"] = k6_variants(failures)
+    if args.k3_variants:
+        report["k3_variants"] = k3_variants(failures)
     if failures:
         print("kernel_times FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

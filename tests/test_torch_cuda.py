@@ -544,6 +544,130 @@ def test_decode_int4_kernel_matches_plain(dev, d, own, shared):
     torch.testing.assert_close(l, pl, atol=1e-3, rtol=1e-3)
 
 
+# K3 cases: name -> (kv bits, byte rows S, lengths). The lengths cross the
+# 32-row tiles' edges and, at int4, the plane edge (S - 1, S, S + 1, S + 33,
+# 2S); the shared partial's lse is -inf on row 0 and on every other head.
+K3_LENGTHS = {
+    "int8": (8, 70, [0, 1, 31, 32, 33, 70]),
+    "int4": (4, 40, [0, 39, 40, 41, 73, 80]),
+}
+K3_MERGES = {"none": (False, False), "own": (True, False), "shared": (False, True),
+             "both": (True, True)}
+
+
+def _k3_inputs(dev, g, bits, S, lens, d, group, own, shared, L=2, hkv=2, spare_rows=2):
+    """K3's operands for len(lens) rows of a cache with ``spare_rows`` more."""
+    b, B, planes = len(lens), len(lens) + spare_rows, 2 if bits == 4 else 1
+    hq = hkv * group
+    k, v = (torch.randint(-128, 128, (L, B, S, hkv, d), dtype=torch.int8, device=dev,
+                          generator=g) for _ in range(2))
+    ks, vs = (torch.rand(L, B, planes * S * hkv, device=dev, generator=g) * 0.2 + 1e-2
+              for _ in range(2))
+    q = torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(kv_seq_lens=torch.tensor(lens, device=dev, dtype=torch.int32), k_scale_all=ks,
+              v_scale_all=vs, kv_bits=bits)
+    if own:
+        kw["own_kv"] = tuple(torch.randn(b, hkv, 1, d, device=dev, generator=g)
+                             .to(torch.bfloat16) for _ in range(2))
+    if shared:
+        lse_sh = torch.randn(b, hq, 1, device=dev, generator=g) * 2
+        lse_sh[0] = float("-inf")
+        lse_sh[:, ::2] = float("-inf")
+        kw["shared_partial"] = (
+            torch.randn(b, hq, 1, d, device=dev, generator=g).to(torch.bfloat16), lse_sh)
+    return q, k, v, kw
+
+
+def _k3_poison(k, v, ks, vs, lens, bits):
+    """Every byte and scale K3 must not use: payload byte rows at or past
+    each row's length +127 / -128, at int4 the high nibbles whose token is
+    past the length -8, scales past the length NaN; batch rows past
+    len(lens) all of these."""
+    S, hkv = k.shape[2], k.shape[3]
+    for i in range(k.shape[1]):
+        n = lens[i] if i < len(lens) else 0
+        lim = min(n, S)
+        k[:, i, lim:] = 127
+        v[:, i, lim:] = -128
+        if bits == 4:
+            dead = slice(max(n - S, 0), lim)  # byte rows whose high token is past n
+            for buf in (k, v):
+                buf[:, i, dead] = ((buf[:, i, dead].to(torch.int32) & 0xF) - 128).to(torch.int8)
+        ks[:, i, n * hkv:] = float("nan")
+        vs[:, i, n * hkv:] = float("nan")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(K3_LENGTHS))
+@pytest.mark.parametrize("merge", list(K3_MERGES))
+def test_decode_kernel_lengths_groups_merges_and_poisoned_tails(dev, d, group, case, merge):
+    """K3 against its plain version, one launch a call, at lengths on and
+    around its tile and plane edges, every GQA group it takes, with and
+    without the own token and the shared partial (whose lse is -inf on some
+    rows); then, with every byte and scale it must not read poisoned, the
+    same output bit for bit."""
+    bits, S, lens = K3_LENGTHS[case]
+    own, shared = K3_MERGES[merge]
+    q, k, v, kw = _k3_inputs(dev, _gen(30), bits, S, lens, d, group, own, shared)
+    key = "decode_attention_cached" if bits == 8 else "decode_attention_cached_int4"
+    before = cuda_lib.LAUNCHES[key]
+    o, l = tdecode.decode_attention_cached(1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[key] == before + 1
+    po, pl = tdecode.decode_attention_cached_plain(1, q, k, v, **kw)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(torch.isneginf(l), torch.isneginf(pl))
+    fin = torch.isfinite(pl)
+    torch.testing.assert_close(l[fin], pl[fin], atol=1e-3, rtol=1e-3)
+    assert (o[~fin[..., 0]] == 0).all()
+    _k3_poison(k, v, kw["k_scale_all"], kw["v_scale_all"], lens, bits)
+    o2, l2 = tdecode.decode_attention_cached(1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(l2, l)
+
+
+@pytest.mark.parametrize("operand", ["q", "own_kv", "shared_partial"])
+def test_decode_wrapper_raises_on_a_misaligned_operand(dev, operand):
+    """K3 reads q, the own token and the shared partial as 16-byte vectors:
+    a contiguous view that starts off a 16-byte boundary is refused."""
+    q, k, v, kw = _k3_inputs(dev, _gen(32), 8, 40, [5, 40], 64, 2, True, True)
+
+    def shifted(t):  # the same values, 2 bytes past a 16-byte boundary
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    if operand == "q":
+        q = shifted(q)
+    else:
+        kw[operand] = (shifted(kw[operand][0]), kw[operand][1])
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        tdecode.decode_attention_cached(1, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("case", list(K3_LENGTHS))
+def test_decode_kernel_graph_replays_give_the_same_bits(dev, case):
+    """Two replays of a captured K3 launch give the same bits: the launch
+    keeps no state between calls."""
+    bits, S, lens = K3_LENGTHS[case]
+    q, k, v, kw = _k3_inputs(dev, _gen(31), bits, S, lens, 128, 4, True, True)
+    tdecode.decode_attention_cached(1, q, k, v, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, l = tdecode.decode_attention_cached(1, q, k, v, **kw)
+    runs = []
+    for _ in range(2):
+        o.fill_(float("nan"))
+        l.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append((o.clone(), l.clone()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    po, _ = tdecode.decode_attention_cached_plain(1, q, k, v, **kw)
+    torch.testing.assert_close(runs[0][0].float(), po.float(), atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_write_int4_kernel_is_bit_exact(dev, d):
     """K7 against its plain version, byte for byte: low-plane slots (the stale
