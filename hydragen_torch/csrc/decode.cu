@@ -73,13 +73,32 @@
 // serves (hydragen_tpu/core/cache.py write_decode_token_layer at
 // unique_bits = 4): the TPU reads the row through a kernel only to pin its
 // layout, so here one launch does the whole write of one layer's token, K
-// and V. Per (row, kv head), one warp each for K and V: amax over head_dim
-// by shuffles, scale = max(amax, 1e-8) / 7, q = clamp(rint(x / scale), -7,
-// 7) (IEEE division and round-half-even, as quantize_kv4), then the nibble
-// merge into byte row slot % S: at slot >= S the low nibble (the live token
-// slot - S) is kept and the high one written; below S the low nibble is
-// written and the stale high one cleared. The f32 scale goes to the flat
-// scales at slot * hkv + head. Bytes bound: it moves one token's K and V.
+// and V. Function, per (row, kv head), for K and for V: scale = max(amax
+// over head_dim, 1e-8) * f32(1/7) (the product with the f32 reciprocal that
+// jitted JAX computes, as quantize_kv4), q = clamp(rint(x / scale), -7, 7)
+// (IEEE division, round-half-even), then the nibble merge into byte row
+// slot % S: at slot >= S the low nibble (the live token slot - S) is kept
+// and the high one written; below S the low nibble is written and the stale
+// high one cleared. The f32 scale goes to the flat scales at slot * hkv +
+// head.
+//
+// What bounds it: bytes, and at these sizes (a few MB a call) the fixed costs
+// of a launch and of one round trip to memory. A lane owns 8 consecutive
+// elements of one (row, head, K or V) item, D / 8 lanes an item, items in
+// memory order (K of every row, then V; heads fastest), so each lane makes
+// one 16-byte load of bf16 and one 8-byte store of nibble bytes, a warp's
+// stores cover whole sectors, and the
+// scales of a row's heads are contiguous words. Both of a lane's loads (the
+// K/V vector and, at the high plane only, the 8 old bytes) are issued before
+// any arithmetic, so it waits for one round trip; the low plane reads no old
+// byte (HI is a template argument: slot >= S is uniform over a call). The
+// amax is reduced by shuffles within the item's lanes (log2(D / 8) steps).
+// Blocks of WRITE_THREADS with __launch_bounds__ for 8 blocks an SM: Llama-2-
+// 7B at bs 256 (262,144 lanes) is one wave on the H100's 132 SMs. Measured on
+// the card (kernel_times.py --k7-variants, PERF.md): a call sits ~0.003 ms
+// above a CUDA graph node's floor, 0.0008 of it the IEEE divisions; a late
+// old-row read, 2-byte loads or blocks of 64 or 1,024 threads read within
+// 10 % of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -147,12 +166,6 @@ __device__ __forceinline__ float bf16x2_dot(uint32_t a, uint32_t b, float acc) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
   const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
   return fmaf(x.y, y.y, fmaf(x.x, y.x, acc));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, o));
-  return x;
 }
 
 // The 4 lanes of a row group (lane & 3) summed / maximised.
@@ -518,37 +531,77 @@ __global__ void __launch_bounds__(Cfg<D, BITS>::WARPS * 32, 1) decode_kernel(con
   if (t == 0) p.lse[(size_t)row * hq + h] = lse;
 }
 
-template <int D>
-__global__ void __launch_bounds__(64)
+constexpr int WRITE_THREADS = 256;
+
+template <int D, bool HI>
+__global__ void __launch_bounds__(WRITE_THREADS, 2048 / WRITE_THREADS)
 write_int4_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                   int8_t* __restrict__ ck, int8_t* __restrict__ cv, float* __restrict__ cks,
-                  float* __restrict__ cvs, int S, int hkv, int slot) {
-  constexpr int EPL = D / 32;
-  const int kvh = blockIdx.x;
-  const int row = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const bool is_v = threadIdx.x >= 32;
-  const __nv_bfloat16* src = (is_v ? v : k) + ((size_t)row * hkv + kvh) * D + lane * EPL;
-  int8_t* dst = (is_v ? cv : ck) + (((size_t)row * S + slot % S) * hkv + kvh) * D + lane * EPL;
-  float* sc = (is_v ? cvs : cks) + (size_t)row * 2 * S * hkv + (size_t)slot * hkv + kvh;
+                  float* __restrict__ cvs, int b, int S, int hkv, int slot) {
+  constexpr int LPI = D / 8;  // lanes an item
+  const int chunks = hkv * LPI;  // lanes a (row, K or V)
+  const int c = blockIdx.x * WRITE_THREADS + threadIdx.x;
+  const bool live = c < 2 * b * chunks;
+  const bool is_v = c >= b * chunks;
+  const int rc = is_v ? c - b * chunks : c;
+  const int row = rc / chunks;
+  const int within = rc - row * chunks;  // = head * LPI + lane within the item
+  const __nv_bfloat16* src = (is_v ? v : k) + (size_t)rc * 8;
+  int8_t* dst = (is_v ? cv : ck) + ((size_t)row * S + slot % S) * hkv * D + (size_t)within * 8;
 
-  float x[EPL];
+  uint4 xw = make_uint4(0u, 0u, 0u, 0u);
+  uint2 old = make_uint2(0u, 0u);
+  if (live) {
+    xw = __ldg(reinterpret_cast<const uint4*>(src));
+    if constexpr (HI) old = *reinterpret_cast<const uint2*>(dst);
+  }
+  const uint32_t w[4] = {xw.x, xw.y, xw.z, xw.w};
+  float x[8];
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    x[i] = __bfloat162float(src[i]);
-    amax = fmaxf(amax, fabsf(x[i]));
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    amax = fmaxf(amax, fmaxf(fabsf(x[2 * i]), fabsf(x[2 * i + 1])));
   }
-  const float scale = fmaxf(warp_max(amax), 1e-8f) / 7.0f;
-  const bool hi = slot >= S;
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int q = static_cast<int>(fminf(fmaxf(rintf(x[i] / scale), -7.f), 7.f));
-    const int old = dst[i];
-    const unsigned nv = hi ? ((old & 0xF) | (static_cast<unsigned>(q) << 4)) : (q & 0xF);
-    dst[i] = static_cast<int8_t>(nv & 0xFF);
+  for (int off = LPI / 2; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   }
-  if (lane == 0) *sc = scale;
+  constexpr float RECIP7 = 1.0f / 7.0f;  // f32(1/7), XLA's folded constant
+  const float scale = fmaxf(amax, 1e-8f) * RECIP7;
+  constexpr int SHIFT = HI ? 4 : 0;
+  uint32_t out[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int q = min(max(__float2int_rn(x[i] / scale), -7), 7);
+    out[i >> 2] |= (static_cast<uint32_t>(q) & 0xFu) << (8 * (i & 3) + SHIFT);
+  }
+  if (!live) return;
+  if constexpr (HI) {
+    out[0] |= old.x & 0x0F0F0F0Fu;
+    out[1] |= old.y & 0x0F0F0F0Fu;
+  }
+  *reinterpret_cast<uint2*>(dst) = make_uint2(out[0], out[1]);
+  if (within % LPI == 0) {
+    (is_v ? cvs : cks)[(size_t)row * 2 * S * hkv + (size_t)slot * hkv + within / LPI] = scale;
+  }
+}
+
+template <int D>
+int launch_write(const __nv_bfloat16* k, const __nv_bfloat16* v, int8_t* ck, int8_t* cv,
+                 float* cks, float* cvs, int b, int S, int hkv, int slot, cudaStream_t st) {
+  const long long lanes = 2LL * b * hkv * (D / 8);
+  if (lanes == 0) return static_cast<int>(cudaSuccess);
+  const int blocks = static_cast<int>((lanes + WRITE_THREADS - 1) / WRITE_THREADS);
+  if (slot >= S) {
+    write_int4_kernel<D, true><<<blocks, WRITE_THREADS, 0, st>>>(k, v, ck, cv, cks, cvs, b, S,
+                                                                  hkv, slot);
+  } else {
+    write_int4_kernel<D, false><<<blocks, WRITE_THREADS, 0, st>>>(k, v, ck, cv, cks, cvs, b, S,
+                                                                   hkv, slot);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int BITS>
@@ -607,12 +660,16 @@ extern "C" int hydragen_decode_attention(const void* q, const void* k, const voi
 // k, v: [b, hkv, D] bf16, this step's token of one layer. ck, cv: the layer's
 // base of the [B, S, hkv, D] int4 cache (S byte rows); cks, cvs: the layer's
 // base of its [B, 2S * hkv] flat scales. Writes logical token `slot` of rows
-// [0, b) in place.
+// [0, b) in place. k, v, ck and cv must be 16-byte aligned (a byte row then
+// starts on a 64-byte boundary at D = 64 or 128).
 extern "C" int hydragen_write_int4(const void* k, const void* v, void* ck, void* cv,
                                    void* cks, void* cvs, int b, int S, int hkv, int D,
                                    int slot, void* stream) {
   if (slot < 0 || slot >= 2 * S) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(hkv, b);
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+       reinterpret_cast<uintptr_t>(ck) | reinterpret_cast<uintptr_t>(cv)) & 15) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* kk = static_cast<const __nv_bfloat16*>(k);
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
@@ -620,12 +677,7 @@ extern "C" int hydragen_write_int4(const void* k, const void* v, void* ck, void*
   auto* cvv = static_cast<int8_t*>(cv);
   auto* cks_ = static_cast<float*>(cks);
   auto* cvs_ = static_cast<float*>(cvs);
-  if (D == 128) {
-    write_int4_kernel<128><<<grid, 64, 0, st>>>(kk, vv, ckk, cvv, cks_, cvs_, S, hkv, slot);
-  } else if (D == 64) {
-    write_int4_kernel<64><<<grid, 64, 0, st>>>(kk, vv, ckk, cvv, cks_, cvs_, S, hkv, slot);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 128) return launch_write<128>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, st);
+  if (D == 64) return launch_write<64>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -384,8 +384,10 @@ def model_forward(
                     # out = v, lse = scale * q.k.
                     group = nh // nkv
                     qg = q.float().reshape(b, nkv, group, 1, hd)
+                    # Times the scale, as the JAX model computes it (a
+                    # division by sqrt(hd) rounds differently).
                     l = (torch.einsum("bkgmd,bkmd->bkgm", qg, k.float())
-                         / math.sqrt(hd)).reshape(b, nh, 1)
+                         * (1.0 / math.sqrt(hd))).reshape(b, nh, 1)
                     o = v[:, :, None].expand(b, nkv, group, 1, hd).reshape(b, nh, 1, hd)
                     o = o.to(q.dtype)
                 else:

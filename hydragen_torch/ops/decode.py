@@ -243,7 +243,8 @@ def write_token_int4_cached(
     One kernel launch writes K and V: the quantized nibbles into byte row
     ``slot % S`` (the high nibble at ``slot >= S``, keeping the live low
     token; the low nibble below, clearing the stale high one) and the scales
-    at ``slot*hkv``.
+    at ``slot*hkv``. On a CUDA tensor it raises where ``k``, ``v`` or the
+    layer's cache base is not 16-byte aligned.
     """
     layer, slot = int(layer), int(slot)
     if not k.is_cuda:
@@ -268,6 +269,10 @@ def write_token_int4_cached(
     if v_all.shape != k_all.shape or k_scale_all.shape != (L, B, 2 * S * hkv) \
             or v_scale_all.shape != k_scale_all.shape:
         raise ValueError("int4 write kernel: cache and scale shapes disagree")
+    # 16-byte loads of k and v; 8-byte loads and stores of byte rows, which
+    # start on 64-byte boundaries of an aligned layer base.
+    for name, t in (("k", k), ("v", v), ("k_all", k_all[layer]), ("v_all", v_all[layer])):
+        cuda_lib.check_aligned(f"int4 write kernel: {name}", t)
     row_bytes = B * S * hkv * d
     status = _write_fn()(
         k.data_ptr(), v.data_ptr(),

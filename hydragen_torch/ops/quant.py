@@ -255,11 +255,20 @@ def qmatmul_stacked(x, w_stacked, layer: int, subscripts: str, impl: str = "dq",
 # --- KV-cache quantization -------------------------------------------------
 
 
+# The KV quantizers scale amax by these f32 reciprocals, not by a division:
+# the JAX engine runs them under jax.jit, where XLA folds a division by a
+# constant into a product with its f32 reciprocal. 0-dim CPU tensors enter a
+# CUDA op as scalars, so the CPU and the card compute one function. ``x /
+# scale`` stays an IEEE division on both sides.
+RECIP_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+RECIP_7 = torch.tensor(1.0 / 7.0, dtype=torch.float32)
+
+
 def quantize_kv(x: torch.Tensor):
     """x ``[..., d]`` float -> (q int8 ``[..., d]``, scale f32 ``[...]``)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) * RECIP_127
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale.squeeze(-1)
 
@@ -275,10 +284,9 @@ def quantize_kv4(x: torch.Tensor):
     TOKEN axis (byte row j holds token j low and token j + S/2 high)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    # A tensor divisor: on the card PyTorch divides by a Python scalar as a
-    # product with its reciprocal, which rounds differently from the true
-    # division that JAX and the int4 write kernel do.
-    scale = torch.clamp(amax, min=1e-8) / torch.tensor(7.0, device=x.device)
+    # The product with the f32 reciprocal that jitted JAX and the int4 write
+    # kernel compute (see RECIP_127).
+    scale = torch.clamp(amax, min=1e-8) * RECIP_7
     q4 = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8)
     return q4, scale.squeeze(-1)
 

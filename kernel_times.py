@@ -31,6 +31,13 @@ warps a block (each held to the plain version), and copies that leave out
 work: the ring's copies and waits alone, and the scores without the value
 product.
 
+``--k7-variants`` times K7 at its shape (``chip_smoke.py``'s), at a
+low-plane and a high-plane slot, beside copies of ``csrc/decode.cu`` that read
+the old byte row after the arithmetic, read the token with 2-byte loads, or
+launch blocks of 64 or 1,024 threads (each held to the plain version byte
+for byte), or multiply by 1/scale where the kernel divides (wrong by
+design), beside a graph node's floor and a ``copy_`` of the token.
+
 ``--split-policy`` also times K5 at ``chip_smoke.py``'s split shapes (one
 32,768-key sequence over 8 kv heads, int8 and bf16) for each count of items
 an SM that ``ops/flash.py:decode_splits`` could aim for, each held to the
@@ -526,6 +533,97 @@ def k3_variants(failures: list) -> dict:
     return out
 
 
+# K7 variants: (name, [(search, replacement)]) applied to csrc/decode.cu. The
+# first four are whole kernels held to the plain version byte for byte: the
+# old byte row read after the arithmetic (two dependent round trips at the
+# high plane, as the parent's kernel had), the bf16 token read with 2-byte
+# loads, and other block sizes. "x times 1/scale" replaces the IEEE division
+# by a product (codes differ: wrong by design), to read what the divisions
+# cost.
+_K7_OLD_READ = "    if constexpr (HI) old = *reinterpret_cast<const uint2*>(dst);\n"
+_K7_THREADS = "constexpr int WRITE_THREADS = 256;\n"
+K7_VARIANTS = {
+    "old row read after the arithmetic": [
+        (_K7_OLD_READ, ""),
+        ("  if (!live) return;\n", "  if (!live) return;\n" + _K7_OLD_READ.replace("    ", "  ", 1))],
+    "2-byte loads": [
+        ("    xw = __ldg(reinterpret_cast<const uint4*>(src));\n",
+         "    const unsigned short* h = reinterpret_cast<const unsigned short*>(src);\n"
+         "    uint32_t e[8];\n"
+         "#pragma unroll\n"
+         "    for (int i = 0; i < 8; ++i) e[i] = __ldg(h + i);\n"
+         "    xw = make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,\n"
+         "                    e[6] | e[7] << 16);\n")],
+    "64 threads a block": [(_K7_THREADS, _K7_THREADS.replace("256", "64"))],
+    "1024 threads a block": [(_K7_THREADS, _K7_THREADS.replace("256", "1024"))],
+    "product, division near a half code": [
+        ("    const int q = min(max(__float2int_rn(x[i] / scale), -7), 7);\n",
+         "    float r = x[i] * inv;\n"
+         "    if (fabsf(r - floorf(r) - 0.5f) <= 2e-6f) r = x[i] / scale;\n"
+         "    const int q = min(max(__float2int_rn(r), -7), 7);\n"),
+        ("  constexpr int SHIFT", "  const float inv = 1.0f / scale;\n  constexpr int SHIFT")],
+    "x times 1/scale": [("__float2int_rn(x[i] / scale)", "__float2int_rn(x[i] * inv)"),
+                        ("  constexpr int SHIFT", "  const float inv = 1.0f / scale;\n"
+                                                  "  constexpr int SHIFT")],
+}
+K7_WRONG = ("x times 1/scale",)
+K7_REPS = 2
+
+
+def k7_variants(failures: list) -> dict:
+    """K7's device ms (CUDA graph) at chip_smoke.py's shape (b 256, 32 kv
+    heads of 128, 96 byte rows, 4 layers cycled), at a low-plane and a
+    high-plane slot: the kernel and each of K7_VARIANTS, in K7_REPS
+    interleaved rounds, the whole ones held to the plain version byte for
+    byte. Two yardsticks in the same rounds: a graph of one-element adds
+    (a graph node's floor) and ``copy_`` of the bf16 K and V token into a
+    buffer (4.19 MB read and written, L2-resident as K7's operands are)."""
+    import chip_smoke
+    from hydragen_torch.ops import cuda_lib, decode
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    libs = _edited_libs("decode", K7_VARIANTS, "k7_variants", failures)
+    if libs is None:
+        return {}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    NL, b, hkv, d, S = 4, 256, 32, 128, 96
+    bufs = [torch.randint(-128, 128, (NL, b, S, hkv, d), dtype=torch.int8, device=dev,
+                          generator=g) for _ in range(2)]
+    bufs += [torch.rand(NL, b, 2 * S * hkv, device=dev, generator=g) for _ in range(2)]
+    kv = [torch.randn(b, hkv, 1, d, device=dev, generator=g).mul(2).to(torch.bfloat16)
+          for _ in range(2)]
+    runs = [("kernel", cuda_lib.library("decode")), *libs.items()]
+    out: dict = {}
+    for rep in range(K7_REPS):
+        for key, lib in runs:
+            with _decode_lib(lib):
+                for plane, slot in (("low", S // 2), ("high", S + 7)):
+                    if rep == 0 and key not in K7_WRONG:
+                        got, want = [t.clone() for t in bufs], [t.clone() for t in bufs]
+                        decode.write_token_int4_cached(NL - 1, *kv, *got, slot)
+                        decode.write_token_int4_cached_plain(NL - 1, *kv, *want, slot)
+                        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                            failures.append(f"k7 variants {key} {plane}: not bit-exact")
+                        del got, want
+
+                    def call(i, slot=slot):
+                        decode.write_token_int4_cached(i, *kv, *bufs, slot)
+                    ms = cuda_graph_time_ms(chip_smoke.Cycle(call, NL))
+                    out.setdefault(key, {}).setdefault(plane, []).append(ms)
+                    print(f"[k7 variants] rep {rep}: {key}: {plane} plane: {ms:.4f} device ms",
+                          flush=True)
+        tiny = torch.zeros(1, device=dev)
+        token = torch.cat(kv)
+        copies = torch.empty((NL, *token.shape), dtype=token.dtype, device=dev)
+        for key, fn in (("graph node floor (one-element add)", lambda i: tiny.add_(1)),
+                        ("copy_ of the bf16 K and V token", lambda i: copies[i].copy_(token))):
+            ms = cuda_graph_time_ms(chip_smoke.Cycle(fn, NL))
+            out.setdefault(key, []).append(ms)
+            print(f"[k7 variants] rep {rep}: {key}: {ms:.4f} device ms", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split-policy", action="store_true",
@@ -539,6 +637,9 @@ def main() -> int:
     ap.add_argument("--k3-variants", action="store_true",
                     help="also time K3 beside copies with another ring depth or block, or "
                          "that leave out work")
+    ap.add_argument("--k7-variants", action="store_true",
+                    help="also time K7 beside copies with the old row read late, 2-byte "
+                         "loads, or other block sizes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; the port's kernels run only on the card",
@@ -572,6 +673,8 @@ def main() -> int:
         report["k6_variants"] = k6_variants(failures)
     if args.k3_variants:
         report["k3_variants"] = k3_variants(failures)
+    if args.k7_variants:
+        report["k7_variants"] = k7_variants(failures)
     if failures:
         print("kernel_times FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

@@ -668,25 +668,101 @@ def test_decode_kernel_graph_replays_give_the_same_bits(dev, case):
     torch.testing.assert_close(runs[0][0].float(), po.float(), atol=2e-2, rtol=2e-2)
 
 
+def _k7_token(dev, g, b, hkv, d):
+    """One layer's K and V token, bf16: random, with K's head (0, 0) on the
+    half codes -6.5..6.5 at amax 7 (scale exactly 1) and V's at half that
+    (scale exactly 0.5), so round-half-even decides every element; and the
+    last row's last head all zero (the 1e-8 floor)."""
+    k, v = (torch.randn(b, hkv, 1, d, device=dev, generator=g).mul(3) for _ in range(2))
+    ties = torch.arange(d, device=dev, dtype=torch.float32) % 14 - 6.5
+    ties[0] = 7.0
+    k[0, 0, 0], v[0, 0, 0] = ties, ties / 2
+    k[b - 1, hkv - 1], v[b - 1, hkv - 1] = 0.0, 0.0
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hkv", [1, 8, 32])
 @pytest.mark.parametrize("d", [64, 128])
-def test_write_int4_kernel_is_bit_exact(dev, d):
-    """K7 against its plain version, byte for byte: low-plane slots (the stale
-    high nibble cleared), high-plane slots over live low tokens, and a row
-    count below the cache's."""
+def test_write_int4_kernel_is_bit_exact(dev, d, hkv):
+    """K7 against its plain version, byte for byte, one launch a call: low-
+    plane slots (the stale high nibble cleared) and high-plane slots over
+    live low tokens (0, S - 1, S, S + 1, 2S - 1), row counts below the
+    cache's, half-code ties and an all-zero head. Every byte and scale
+    outside the written token (other rows, byte rows, layers; poisoned
+    before) is left as it was."""
     g = _gen(15)
-    L, B, S, hkv = 3, 5, 6, 4
+    L, B, S = 3, 5, 6
     bufs = [torch.randint(-128, 128, (L, B, S, hkv, d), dtype=torch.int8, device=dev,
                           generator=g) for _ in range(2)]
-    scales = [torch.rand(L, B, 2 * S * hkv, device=dev, generator=g) for _ in range(2)]
+    scales = [torch.rand(L, B, 2 * S * hkv, device=dev, generator=g) - 1234.5
+              for _ in range(2)]
     plain = [t.clone() for t in bufs + scales]
-    for layer, slot, b in ((2, 1, 5), (0, 7, 5), (2, 11, 4), (1, 0, 3), (1, 6, 5)):
-        k, v = (torch.randn(b, hkv, 1, d, device=dev, generator=g).mul(3).to(torch.bfloat16)
-                for _ in range(2))
+    for layer, slot, b in ((2, 0, 5), (0, S - 1, 3), (2, S, 5), (1, S + 1, 4),
+                           (1, 2 * S - 1, 5), (0, 2 * S - 1, 2)):
+        k, v = _k7_token(dev, g, b, hkv, d)
+        before = [t.clone() for t in bufs + scales]
+        launches = cuda_lib.LAUNCHES["write_token_int4_cached"]
         tdecode.write_token_int4_cached(layer, k, v, *bufs, *scales, slot)
+        assert cuda_lib.LAUNCHES["write_token_int4_cached"] == launches + 1
         tdecode.write_token_int4_cached_plain(layer, k, v, *plain, slot)
-    torch.cuda.synchronize()
-    for got, want in zip(bufs + scales, plain):
-        assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        for got, want in zip(bufs + scales, plain):
+            assert torch.equal(got, want), (layer, slot, b)
+        assert float(plain[2][layer, 0, slot * hkv]) == 1.0  # the ties' scale
+        assert float(plain[3][layer, 0, slot * hkv]) == 0.5
+        written = torch.zeros(L, B, S, dtype=torch.bool, device=dev)
+        written[layer, :b, slot % S] = True
+        for now, was in zip(bufs, before[:2]):
+            assert torch.equal(now[~written], was[~written])
+        cols = torch.zeros(L, B, 2 * S * hkv, dtype=torch.bool, device=dev)
+        cols[layer, :b, slot * hkv:(slot + 1) * hkv] = True
+        for now, was in zip(scales, before[2:]):
+            assert torch.equal(now[~cols], was[~cols])
+
+
+@pytest.mark.parametrize("operand", ["k", "v", "cache", "cache_v"])
+def test_write_int4_wrapper_raises_on_a_misaligned_operand(dev, operand):
+    """K7 loads k and v as 16-byte vectors and byte rows as 8-byte words: a
+    contiguous k or v, or a cache whose layer base is off a 16-byte
+    boundary, is refused before any launch."""
+    g = _gen(16)
+    L, B, S, hkv, d = 2, 3, 4, 2, 64
+    k, v = _k7_token(dev, g, B, hkv, d)
+    caches = [torch.zeros(L, B, S, hkv, d, dtype=torch.int8, device=dev) for _ in range(2)]
+    scales = [torch.zeros(L, B, 2 * S * hkv, device=dev) for _ in range(2)]
+
+    def shifted(t, nbytes):  # the same values, nbytes past a 16-byte boundary
+        n = nbytes // t.element_size()
+        out = torch.empty(t.numel() + n, dtype=t.dtype, device=dev)[n:].view(t.shape)
+        return out.copy_(t)
+
+    if operand == "k":
+        k = shifted(k, 2)
+    elif operand == "v":
+        v = shifted(v, 8)
+    else:
+        i = 0 if operand == "cache" else 1
+        caches[i] = shifted(caches[i], 8)
+    launches = cuda_lib.LAUNCHES["write_token_int4_cached"]
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        tdecode.write_token_int4_cached(1, k, v, *caches, *scales, 5)
+    assert cuda_lib.LAUNCHES["write_token_int4_cached"] == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["quantize_kv", "quantize_kv4"])
+def test_kv_quantizers_on_the_card_equal_the_cpu(dev, fn, dtype):
+    """The KV quantizers compute one function on the card and on the CPU
+    (scale = amax times the f32 reciprocal, then an IEEE division), codes
+    and scales bit for bit; the CPU's is held to jitted JAX in
+    tests/test_torch_ops.py and tests/test_torch_int4.py."""
+    from hydragen_torch.ops import quant as tquant
+
+    x = torch.randn(64, 32, 128, generator=torch.Generator().manual_seed(17)).mul(3).to(dtype)
+    x[0, 0] = 0.0
+    q, s = getattr(tquant, fn)(x.to(dev))
+    cq, cs = getattr(tquant, fn)(x)
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
 
 
 def test_engine_int4_kernel_path_matches_plain_path(dev):

@@ -147,10 +147,11 @@ GQA = dict(vocab_size=256, hidden_size=512, intermediate_size=512, num_hidden_la
 MODES = {"fp32": (None, None), "w8a8_kv8": ("w8a8", "int8")}
 # The parameters and prompts are fixed by their seeds for a reason: under
 # w8a8 + int8 KV each per-row activation quantization rounds at half-code
-# boundaries, and where a last-bit difference between XLA's and PyTorch's
-# float sums meets one, an activation lands one code apart and a logit moves
-# by up to ~7e-2 (parameter keys 5-11 and 13 do that somewhere in these
-# tests, fp32 never does).
+# boundaries. The KV quantizers match the jitted JAX functions bit for bit,
+# so what lands an activation one code apart is mostly a last-bit difference
+# in the float sums upstream (XLA's and PyTorch's reductions, rsqrt, exp)
+# meeting such a boundary, and a logit moves by up to ~7e-2 (parameter keys
+# 0, 2-11 and 13 do that somewhere in these tests, fp32 never does).
 PARAM_KEY = 12
 
 

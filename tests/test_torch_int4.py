@@ -7,7 +7,8 @@ writes), module by module and then the engine end to end. Inputs are made
 with numpy from a seed and handed to both packages; fp32 wherever a float
 is computed. Integer payloads (packed weights, packed KV) and the f32 KV
 scales that the cache writers compute from the same inputs must be
-bit-equal (both frameworks divide the same f32 numbers). The JAX side of a w4a8 or w8a8 case runs its Pallas GEMM in
+bit-equal (the port scales amax by the f32 reciprocal of 7, as jitted JAX
+does, and both divide x by the same scale). The JAX side of a w4a8 or w8a8 case runs its Pallas GEMM in
 interpret mode (``HYDRAGEN_W8A8_INTERPRET=1``); without it, JAX runs the
 weight-only path on the CPU.
 
@@ -99,15 +100,31 @@ def test_quantize4_dequantize4_bit_equal(K, group):
                                   np.asarray(jquant.dequantize4(jq, jnp.float32)))
 
 
+def _kv4_held_to_jit(x, dtype):
+    """``quantize_kv4`` equals ``jax.jit`` of the JAX function (the one its
+    engine runs: XLA multiplies amax by the f32 reciprocal of 7 where eager
+    JAX divides) bit for bit, on inputs where eager JAX's scales differ."""
+    tq, ts = tquant.quantize_kv4(T(x).to(getattr(torch, dtype)))
+    xj = J(x).astype(dtype)
+    jq, js = jax.jit(jquant.quantize_kv4)(xj)
+    assert np.any(np.asarray(jquant.quantize_kv4(xj)[1]) != np.asarray(js)), \
+        "eager and jitted JAX agree here"
+    np.testing.assert_array_equal(_np(tq), np.asarray(jq))
+    np.testing.assert_array_equal(_np(ts), np.asarray(js))
+    assert _np(tq).min() >= -7 and _np(tq).max() <= 7
+
+
 def test_quantize_kv4_bit_equal():
     rng = np.random.RandomState(1)
     x = rng.randn(3, 2, 5, 128).astype(np.float32) * 3
     x[0, 0, 0] = 0.0  # amax 0: the 1e-8 floor
-    tq, ts = tquant.quantize_kv4(T(x))
-    jq, js = jquant.quantize_kv4(J(x))
-    np.testing.assert_array_equal(_np(tq), np.asarray(jq))
-    np.testing.assert_array_equal(_np(ts), np.asarray(js))
-    assert _np(tq).min() >= -7 and _np(tq).max() <= 7
+    _kv4_held_to_jit(x, "float32")
+
+
+def test_quantize_kv4_bit_equal_bf16():
+    x = np.random.RandomState(2).randn(3, 2, 5, 128).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0
+    _kv4_held_to_jit(x, "bfloat16")
 
 
 @pytest.mark.parametrize("families", [(), ("down",)])
@@ -308,13 +325,23 @@ def _same_cache(tc, jc):
             np.testing.assert_array_equal(t, j, err_msg=name)
 
 
+# The JAX engine runs its cache writes under jax.jit, where XLA multiplies
+# amax by the f32 reciprocal of 7 (quantize_kv4); the writes below are held to
+# those jitted functions.
+_jit_prefill = jax.jit(jcache.update_unique_prefill)
+_jit_write_layer = jax.jit(jcache.write_decode_token_layer, static_argnames=("layer",))
+_jit_decode = jax.jit(jcache.update_unique_decode, static_argnames=("uniform",))
+_jit_repeat = jax.jit(jcache.repeat_unique_for_samples,
+                      static_argnames=("current_size", "num_samples"))
+
+
 @pytest.mark.parametrize("layout", ["bshd_flat", "bshd", "bhsd"])
 def test_int4_cache_writes_match_jax(layout):
     """A unique prefill of 11 tokens into 8 byte rows (rows 0-2 get a high
     token, rows 3-7 a cleared high nibble), the per-layer decode write at a
     low-plane slot (5) and a high-plane slot (12, over the live token 4), the
     batched write at slots 6 (low) and 14 (high), and the sample repeat:
-    payloads and scales bit-equal to JAX's."""
+    payloads and scales bit-equal to JAX's functions under jax.jit."""
     bshd = layout.startswith("bshd")
     flat = layout == "bshd_flat"
     Lc, Bc, U, hkv, hd = 2, 4, 16, 2, 128
@@ -329,22 +356,22 @@ def test_int4_cache_writes_match_jax(layout):
         return [rng.randn(*shape).astype(np.float32) for _ in range(2)]
 
     k, v = kv(Lc, 2, hkv, 11, hd)
-    jc = jcache.update_unique_prefill(jc, J(k), J(v))
+    jc = _jit_prefill(jc, J(k), J(v))
     tcache.update_unique_prefill(tc, T(k), T(v))
     _same_cache(tc, jc)
     for slot in (5, 12):
         k, v = kv(3, hkv, 1, hd)
         for li in range(Lc):
-            jc = jcache.write_decode_token_layer(jc, li, J(k), J(v), jnp.int32(slot))
+            jc = _jit_write_layer(jc, layer=li, k=J(k), v=J(v), slot=jnp.int32(slot))
             tcache.write_decode_token_layer(tc, li, T(k), T(v), slot)
         _same_cache(tc, jc)
     for slot in (6, 14):
         k, v = kv(Lc, 4, hkv, 1, hd)
         pos = np.full(4, slot, np.int32)
-        jc = jcache.update_unique_decode(jc, J(pos), J(k), J(v), uniform=True)
+        jc = _jit_decode(jc, J(pos), J(k), J(v), uniform=True)
         tcache.update_unique_decode(tc, T(pos), T(k), T(v), uniform=slot)
         _same_cache(tc, jc)
-    jc = jcache.repeat_unique_for_samples(jc, 2, 2)
+    jc = _jit_repeat(jc, current_size=2, num_samples=2)
     tcache.repeat_unique_for_samples(tc, 2, 2)
     _same_cache(tc, jc)
 
@@ -374,15 +401,15 @@ def test_gather_token_row_matches_jax(layer):
 
 def test_write_token_int4_plain_is_the_cache_write():
     """The K7 wrapper's plain version (the kernel's yardstick on the card) is
-    byte for byte JAX's per-layer int4 write into a flat-scaled BSHD cache,
-    low plane and high plane."""
+    byte for byte JAX's jitted per-layer int4 write into a flat-scaled BSHD
+    cache, low plane and high plane."""
     rng = np.random.RandomState(15)
     kw = dict(quantized=True, unique_bshd=True, flat_scales=True, unique_bits=4)
     jc = jcache.allocate_cache(2, 3, 12, [], [], 2, 64, dtype=jnp.float32, **kw)
     tc = tcache.allocate_cache(2, 3, 12, [], [], 2, 64, dtype=torch.float32, **kw)
     for slot in (2, 8, 3, 11):
         k, v = (rng.randn(3, 2, 1, 64).astype(np.float32) for _ in range(2))
-        jc = jcache.write_decode_token_layer(jc, 1, J(k), J(v), jnp.int32(slot))
+        jc = _jit_write_layer(jc, layer=1, k=J(k), v=J(v), slot=jnp.int32(slot))
         tdecode.write_token_int4_cached_plain(1, T(k), T(v), tc.unique_k, tc.unique_v,
                                               tc.unique_k_scale, tc.unique_v_scale, slot)
     _same_cache(tc, jc)
