@@ -31,25 +31,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    random weights from a seeded ``torch.Generator``, ``quantization="w8a8"``,
    ``kv_quant="int8"``; one request with a 2,048-token shared prompt and 256
    greedy completions (``shared_cache_op=WIPE``), then a second request of 256
-   new 128-token suffixes over the kept prompt (``PRESERVE``). Every kernel's
-   launch count must equal what the path implies. Then 8 decode steps of a
-   third request run under ``torch.profiler``: device-busy share and device
+   new 128-token suffixes over the kept prompt (``PRESERVE``), both decoding
+   through the engine's CUDA graphs (one captured step, replayed a step).
+   Every kernel's launch count must equal what the path implies (a replay
+   counts its graph's launches). Request 1 also runs first through the eager
+   loop (``graph(False)``): the graph's tokens must equal it and its logits
+   equal it bit for bit. Request 2 runs once more eagerly and once more
+   through its graph: the two decode rates. Then 8 decode steps of a third
+   request run under ``torch.profiler``, eagerly (the copy gate) and through
+   the graph (its table with a ``_graph`` suffix): device-busy share and device
    time by kernel (the full table goes to ``chiprun_out/profile_decode.txt``).
-5. int4 path: the same two requests and profile at full 7B width with int4
-   weights (``quantization="w4a8"``) and the token-planar int4 unique cache
+   A line a path sets the graph beside the eager loop, with kernels a step,
+   capture time and pool memory.
+5. int4 path: the same at full 7B width with int4 weights
+   (``quantization="w4a8"``) and the token-planar int4 unique cache
    (``kv_quant="int4"``; the shared level int8). Request 1's decode writes
    the low nibble plane, request 2's the high plane over live low tokens.
-6. gqa path: the same two requests and profile on ``PRESETS["llama-3-8b"]``
-   (32 query heads over 8 kv heads) at full width and depth, w8a8 + int8
-   KV. Its unique cache is BHSD, so every decode layer's unique read is the
-   small-M read (K5) in place of K3. The profile fails on any copy of a
-   unique-cache layer.
+6. gqa path: the same on ``PRESETS["llama-3-8b"]`` (32 query heads over 8 kv
+   heads) at full width and depth, w8a8 + int8 KV. Its unique cache is
+   BHSD, so every decode layer's unique read is the small-M read (K5) in
+   place of K3. The profile fails on any copy of a unique-cache layer.
 7. gqa no-sharing: the no-sharing baseline (``disable_hydragen=True``,
    ``bench.py``'s protocol: one 2,048-token prompt, 256 greedy completions,
    the prompt's KV in every unique row) against Hydragen on the same model
-   and prompt in one engine: exact launch counts, tokens equal to
-   Hydragen's (or, where a bf16 tie breaks the other way, the logits of a
-   forced stream within ``TOL_NOSHARE``), both decode rates, a profile.
+   and prompt in one engine, three rounds of the two arms in turn through
+   their graphs (the three ratios of the decode rates are printed): exact
+   launch counts, tokens equal to Hydragen's (or, where a bf16 tie breaks
+   the other way, the logits of a forced stream within ``TOL_NOSHARE``), the
+   baseline's graph equal to its eager loop, profiles.
 8. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
    unique read is K5) at 2 layers of full width on one forced token stream,
    and the w4a8 + int4-KV model over two requests whose decode crosses into
@@ -573,9 +582,12 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
     )
 
     # K7: the int4 decode write of one layer at the path's shapes, bit-exact
-    # against its plain version at a low-plane slot and a high-plane slot.
-    # Bytes: K and V in bf16, the written byte rows and scales, and at the
-    # high plane the old byte rows read (the low plane reads none).
+    # against its plain version at a low-plane slot and a high-plane slot,
+    # with the slot given as a host int and as a device int32 (the decode
+    # graph's: the kernel reads it from device memory); device_ms with the
+    # host int (as kernel_times.py times it), slot_device_ms with the device
+    # slot. Bytes: K and V in bf16, the written byte rows and scales, and at
+    # the high plane the old byte rows read (the low plane reads none).
     from_slot = {}
     for slot in (S4 // 2, S4 + 7):
         kv = [torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).mul(2).to(torch.bfloat16)
@@ -585,23 +597,30 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
         decode.write_token_int4_cached(NL - 1, *kv, *bufs, slot)
         decode.write_token_int4_cached_plain(NL - 1, *kv, *plain, slot)
         exact = all(torch.equal(a, b) for a, b in zip(bufs, plain))
+        dslot = torch.tensor([slot], dtype=torch.int32, device=dev)
+        kv2 = [torch.randn_like(x.float()).to(torch.bfloat16) for x in kv]
+        decode.write_token_int4_cached(NL - 1, *kv2, *bufs, dslot)
+        decode.write_token_int4_cached_plain(NL - 1, *kv2, *plain, slot)
+        exact = exact and all(torch.equal(a, b) for a, b in zip(bufs, plain))
 
         def write(i):
             decode.write_token_int4_cached(i, *kv, *bufs, slot)
 
         ms = time_ms(Cycle(write, NL))
         dms = cuda_graph_time_ms(Cycle(write, NL))
+        sdms = cuda_graph_time_ms(Cycle(
+            lambda i: decode.write_token_int4_cached(i, *kv, *bufs, dslot), NL))
         pms = time_ms(Cycle(lambda i: decode.write_token_int4_cached_plain(
             i, *kv, *plain, slot), NL), iters=5)
         plane = "high" if slot >= S4 else "low"
         rows = 2 * BATCH * hkv * d
         nbytes = 2 * rows + rows * (2 if plane == "high" else 1) + 2 * BATCH * hkv * 4
         bms, by = bound_ms(nbytes, 0, "fp32")
-        from_slot[plane] = dict(exact=exact, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
-                                bound_by=by)
+        from_slot[plane] = dict(exact=exact, ms=ms, device_ms=dms, slot_device_ms=sdms,
+                                plain_ms=pms, bound_ms=bms, bound_by=by)
         record(f"write_token_int4_cached slot {slot} ({plane} plane)", exact,
-               f"bit-exact {exact} ms {ms:.4f} plain_ms {pms:.4f} device (graph) {dms:.4f} "
-               f"bound_ms {bms:.4f}")
+               f"bit-exact {exact} (host and device slot) ms {ms:.4f} plain_ms {pms:.4f} "
+               f"device (graph) {dms:.4f}, device slot {sdms:.4f} bound_ms {bms:.4f}")
         del plain
     slots = from_slot.values()
     slower = max(slots, key=lambda r: r["device_ms"])
@@ -612,7 +631,8 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
         bound_by=slower["bound_by"], library_ms=None, by_plane=from_slot,
         at="one layer's K and V token, b=256, 32 heads x 128, into 96 byte rows; the "
            "slower of a low-plane and a high-plane slot, with that plane's bound (the low "
-           "plane reads no old byte row; device_ms: from a CUDA graph of the calls; "
+           "plane reads no old byte row; device_ms: from a CUDA graph of the calls, the "
+           "slot a host int; by_plane's slot_device_ms: the slot read from device memory; "
            "library: none, no PyTorch call quantizes to int4 and merges nibbles)",
     )
 
@@ -984,10 +1004,61 @@ def time_decode_loop(eng):
     return decode_steps, decode_s
 
 
+def graph_stats(eng) -> dict:
+    """The engine's captured decode graphs: how many, their capture seconds
+    and the memory of their one pool (the caching allocator's segments of
+    that pool, from its snapshot; None where the snapshot names no pool)."""
+    sts = [st for st in eng._decode.values() if st.graph is not None]
+    pool_mib = None
+    if eng._graph_pool is not None:
+        segs = torch.cuda.memory_snapshot()
+        if segs and "segment_pool_id" in segs[0]:
+            pool_mib = sum(seg["total_size"] for seg in segs
+                           if tuple(seg["segment_pool_id"]) == tuple(eng._graph_pool)) / 2**20
+    return dict(graphs=len(sts), capture_s=sum(st.capture_s for st in sts), pool_MiB=pool_mib)
+
+
+def eager_yardstick(eng, request: dict):
+    """One request through the eager loop (``graph(False)``): its tokens and
+    its logits, moved to the host so that the card holds one run's logits
+    at a time. The engine goes back to its graphs."""
+    eng.graph(False)
+    try:
+        toks, logits = eng.generate(return_logits=True, **request)
+        return toks, [x.cpu() for x in logits]
+    finally:
+        eng.graph(True)
+
+
+def compare_to_eager(tag: str, eager, toks, logits, failures: list) -> None:
+    """Graph against eager on one request: tokens equal, and each step's
+    logits equal bit for bit (the step runs the same kernels on the same
+    inputs, replayed or launched one by one)."""
+    toks_e, logits_e = eager
+    same = bool(torch.equal(toks_e, toks))
+    worst, unequal = 0.0, 0
+    for a, b in zip(logits_e, logits):
+        b = b.cpu()
+        if not torch.equal(a, b):
+            unequal += 1
+            worst = max(worst, float((a - b).abs().max()))
+    ok = same and unequal == 0 and len(logits_e) == len(logits)
+    print(f"[{tag}] graph vs eager, request 1: tokens equal {same}, logit steps bit-equal "
+          f"{len(logits) - unequal} of {len(logits)} (largest difference {worst:.4g}) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{tag}: graph decode differs from eager (tokens equal {same}, "
+                        f"{unequal} logit steps unequal, largest {worst:.4g})")
+
+
 def drive_path(args, failures: list, path: str) -> dict:
-    """Drive one configuration's two requests at full width and depth with
-    the counts set to 0 just before and read just after; then profile 8
-    decode steps. Returns the launch counts of the two requests."""
+    """Drive one configuration's two requests at full width and depth
+    through the decode graphs, with the counts set to 0 just before and read
+    just after. Request 1 also runs through the eager loop first, the
+    yardstick: tokens equal and logits bit-equal. Then request 2 once more
+    eagerly and once more through its graph (captured by then), for the two
+    decode rates; then 8 decode steps profiled eagerly (the copy gate) and
+    through the graph. Returns the launch counts of the two requests."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
@@ -1008,25 +1079,25 @@ def drive_path(args, failures: list, path: str) -> dict:
     print(f"[{tag}] {preset} width, {cfg.num_hidden_layers} layers, {quant} + {kv_quant} "
           f"KV: set-up {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    request1 = dict(input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T,
+                    temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=args.seed)
+    request2 = dict(input_ids=[suffixes], num_return_sequences=1, max_new_tokens=T,
+                    temperature=0.0, shared_cache_op=SharedCacheOp.PRESERVE, seed=args.seed)
 
     decode_steps, decode_s = time_decode_loop(eng)
-    stats = {}
+    eager = eager_yardstick(eng, request1)
+    stats = {"eager_request1_decode_s": decode_s[0]}
+    decode_s[0] = 0.0
     encodes = gemm.map_encodes()
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    toks1, logits1 = eng.generate(
-        input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T, temperature=0.0,
-        shared_cache_op=SharedCacheOp.WIPE, return_logits=True, seed=args.seed,
-    )
+    toks1, logits1 = eng.generate(return_logits=True, **request1)
     torch.cuda.synchronize()
     stats["request1_s"] = time.perf_counter() - t
     stats["request1_decode_s"] = decode_s[0]
     t = time.perf_counter()
-    toks2 = eng.generate(
-        input_ids=[suffixes], num_return_sequences=1, max_new_tokens=T, temperature=0.0,
-        shared_cache_op=SharedCacheOp.PRESERVE, seed=args.seed,
-    )
+    toks2 = eng.generate(**request2)
     torch.cuda.synchronize()
     stats["request2_s"] = time.perf_counter() - t
     stats["request2_decode_s"] = decode_s[0] - stats["request1_decode_s"]
@@ -1037,7 +1108,6 @@ def drive_path(args, failures: list, path: str) -> dict:
     stats["decode_tok_s_request1"] = decoded / stats["request1_decode_s"]
     stats["decode_tok_s_request2"] = decoded / stats["request2_decode_s"]
     stats["decode_ms_per_step"] = 1e3 * decode_s[0] / (2 * (T - 1))
-    print(f"[{tag}] {json.dumps(stats)}", flush=True)
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
     want = expected(cfg.num_hidden_layers, T)
     if launches != want:
@@ -1052,21 +1122,57 @@ def drive_path(args, failures: list, path: str) -> dict:
     if not finite or len(logits1) != T:
         failures.append(f"{tag} path: {len(logits1)} logit steps, finite={finite}")
     print(f"[{tag}] request 1: {len(logits1)} logit steps, all finite: {finite}", flush=True)
-    del logits1
-    profile_decode(eng, decode_steps, lambda: eng.generate(
-        input_ids=[suffixes], num_return_sequences=1, max_new_tokens=PROFILE_STEPS + 1,
-        temperature=0.0, shared_cache_op=SharedCacheOp.PRESERVE), tag, groups, failures)
+    compare_to_eager(tag, eager, toks1, logits1, failures)
+    del logits1, eager
+
+    # The decode rates, request 2 again: eager, then replays of its graph.
+    for name, graphs in (("eager", False), ("graph", True)):
+        eng.graph(graphs)
+        decode_s[0] = 0.0
+        eng.generate(**request2)
+        stats[f"{name}_decode_s"] = decode_s[0]
+        stats[f"{name}_decode_tok_s"] = decoded / decode_s[0]
+        stats[f"{name}_wall_ms_per_step"] = 1e3 * decode_s[0] / (T - 1)
+    stats.update(graph_stats(eng))
+    print(f"[{tag}] {json.dumps(stats)}", flush=True)
+    profile_request = lambda: eng.generate(  # noqa: E731
+        **dict(request2, max_new_tokens=PROFILE_STEPS + 1))
+    prof = {}
+    for name, graphs in (("eager", False), ("graph", True)):
+        eng.graph(graphs)
+        prof[name] = profile_decode(eng, decode_steps, profile_request, tag, groups,
+                                    failures, graphs=graphs)
+    print_graph_summary(tag, stats, prof)
     return launches
 
 
-def profile_decode(eng, decode_steps, request, tag: str, names, failures: list) -> None:
+def print_graph_summary(tag: str, stats: dict, prof: dict) -> None:
+    """One line a path: the eager loop against its graphs."""
+    e, g = prof["eager"], prof["graph"]
+    print(f"[graph {tag}] decode tok/s eager {stats['eager_decode_tok_s']:.1f} graph "
+          f"{stats['graph_decode_tok_s']:.1f} ({stats['graph_decode_tok_s'] / stats['eager_decode_tok_s']:.3f}x); "
+          f"wall ms/step (no profiler) eager {stats['eager_wall_ms_per_step']:.3f} graph "
+          f"{stats['graph_wall_ms_per_step']:.3f}; device busy ms/step eager "
+          f"{e['busy_ms_per_step']:.3f} graph {g['busy_ms_per_step']:.3f}; idle share "
+          f"(profiled) eager {e['idle_share']:.4f} graph {g['idle_share']:.4f}; kernels/step "
+          f"eager {e['kernels_per_step']:.0f} graph {g['kernels_per_step']:.0f}; "
+          f"{stats['graphs']} graphs captured in {stats['capture_s']:.3f} s, pool "
+          f"{stats['pool_MiB']} MiB", flush=True)
+
+
+def profile_decode(eng, decode_steps, request, tag: str, names, failures: list,
+                   graphs: bool) -> dict:
     """One more request (``request()``, PROFILE_STEPS decode steps), its
     decode loop under torch.profiler: device-busy share of the loop's wall
     time and the kernels by device time, grouped by the kernel ``names``
     (the rest is "other"). The profiler's own host cost lengthens the wall
-    time, so the idle share read here is an upper bound. Fails if any copy
-    op in the loop reads half a layer of the unique cache or more: every
-    kernel reads the cache in place. The full table goes to
+    time, so the idle share read here is an upper bound. Through the eager
+    loop (``graphs`` False) it fails if any copy op in the loop reads half a
+    layer of the unique cache or more: every kernel reads the cache in
+    place. A replayed graph records no aten ops, so that gate reads the
+    eager profile of the same step; the graph profile gives the kernels the
+    replays ran (its table's name ends in ``_graph``). Returns wall and busy
+    ms a step, idle share and kernels a step. The full table goes to
     chiprun_out/profile_decode.txt (main path) or profile_decode_<tag>.txt."""
     from collections import defaultdict
 
@@ -1087,21 +1193,32 @@ def profile_decode(eng, decode_steps, request, tag: str, names, failures: list) 
         window["prof"] = prof
         return out
 
+    if graphs:
+        request()  # captures the request's decode graph, if it is not yet
     eng._decode_steps = profiled
-    request()
+    try:
+        request()
+    finally:
+        eng._decode_steps = decode_steps
     prof, wall = window["prof"], window["wall_us"]
-    layer = eng.cache.unique_k[0]
-    copies = [e for e in prof.events()
-              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
-              and any(len(s) >= 3 and tuple(s[-3:]) == layer.shape[-3:]
-                      and math.prod(s) * 2 >= layer.numel() for s in e.input_shapes)]
-    print(f"[profile {tag}] copies of half a unique-cache layer (a view of "
-          f"{tuple(layer.shape)}) or more in {steps} decode steps: {len(copies)}", flush=True)
-    if copies:
-        failures.append(f"{tag} decode copies the unique cache: "
-                        f"{[(e.name, e.input_shapes) for e in copies[:4]]}")
+    mode = "graph" if graphs else "eager"
+    if not graphs:
+        layer = eng.cache.unique_k[0]
+        copies = [e for e in prof.events()
+                  if e.name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                                "aten::_to_copy")
+                  and any(len(s) >= 3 and tuple(s[-3:]) == layer.shape[-3:]
+                          and math.prod(s) * 2 >= layer.numel() for s in e.input_shapes)]
+        print(f"[profile {tag}] copies of half a unique-cache layer (a view of "
+              f"{tuple(layer.shape)}) or more in {steps} eager decode steps: {len(copies)}",
+              flush=True)
+        if copies:
+            failures.append(f"{tag} decode copies the unique cache: "
+                            f"{[(e.name, e.input_shapes) for e in copies[:4]]}")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels)
+    if not kernels:
+        failures.append(f"{tag} {mode} profile saw no device work")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
@@ -1110,34 +1227,43 @@ def profile_decode(eng, decode_steps, request, tag: str, names, failures: list) 
     for name, (us, _) in by_name.items():
         key = next((k for k in names if k in name), "other")
         groups[key] += us
-    print(f"[profile {tag}] {steps} decode steps: wall {wall / steps / 1e3:.3f} ms/step, device "
-          f"busy {busy / steps / 1e3:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
-          f"{len(kernels) / steps:.0f} kernels/step", flush=True)
-    print(f"[profile {tag}] device ms/step by kernel: " + json.dumps(
+    stats = dict(wall_ms_per_step=wall / steps / 1e3, busy_ms_per_step=busy / steps / 1e3,
+                 idle_share=1 - busy / wall, kernels_per_step=len(kernels) / steps)
+    print(f"[profile {tag} {mode}] {steps} decode steps: wall {stats['wall_ms_per_step']:.3f} "
+          f"ms/step, device busy {stats['busy_ms_per_step']:.3f} ms/step, idle share "
+          f"{stats['idle_share']:.4f}, {stats['kernels_per_step']:.0f} kernels/step", flush=True)
+    print(f"[profile {tag} {mode}] device ms/step by kernel: " + json.dumps(
         {k: round(v / steps / 1e3, 4) for k, v in sorted(groups.items(), key=lambda x: -x[1])}),
         flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:12]:
-        print(f"[profile {tag}]   {us / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  "
-              f"{name[:90]}",
-              flush=True)
+        print(f"[profile {tag} {mode}]   {us / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  "
+              f"{name[:90]}", flush=True)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    (out / ("profile_decode.txt" if tag == "main" else f"profile_decode_{tag}.txt")
-     ).write_text(table)
+    stem = "profile_decode" if tag == "main" else f"profile_decode_{tag}"
+    (out / (stem + ("_graph" if graphs else "") + ".txt")).write_text(table)
+    return stats
 
 
 def drive_no_sharing(args, failures: list) -> dict:
     """The no-sharing baseline against Hydragen on Llama-3-8B, one engine,
-    ``bench.py:70-96``'s protocol: Hydragen first (``setup_caches(256, 64,
-    [1], [2048])``), then the baseline (``setup_caches(256, 64 + 2,048 + 8,
-    [1], [2048])``, ``disable_hydragen=True``), each one request of a
-    2,048-token prompt with 256 greedy completions of 64 tokens (WIPE). The
-    baseline's launches are counted; its tokens must equal Hydragen's. Where
-    a bf16 tie breaks the other way, the baseline is run again on Hydragen's
-    tokens (``token_overrides``) and its logits must stay within TOL_NOSHARE
-    of Hydragen's at every step. Then 8 decode steps of the baseline are
-    profiled. Returns the baseline request's launch counts."""
+    ``bench.py:70-96``'s protocol: each arm one request of a 2,048-token
+    prompt with 256 greedy completions of 64 tokens (WIPE), Hydragen over
+    ``setup_caches(256, 64, [1], [2048])``, the baseline over
+    ``setup_caches(256, 64 + 2,048 + 8, [1], [2048])`` with
+    ``disable_hydragen=True``. Three rounds, the arms in turn, each arm's
+    request after a 3-token request of its own that captures its decode
+    graph, so the timed decode is replays alone: the three ratios of the
+    decode rates on the host clock. The first baseline request's launches
+    are counted; its tokens must equal Hydragen's. Where a bf16 tie breaks
+    the other way, both arms run again on Hydragen's tokens
+    (``token_overrides``) and the baseline's logits must stay within
+    TOL_NOSHARE of Hydragen's at every step. The baseline's request also
+    runs through the eager loop, the yardstick of its graph (tokens equal,
+    logits bit-equal), and once more eagerly without logits, for its eager
+    decode rate. Then 8 decode steps of the baseline are profiled, eagerly
+    and through the graph. Returns the counted launches."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
@@ -1152,38 +1278,48 @@ def drive_no_sharing(args, failures: list) -> dict:
     decode_steps, decode_s = time_decode_loop(eng)
     kw = dict(input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T,
               temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=args.seed)
-    stats = {}
-    runs = {}
-    for name, unique_len, nohydra in (("hydragen", T, False),
-                                      ("no-sharing", T + SHARED_LEN + 8, True)):
+    arms = (("hydragen", T, False), ("no-sharing", T + SHARED_LEN + 8, True))
+
+    def setup(name, unique_len):
         eng.cache = None
         gc.collect()
         torch.cuda.empty_cache()
         eng.setup_caches(BATCH, unique_len, [1], [SHARED_LEN], kv_quant="int8")
         torch.cuda.synchronize()
-        print(f"[{tag}] {name}: cache {kv_cache_bytes(cfg, BATCH, unique_len, [1], [SHARED_LEN], 'int8') / 1e9:.3f} GB, "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
-        decode_s[0] = 0.0
-        cuda_lib.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        toks = eng.generate(disable_hydragen=nohydra, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        runs[name] = (toks, {k: v for k, v in cuda_lib.LAUNCHES.items() if v})
-        stats[name] = dict(request_s=wall, decode_s=decode_s[0],
-                           decode_tok_s=BATCH * (T - 1) / decode_s[0],
-                           peak_GiB=torch.cuda.max_memory_allocated() / 2**30)
-    print(f"[{tag}] {json.dumps(stats)}", flush=True)
-    print(f"[{tag}] hydragen / no-sharing decode rate: "
-          f"{stats['hydragen']['decode_tok_s'] / stats['no-sharing']['decode_tok_s']:.3f}",
-          flush=True)
-    launches = runs["no-sharing"][1]
+        return (f"cache {kv_cache_bytes(cfg, BATCH, unique_len, [1], [SHARED_LEN], 'int8') / 1e9:.3f} GB, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    runs = {name: [] for name, _, _ in arms}
+    launches = toks_of = None
+    for rnd in range(3):
+        for name, unique_len, nohydra in arms:
+            held = setup(name, unique_len)
+            eng.generate(disable_hydragen=nohydra, **dict(kw, max_new_tokens=3))
+            decode_s[0] = 0.0
+            cuda_lib.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            toks = eng.generate(disable_hydragen=nohydra, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if rnd == 0:
+                toks_of = dict(toks_of or {}, **{name: toks})
+                if nohydra:
+                    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            run = dict(request_s=wall, decode_s=decode_s[0],
+                       decode_tok_s=BATCH * (T - 1) / decode_s[0],
+                       peak_GiB=torch.cuda.max_memory_allocated() / 2**30, **graph_stats(eng))
+            runs[name].append(run)
+            print(f"[{tag}] round {rnd} {name}: {held}; {json.dumps(run)}", flush=True)
+    ratios = [h["decode_tok_s"] / n["decode_tok_s"]
+              for h, n in zip(runs["hydragen"], runs["no-sharing"])]
+    print(f"[{tag}] hydragen / no-sharing decode rate through graphs, 3 interleaved rounds: "
+          + ", ".join(f"{r:.4f}" for r in ratios), flush=True)
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
     want = expected_launches_no_sharing(cfg.num_hidden_layers, T)
     if launches != want:
         failures.append(f"{tag} launches {launches} != expected {want}")
-    th, tn = runs["hydragen"][0], runs["no-sharing"][0]
+    th, tn = toks_of["hydragen"], toks_of["no-sharing"]
     ok = tuple(tn.shape) == (BATCH, T) and bool((tn == tn[:1]).all())
     same = bool(torch.equal(th, tn))
     print(f"[{tag}] tokens {tuple(tn.shape)}, rows alike {ok}, equal to Hydragen's: {same}",
@@ -1193,12 +1329,8 @@ def drive_no_sharing(args, failures: list) -> dict:
     if not same:
         # Both runs on Hydragen's tokens: the logits of row 0 (rows alike).
         logits = {}
-        for name, unique_len, nohydra in (("hydragen", T, False),
-                                          ("no-sharing", T + SHARED_LEN + 8, True)):
-            eng.cache = None
-            gc.collect()
-            torch.cuda.empty_cache()
-            eng.setup_caches(BATCH, unique_len, [1], [SHARED_LEN], kv_quant="int8")
+        for name, unique_len, nohydra in arms:
+            setup(name, unique_len)
             _, lg = eng.generate(disable_hydragen=nohydra, token_overrides=th,
                                  return_logits=True, **kw)
             logits[name] = [x[0].float() for x in lg]
@@ -1214,10 +1346,36 @@ def drive_no_sharing(args, failures: list) -> dict:
         if worst > TOL_NOSHARE:
             failures.append(f"{tag}: forced-stream logits {worst:.4g} from Hydragen's > "
                             f"{TOL_NOSHARE}")
-    eng._decode_steps = decode_steps  # the last set-up is the baseline's cache
-    profile_decode(eng, decode_steps, lambda: eng.generate(
-        disable_hydragen=True, **dict(kw, max_new_tokens=PROFILE_STEPS + 1)), "gqa_nosharing",
-        ("flash_decode_kernel", "w8a8_kernel", "flash_kernel"), failures)
+    # The baseline's graph against its eager loop (the cache is the baseline's).
+    baseline = dict(kw, disable_hydragen=True)
+    setup("no-sharing", T + SHARED_LEN + 8)
+    eager = eager_yardstick(eng, baseline)
+    toks, logits = eng.generate(return_logits=True, **baseline)
+    compare_to_eager(tag, eager, toks, logits, failures)
+    del eager, logits
+    # The baseline's eager decode rate, on the request the rounds time.
+    eng.graph(False)
+    decode_s[0] = 0.0
+    eng.generate(**baseline)
+    eager_s = decode_s[0]
+    eng.graph(True)
+    profile_request = lambda: eng.generate(  # noqa: E731
+        **dict(baseline, max_new_tokens=PROFILE_STEPS + 1))
+    prof = {}
+    groups = ("flash_decode_kernel", "w8a8_kernel", "flash_kernel")
+    for name, graphs in (("eager", False), ("graph", True)):
+        eng.graph(graphs)
+        prof[name] = profile_decode(eng, decode_steps, profile_request, "gqa_nosharing",
+                                    groups, failures, graphs=graphs)
+    e, g = prof["eager"], prof["graph"]
+    print(f"[graph {tag}] decode tok/s eager {BATCH * (T - 1) / eager_s:.1f} graph (3 rounds) "
+          + ", ".join(f"{r['decode_tok_s']:.1f}" for r in runs["no-sharing"])
+          + f"; wall ms/step (no profiler) eager {1e3 * eager_s / (T - 1):.3f} graph (3 rounds) "
+          + ", ".join(f"{1e3 * r['decode_s'] / (T - 1):.3f}" for r in runs["no-sharing"])
+          + f"; device busy ms/step eager {e['busy_ms_per_step']:.3f} graph "
+          f"{g['busy_ms_per_step']:.3f}; idle share (profiled) eager {e['idle_share']:.4f} "
+          f"graph {g['idle_share']:.4f}; kernels/step eager {e['kernels_per_step']:.0f} graph "
+          f"{g['kernels_per_step']:.0f}; graphs {json.dumps(graph_stats(eng))}", flush=True)
     return launches
 
 

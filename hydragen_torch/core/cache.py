@@ -38,12 +38,14 @@ def _maybe_quantize(x: torch.Tensor, quantized: bool, bits: int = 8):
     return x, None
 
 
-def _nibble_rmw(buf: torch.Tensor, q4_val: torch.Tensor, idx, is_hi: bool):
-    """Write one decode token's int4 values as a NIBBLE of the byte rows at
-    ``idx`` (a tuple of indices and slices of ``buf``), in place: the
-    low-plane write clears the stale high partner; the high-plane write
-    merges over the live low partner."""
-    buf[idx] = nibble_merge(buf[idx], q4_val, is_hi)
+def _nibble_rmw(view: torch.Tensor, dim: int, row: torch.Tensor, q4_val: torch.Tensor,
+                is_hi: torch.Tensor):
+    """Write one decode token's int4 values as a NIBBLE of byte row ``row``
+    (a one-element index along ``dim`` of ``view``), in place: the low-plane
+    write clears the stale high partner; the high-plane write merges over
+    the live low partner. ``is_hi`` is a device bool."""
+    old = view.index_select(dim, row)
+    view.index_copy_(dim, row, nibble_merge(old, q4_val.unsqueeze(dim), is_hi))
 
 
 class SharedLevel(NamedTuple):
@@ -294,17 +296,18 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
 
 
 def update_unique_decode(cache: KVCache, positions: torch.Tensor, k, v,
-                         uniform: int | None = None, plain: bool = False) -> KVCache:
+                         uniform=None, plain: bool = False) -> KVCache:
     """Write one decode-step token per row at per-row ``positions``, in place.
 
     positions: ``[b]`` int. k, v: ``[L, b, hkv, 1, hd]``. ``uniform``: the
-    host-known position shared by all rows (a contiguous slice write, layer
-    by layer through :func:`write_decode_token_layer`), or None for the
-    per-row scatter, which an int4 cache refuses (a sub-byte scatter).
-    ``plain``: the int4 write's plain version on any device.
+    position shared by all rows, a host int or a device int scalar (a
+    one-slot write, layer by layer through :func:`write_decode_token_layer`),
+    or None for the per-row scatter, which an int4 cache refuses (a sub-byte
+    scatter). ``plain``: the int4 write's plain version on any device.
     """
     if uniform is not None:
         L, b = k.shape[:2]
+        uniform = decode_slot(cache, uniform, k.device)
         for li in range(L):
             write_decode_token_layer(cache, li, k[li], v[li], uniform, plain=plain)
         return cache
@@ -340,42 +343,75 @@ def update_unique_decode(cache: KVCache, positions: torch.Tensor, k, v,
     return cache
 
 
-def write_decode_token_layer(cache: KVCache, layer: int, k, v, slot: int,
+class DecodeSlot(NamedTuple):
+    """A decode step's uniform unique slot, indexed once for every layer's
+    write (:func:`decode_slot`)."""
+
+    slot: object  # a host int, or a device int32 scalar (the int4 kernel reads it)
+    idx: Optional[torch.Tensor]  # one-element int64 index; None at int4
+    cols: Optional[torch.Tensor]  # int8 flat scales: the slot's hkv columns
+
+
+def decode_slot(cache: KVCache, slot, device) -> DecodeSlot:
+    """Index ``slot`` (a host int, checked here, or a device int scalar) for
+    :func:`write_decode_token_layer`. A step builds it once for all layers.
+    An int4 cache's writes index the slot themselves (the int4 kernel reads
+    it from device memory)."""
+    if isinstance(slot, DecodeSlot):
+        return slot
+    if not torch.is_tensor(slot):
+        assert 0 <= slot < cache.max_unique_seq_len, (slot, cache.max_unique_seq_len)
+    if cache.unique_bits == 4:
+        return DecodeSlot(slot, None, None)
+    idx = decode_ops.slot_index(slot, device)
+    cols = None
+    if cache.flat_scales:
+        # Token-major head-minor [b, S*hkv]: the slot's hkv columns.
+        hkv = cache.unique_k.shape[3 if cache.unique_bshd else 2]
+        cols = idx * hkv + torch.arange(hkv, device=device)
+    return DecodeSlot(slot, idx, cols)
+
+
+def write_decode_token_layer(cache: KVCache, layer: int, k, v, slot,
                              plain: bool = False) -> KVCache:
     """Write ONE layer's single decode token at the uniform ``slot``, in
     place. k, v: ``[b, hkv, 1, hd]``.
+
+    ``slot`` is a :class:`DecodeSlot`, a host int (checked) or a device int32
+    scalar, which is read where the write runs, so a captured graph writes
+    the slot its step computed; the caller checks a device slot's range
+    (``generate`` checks every step's slot on the host, once a call). Every
+    write indexes with the slot as a device index (``index_copy_``): no host
+    sync.
 
     An int4 BSHD cache with flat scales (the layout the decode kernel reads)
     is written by ``write_token_int4_cached``: its kernel on a CUDA tensor,
     or its plain version on a CPU tensor or with ``plain``. Other int4
     layouts take the same nibble read-modify-write in plain PyTorch."""
-    assert 0 <= slot < cache.max_unique_seq_len, (slot, cache.max_unique_seq_len)
+    slot = decode_slot(cache, slot, k.device)
     if cache.unique_bits == 4:
         return _write_decode_token_layer4(cache, layer, k, v, slot, plain)
     kq, ks = _maybe_quantize(k, cache.quantized)
     vq, vs = _maybe_quantize(v, cache.quantized)
-    b, hkv = k.shape[0], k.shape[1]
-    if cache.unique_bshd:
-        cache.unique_k[layer, :b, slot] = kq[:, :, 0].to(cache.unique_k.dtype)
-        cache.unique_v[layer, :b, slot] = vq[:, :, 0].to(cache.unique_v.dtype)
-        if ks is not None:
-            if cache.flat_scales:
-                cols = slice(slot * hkv, (slot + 1) * hkv)
-                cache.unique_k_scale[layer, :b, cols] = ks[:, :, 0]
-                cache.unique_v_scale[layer, :b, cols] = vs[:, :, 0]
-            else:
-                cache.unique_k_scale[layer, :b, slot] = ks[:, :, 0]
-                cache.unique_v_scale[layer, :b, slot] = vs[:, :, 0]
-    else:
-        cache.unique_k[layer, :b, :, slot] = kq[:, :, 0].to(cache.unique_k.dtype)
-        cache.unique_v[layer, :b, :, slot] = vq[:, :, 0].to(cache.unique_v.dtype)
-        if ks is not None:
-            cache.unique_k_scale[layer, :b, :, slot] = ks[:, :, 0]
-            cache.unique_v_scale[layer, :b, :, slot] = vs[:, :, 0]
+    b = k.shape[0]
+    idx = slot.idx
+    # The token dim of a layer's rows: 1 in BSHD [b, S, hkv, hd], 2 in BHSD.
+    dim = 1 if cache.unique_bshd else 2
+    for buf, sbuf, q, s in ((cache.unique_k, cache.unique_k_scale, kq, ks),
+                            (cache.unique_v, cache.unique_v_scale, vq, vs)):
+        buf[layer, :b].index_copy_(dim, idx, q.transpose(1, 2).to(buf.dtype)
+                                   if cache.unique_bshd else q.to(buf.dtype))
+        if s is None:
+            continue
+        if cache.flat_scales:
+            sbuf[layer, :b].index_copy_(1, slot.cols, s[:, :, 0])
+        else:
+            sbuf[layer, :b].index_copy_(dim, idx, s.transpose(1, 2) if cache.unique_bshd
+                                        else s)
     return cache
 
 
-def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: int,
+def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: DecodeSlot,
                                plain: bool) -> KVCache:
     """The int4 branch of :func:`write_decode_token_layer`: one token is one
     NIBBLE of byte row ``slot % sp``, the high plane from ``slot >= sp`` on
@@ -385,23 +421,19 @@ def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: int,
         write = decode_ops.write_token_int4_cached_plain if plain \
             else decode_ops.write_token_int4_cached
         write(layer, k, v, cache.unique_k, cache.unique_v, cache.unique_k_scale,
-              cache.unique_v_scale, slot)
+              cache.unique_v_scale, slot.slot)
         return cache
     kq, ks = quantize_kv4(k)
     vq, vs = quantize_kv4(v)
     b = k.shape[0]
     sp = cache.unique_rows
-    row, is_hi = slot % sp, slot >= sp
-    for buf, q4 in ((cache.unique_k, kq), (cache.unique_v, vq)):
-        idx = (layer, slice(0, b), row) if cache.unique_bshd \
-            else (layer, slice(0, b), slice(None), row)
-        _nibble_rmw(buf, q4[:, :, 0], idx, is_hi)
-    if cache.unique_bshd:
-        cache.unique_k_scale[layer, :b, slot] = ks[:, :, 0]
-        cache.unique_v_scale[layer, :b, slot] = vs[:, :, 0]
-    else:
-        cache.unique_k_scale[layer, :b, :, slot] = ks[:, :, 0]
-        cache.unique_v_scale[layer, :b, :, slot] = vs[:, :, 0]
+    idx = decode_ops.slot_index(slot.slot, k.device)
+    row, is_hi = idx % sp, idx >= sp
+    dim = 1 if cache.unique_bshd else 2
+    for buf, sbuf, q4, s in ((cache.unique_k, cache.unique_k_scale, kq, ks),
+                             (cache.unique_v, cache.unique_v_scale, vq, vs)):
+        _nibble_rmw(buf[layer, :b], dim, row, q4[:, :, 0], is_hi)
+        sbuf[layer, :b].index_copy_(dim, idx, s.transpose(1, 2) if cache.unique_bshd else s)
     return cache
 
 

@@ -5,15 +5,24 @@ Port of ``hydragen_tpu.core.engine`` (single device): ``setup_caches`` /
 ``shared_cache_op``, ``starting_logits``, ``return_logits``,
 ``token_overrides``, temperature and top-p sampling, EOS and stop sequences.
 
-Where the JAX engine jit-compiles one program per mode and scans the decode
-loop, this engine runs eagerly: the steps are plain functions and the decode
-loop is a Python loop (CUDA graphs are later work). It runs on the card
-unless the caller passes ``device="cpu"``.
+Where the JAX engine jit-compiles one program per mode, the prefills here
+run eagerly. The decode loop, which the JAX engine compiles into one
+``lax.scan`` over the steps (``hydragen_tpu/core/engine.py:_decode_steps``),
+is one step body over static buffers: it reads its input token, base
+positions, step counter and forced tokens from device memory and writes its
+sampled token, logits and next input back, and the unique slot it writes is
+computed on the device (``start_unique_pos + i``), as the JAX step passes a
+traced slot. On the card that body is captured once as a CUDA graph a key
+(the JAX ``static_argnames`` and the write path) and replayed once a step,
+with no host work inside an EOS chunk; ``graph(False)`` runs the same body
+eagerly. The engine runs on the card unless the caller passes
+``device="cpu"``, where the body runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import time
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +44,7 @@ from hydragen_torch.models.llama import (
     logits_from_hidden,
     model_forward,
 )
+from hydragen_torch.ops import cuda_lib
 
 
 class SharedCacheOp:
@@ -118,6 +128,51 @@ def _params_to(tree, device):
     return tree.to(device)
 
 
+class DecodeKey(NamedTuple):
+    """What one decode graph bakes in: the JAX ``_decode_steps``'s static
+    arguments (but ``steps``: a graph is one step), the write path
+    (``"inplace"``: each layer's token written after its read; ``"uniform"``:
+    the batched write at one slot; ``"rows"``: the per-row scatter). The
+    cache and the parameters a graph reads by address are not in the key:
+    the engine drops every graph with its cache or parameters."""
+
+    spec: ForwardSpec
+    batch: int
+    temperature: float
+    top_p: Optional[float]
+    use_overrides: bool
+    return_logits: bool
+    write: str
+
+
+class DecodeStep:
+    """One decode step's static buffers and, on the card, its graph.
+
+    The step body reads ``tok`` ``[b, 1]``, ``start_pos`` and ``start_upos``
+    ``[b]``, the step counter ``i`` (an int32 scalar) and, with overrides,
+    row ``i`` of ``overrides`` ``[cap, b]``; it writes its sampled token into
+    column ``i`` of ``out`` ``[b, cap]``, its logits into ``logits`` ``[b,
+    V]``, its next input into ``tok``, and ``i + 1`` into ``i``. ``cap`` is
+    the unique cache's length, which bounds a call's decode steps."""
+
+    def __init__(self, key: DecodeKey, cap: int, vocab: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        b = key.batch
+        self.key = key
+        self.tok = torch.zeros((b, 1), **i32)
+        self.start_pos = torch.zeros((b,), **i32)
+        self.start_upos = torch.zeros((b,), **i32)
+        self.i = torch.zeros((), **i32)
+        self.out = torch.zeros((b, cap), **i32)
+        self.overrides = torch.zeros((cap, b), **i32) if key.use_overrides else None
+        self.logits = (torch.zeros((b, vocab), dtype=torch.float32, device=device)
+                       if key.return_logits else None)
+        self.warm = False  # the first step ran eagerly on the capture stream
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: dict = {}  # kernel launches one replay makes
+        self.capture_s = 0.0
+
+
 class HydragenLlama:
     """Stateful wrapper: params + cache + the host-side level stack."""
 
@@ -174,6 +229,27 @@ class HydragenLlama:
         self._disable_attention = False
         # Set by generate(disable_hydragen=True) for the call's duration.
         self._disable_hydragen = False
+        # generate's sampler, re-seeded by each call: one generator, so the
+        # graphs that sample can register it before capture.
+        self._generator = torch.Generator(device=self.device)
+        # Decode graphs by DecodeKey (static buffers alone on the CPU or
+        # with graph(False)), one memory pool and one capture stream for all.
+        # A graph lives only as long as its cache and the parameters it was
+        # captured over: setup_caches and a change of params drop them all.
+        self._use_graphs = self.device.type == "cuda"
+        self._decode: dict = {}
+        self._decode_params = None
+        self._graph_pool = None
+        self._graph_stream = None
+
+    def graph(self, enabled: bool = True) -> "HydragenLlama":
+        """Decode through captured CUDA graphs (the default on the card, as
+        the JAX engine always runs its compiled scan), or with ``enabled=
+        False`` through the eager loop over the same step body. On the CPU
+        the loop is eager. Returns ``self`` (the JAX engine's shim sits at
+        the same place in the API)."""
+        self._use_graphs = enabled and self.device.type == "cuda"
+        return self
 
     # -- cache management ----------------------------------------------------
 
@@ -195,6 +271,8 @@ class HydragenLlama:
         int4), "none" or "int8"."""
         assert kv_quant in (None, "int8", "int4"), f"unknown kv_quant {kv_quant!r}"
         assert shared_kv_quant in ("follow", "none", "int8")
+        # A graph replayed over a freed cache would write freed memory.
+        self._drop_graphs()
         if shared_kv_quant == "follow":
             shared_quantized = True if kv_quant == "int4" else None
         else:
@@ -326,41 +404,103 @@ class HydragenLlama:
 
     # -- generation ------------------------------------------------------------
 
-    def _decode_steps(self, first_token, start_pos, start_unique_pos, uniform_slot,
-                      generator, overrides, steps, temperature, top_p, return_logits):
-        """``steps`` decode steps from ``first_token``; returns (tokens
-        [b, steps], logits list, next input token)."""
-        spec = self._spec("decode", unique_history=True)
-        # No sharing writes through the batched update, as the JAX engine does.
-        inplace = (uniform_slot is not None and is_quantized_params(self.params)
-                   and not spec.disable_hydragen)
-        tok = first_token
-        toks, logits_seq = [], []
-        for i in range(steps):
-            pos = (start_pos + i)[:, None]
-            upos = start_unique_pos + i
-            if inplace:
-                hidden, self.cache = model_forward(
-                    self.params, self.config, self.cache, tok, pos, upos[:, None], spec,
-                    history_lens=upos, inplace_slot=uniform_slot + i,
-                )
+    def _drop_graphs(self) -> None:
+        """Drop every decode graph and its buffers; the next capture takes a
+        new pool."""
+        self._decode.clear()
+        self._graph_pool = None
+        self._decode_params = None
+
+    def _decode_state(self, key: DecodeKey) -> DecodeStep:
+        """The static buffers (and graph) of ``key``. New parameters drop
+        every graph first: a graph reads the parameters it was captured over
+        (held here until then) by address."""
+        if self._decode_params is not self.params:
+            self._drop_graphs()
+            self._decode_params = self.params
+        st = self._decode.get(key)
+        if st is None:
+            st = DecodeStep(key, self.cache.max_unique_seq_len, self.config.vocab_size,
+                            self.device)
+            self._decode[key] = st
+        return st
+
+    def _step_body(self, st: DecodeStep) -> None:
+        """One decode step (``hydragen_tpu/core/engine.py:_decode_steps``'s
+        scan body) over ``st``'s buffers: no host value, no host sync."""
+        key = st.key
+        spec = key.spec
+        pos = st.start_pos + st.i
+        upos = st.start_upos + st.i
+        if key.write == "inplace":
+            hidden, _ = model_forward(
+                self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
+                spec, history_lens=upos, inplace_slot=upos[0],
+            )
+        else:
+            hidden, nk, nv = model_forward(
+                self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
+                spec, history_lens=upos,
+            )
+            update_unique_decode(self.cache, upos, nk, nv,
+                                 uniform=upos[0] if key.write == "uniform" else None,
+                                 plain=spec.impl == "torch")
+        logits = logits_from_hidden(self.params, self.config, hidden)[:, 0]
+        nxt = sample_from_logits(logits, self._generator, key.temperature, key.top_p, 1)
+        col = st.i.long().reshape(1)
+        st.out.index_copy_(1, col, nxt)
+        if st.logits is not None:
+            st.logits.copy_(logits)
+        st.tok.copy_(nxt if st.overrides is None else st.overrides.index_select(0, col).T)
+        st.i.add_(1)
+
+    def _capture(self, st: DecodeStep) -> None:
+        """Capture ``st``'s step body into a CUDA graph (its first step has
+        run eagerly on the capture stream, so every lazily made thing exists:
+        kernel attributes, tensor maps, workspaces, handles). Its launches
+        are recorded, not counted, and a failed capture raises."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if st.key.temperature > 0:
+            graph.register_generator_state(self._generator)
+        t0 = time.perf_counter()
+        launches: dict = {}
+        try:
+            with cuda_lib.captured_launches(launches), torch.cuda.graph(
+                    graph, pool=self._graph_pool, stream=self._graph_stream):
+                self._step_body(st)
+        except RuntimeError as e:
+            raise RuntimeError(f"decode step capture failed for {st.key}: {e}") from e
+        st.capture_s = time.perf_counter() - t0
+        st.graph, st.launches = graph, launches
+
+    def _decode_steps(self, st: DecodeStep, steps: int) -> list:
+        """``steps`` decode steps over ``st``: replays of its graph (the first
+        step of a new key runs eagerly on the capture stream, and the second
+        captures), or the step body eagerly. Returns each step's logits
+        (clones enqueued after the step, where ``return_logits``)."""
+        logits = []
+        for _ in range(steps):
+            if not self._use_graphs:
+                self._step_body(st)
+            elif st.graph is None and not st.warm:
+                if self._graph_stream is None:
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                side = self._graph_stream
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    self._step_body(st)
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                st.warm = True
             else:
-                hidden, nk, nv = model_forward(
-                    self.params, self.config, self.cache, tok, pos, upos[:, None], spec,
-                    history_lens=upos,
-                )
-                update_unique_decode(
-                    self.cache, upos, nk, nv,
-                    uniform=None if uniform_slot is None else uniform_slot + i,
-                    plain=spec.impl == "torch",
-                )
-            logits = logits_from_hidden(self.params, self.config, hidden)[:, 0]
-            nxt = sample_from_logits(logits, generator, temperature, top_p, 1)
-            toks.append(nxt[:, 0])
-            if return_logits:
-                logits_seq.append(logits)
-            tok = overrides[i][:, None] if overrides is not None else nxt
-        return torch.stack(toks, dim=1), logits_seq, tok
+                if st.graph is None:
+                    self._capture(st)
+                st.graph.replay()
+                cuda_lib.add_launches(st.launches)
+            if st.logits is not None:
+                logits.append(st.logits.clone())
+        return logits
 
     @torch.no_grad()
     def generate(
@@ -469,55 +609,69 @@ class HydragenLlama:
                 repeat_unique_for_samples(self.cache, int(suffix_ids.shape[0]),
                                           num_return_sequences)
 
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed)
+        self._generator.manual_seed(seed)
         prefill_logits = starting_logits[:, -1]
         first_token = sample_from_logits(
-            prefill_logits, generator, temperature, top_p, num_return_sequences
+            prefill_logits, self._generator, temperature, top_p, num_return_sequences
         ).reshape(-1, 1)
         logits_out = None
         if return_logits:
             logits_out = [prefill_logits.repeat_interleave(num_return_sequences, dim=0)]
 
         start_pos = self.get_shared_cache_len(total_batch)
-        uniform_slot = None
+        # Every row decodes at one unique slot (a step writes it once, the
+        # JAX engine's uniform_pos) unless the suffixes are ragged.
+        uniform = suffix_uniform
         if suffix_ids is not None:
             if suffix_lens is not None:
                 sl = suffix_lens.to(self.device, torch.int32)
-                first_len = int(sl[0])
             else:
-                first_len = int(suffix_ids.shape[1])
-                sl = torch.full((suffix_ids.shape[0],), first_len, dtype=torch.int32,
-                                device=self.device)
+                sl = torch.full((suffix_ids.shape[0],), int(suffix_ids.shape[1]),
+                                dtype=torch.int32, device=self.device)
             sl = sl.repeat_interleave(num_return_sequences)
             start_pos = start_pos + sl
             start_unique_pos = sl
-            if suffix_uniform:
-                uniform_slot = first_len
         else:
             start_unique_pos = torch.zeros((total_batch,), dtype=torch.int32,
                                            device=self.device)
-            uniform_slot = 0
         if disable_hydragen:
             # Unique positions are global; the slot is uniform when every
             # row's history has one length (checked on the host, once).
             start_unique_pos = start_pos.to(torch.int32)
             sp = start_unique_pos.cpu()
-            uniform_slot = (int(sp[0]) if len(sp) and suffix_uniform
-                            and bool((sp == sp[0]).all()) else None)
+            uniform = bool(len(sp) and suffix_uniform and bool((sp == sp[0]).all()))
 
         use_overrides = token_overrides is not None
         if use_overrides:
             token_overrides = self._ids(token_overrides)
-            cur_tok = token_overrides[:, 0:1]
-            overrides_t = token_overrides[:, 1:max_new_tokens].T
-        else:
-            cur_tok = first_token
-            overrides_t = None
 
         steps = max_new_tokens - 1
         tokens = first_token
         if steps > 0:
+            # Every step's slot is checked here, once: the steps compute
+            # theirs on the device.
+            top = int(start_unique_pos.max()) + steps
+            if top > self.cache.max_unique_seq_len:
+                raise ValueError(
+                    f"{steps} decode steps reach unique position {top}, past the unique "
+                    f"cache's {self.cache.max_unique_seq_len} (setup_caches)")
+            spec = self._spec("decode", unique_history=True)
+            # No sharing writes through the batched update, as the JAX engine does.
+            if not uniform:
+                write = "rows"
+            elif is_quantized_params(self.params) and not spec.disable_hydragen:
+                write = "inplace"
+            else:
+                write = "uniform"
+            st = self._decode_state(DecodeKey(
+                spec, total_batch, float(temperature), top_p, use_overrides, return_logits,
+                write))
+            st.tok.copy_(token_overrides[:, 0:1] if use_overrides else first_token)
+            st.start_pos.copy_(start_pos)
+            st.start_upos.copy_(start_unique_pos)
+            st.i.zero_()
+            if use_overrides:
+                st.overrides[:steps].copy_(token_overrides[:, 1:max_new_tokens].T)
             # With stops active, decode in chunks with a host check between,
             # so a batch that finishes early skips the rest of the budget.
             stops_active = (eos_token_id is not None or stop_sequences) and not use_overrides
@@ -532,12 +686,8 @@ class HydragenLlama:
             max_l = max((len(s) for s in stop_sequences), default=1)
             tail = first_token.cpu().numpy()
             for c in plan:
-                toks, step_logits, cur_tok = self._decode_steps(
-                    cur_tok, start_pos + done, start_unique_pos + done,
-                    None if uniform_slot is None else uniform_slot + done, generator,
-                    None if overrides_t is None else overrides_t[done:done + c],
-                    c, temperature, top_p, return_logits,
-                )
+                step_logits = self._decode_steps(st, c)
+                toks = st.out[:, done:done + c].clone()
                 done += c
                 tok_chunks.append(toks)
                 if return_logits:

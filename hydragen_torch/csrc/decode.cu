@@ -91,7 +91,9 @@
 // scales of a row's heads are contiguous words. Both of a lane's loads (the
 // K/V vector and, at the high plane only, the 8 old bytes) are issued before
 // any arithmetic, so it waits for one round trip; the low plane reads no old
-// byte (HI is a template argument: slot >= S is uniform over a call). The
+// byte. The slot comes by value or, in a captured decode step, from device
+// memory (its load goes out beside the token's); the plane, slot >= S, is
+// chosen in the kernel and is uniform over the grid. The
 // amax is reduced by shuffles within the item's lanes (log2(D / 8) steps).
 // Blocks of WRITE_THREADS with __launch_bounds__ for 8 blocks an SM: Llama-2-
 // 7B at bs 256 (262,144 lanes) is one wave on the H100's 132 SMs. Measured on
@@ -533,11 +535,12 @@ __global__ void __launch_bounds__(Cfg<D, BITS>::WARPS * 32, 1) decode_kernel(con
 
 constexpr int WRITE_THREADS = 256;
 
-template <int D, bool HI>
+template <int D>
 __global__ void __launch_bounds__(WRITE_THREADS, 2048 / WRITE_THREADS)
 write_int4_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                   int8_t* __restrict__ ck, int8_t* __restrict__ cv, float* __restrict__ cks,
-                  float* __restrict__ cvs, int b, int S, int hkv, int slot) {
+                  float* __restrict__ cvs, int b, int S, int hkv, int slot,
+                  const int* __restrict__ slot_ptr) {
   constexpr int LPI = D / 8;  // lanes an item
   const int chunks = hkv * LPI;  // lanes a (row, K or V)
   const int c = blockIdx.x * WRITE_THREADS + threadIdx.x;
@@ -547,14 +550,18 @@ write_int4_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __re
   const int row = rc / chunks;
   const int within = rc - row * chunks;  // = head * LPI + lane within the item
   const __nv_bfloat16* src = (is_v ? v : k) + (size_t)rc * 8;
-  int8_t* dst = (is_v ? cv : ck) + ((size_t)row * S + slot % S) * hkv * D + (size_t)within * 8;
 
+  // The token's load does not wait for the slot; the slot's load goes out
+  // beside it.
   uint4 xw = make_uint4(0u, 0u, 0u, 0u);
+  if (live) xw = __ldg(reinterpret_cast<const uint4*>(src));
+  const int s = slot_ptr != nullptr ? __ldg(slot_ptr) : slot;
+  if (s < 0 || s >= 2 * S) return;  // uniform: a device slot out of range writes nothing
+  const bool hi = s >= S;  // uniform over the grid
+  int8_t* dst = (is_v ? cv : ck) + ((size_t)row * S + (hi ? s - S : s)) * hkv * D +
+                (size_t)within * 8;
   uint2 old = make_uint2(0u, 0u);
-  if (live) {
-    xw = __ldg(reinterpret_cast<const uint4*>(src));
-    if constexpr (HI) old = *reinterpret_cast<const uint2*>(dst);
-  }
+  if (live && hi) old = *reinterpret_cast<const uint2*>(dst);
   const uint32_t w[4] = {xw.x, xw.y, xw.z, xw.w};
   float x[8];
   float amax = 0.f;
@@ -570,37 +577,33 @@ write_int4_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __re
   }
   constexpr float RECIP7 = 1.0f / 7.0f;  // f32(1/7), XLA's folded constant
   const float scale = fmaxf(amax, 1e-8f) * RECIP7;
-  constexpr int SHIFT = HI ? 4 : 0;
+  const int shift = hi ? 4 : 0;
   uint32_t out[2] = {0u, 0u};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int q = min(max(__float2int_rn(x[i] / scale), -7), 7);
-    out[i >> 2] |= (static_cast<uint32_t>(q) & 0xFu) << (8 * (i & 3) + SHIFT);
+    out[i >> 2] |= (static_cast<uint32_t>(q) & 0xFu) << (8 * (i & 3) + shift);
   }
   if (!live) return;
-  if constexpr (HI) {
+  if (hi) {
     out[0] |= old.x & 0x0F0F0F0Fu;
     out[1] |= old.y & 0x0F0F0F0Fu;
   }
   *reinterpret_cast<uint2*>(dst) = make_uint2(out[0], out[1]);
   if (within % LPI == 0) {
-    (is_v ? cvs : cks)[(size_t)row * 2 * S * hkv + (size_t)slot * hkv + within / LPI] = scale;
+    (is_v ? cvs : cks)[(size_t)row * 2 * S * hkv + (size_t)s * hkv + within / LPI] = scale;
   }
 }
 
 template <int D>
 int launch_write(const __nv_bfloat16* k, const __nv_bfloat16* v, int8_t* ck, int8_t* cv,
-                 float* cks, float* cvs, int b, int S, int hkv, int slot, cudaStream_t st) {
+                 float* cks, float* cvs, int b, int S, int hkv, int slot, const int* slot_ptr,
+                 cudaStream_t st) {
   const long long lanes = 2LL * b * hkv * (D / 8);
   if (lanes == 0) return static_cast<int>(cudaSuccess);
   const int blocks = static_cast<int>((lanes + WRITE_THREADS - 1) / WRITE_THREADS);
-  if (slot >= S) {
-    write_int4_kernel<D, true><<<blocks, WRITE_THREADS, 0, st>>>(k, v, ck, cv, cks, cvs, b, S,
-                                                                  hkv, slot);
-  } else {
-    write_int4_kernel<D, false><<<blocks, WRITE_THREADS, 0, st>>>(k, v, ck, cv, cks, cvs, b, S,
-                                                                   hkv, slot);
-  }
+  write_int4_kernel<D><<<blocks, WRITE_THREADS, 0, st>>>(k, v, ck, cv, cks, cvs, b, S, hkv,
+                                                         slot, slot_ptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,12 +663,17 @@ extern "C" int hydragen_decode_attention(const void* q, const void* k, const voi
 // k, v: [b, hkv, D] bf16, this step's token of one layer. ck, cv: the layer's
 // base of the [B, S, hkv, D] int4 cache (S byte rows); cks, cvs: the layer's
 // base of its [B, 2S * hkv] flat scales. Writes logical token `slot` of rows
-// [0, b) in place. k, v, ck and cv must be 16-byte aligned (a byte row then
-// starts on a 64-byte boundary at D = 64 or 128).
+// [0, b) in place; with `slot_ptr` not null the kernel reads the slot from
+// that int in device memory instead (a captured graph's step writes the slot
+// it computed) and writes nothing where it is outside [0, 2S). k, v, ck and
+// cv must be 16-byte aligned (a byte row then starts on a 64-byte boundary
+// at D = 64 or 128).
 extern "C" int hydragen_write_int4(const void* k, const void* v, void* ck, void* cv,
                                    void* cks, void* cvs, int b, int S, int hkv, int D,
-                                   int slot, void* stream) {
-  if (slot < 0 || slot >= 2 * S) return static_cast<int>(cudaErrorInvalidValue);
+                                   int slot, const void* slot_ptr, void* stream) {
+  if (slot_ptr == nullptr && (slot < 0 || slot >= 2 * S)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(ck) | reinterpret_cast<uintptr_t>(cv)) & 15) {
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -677,7 +685,8 @@ extern "C" int hydragen_write_int4(const void* k, const void* v, void* ck, void*
   auto* cvv = static_cast<int8_t*>(cv);
   auto* cks_ = static_cast<float*>(cks);
   auto* cvs_ = static_cast<float*>(cvs);
-  if (D == 128) return launch_write<128>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, st);
-  if (D == 64) return launch_write<64>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, st);
+  const auto* sp = static_cast<const int*>(slot_ptr);
+  if (D == 128) return launch_write<128>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, sp, st);
+  if (D == 64) return launch_write<64>(kk, vv, ckk, cvv, cks_, cvs_, b, S, hkv, slot, sp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

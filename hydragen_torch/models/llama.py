@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from hydragen_torch.core.cache import write_decode_token_layer
+from hydragen_torch.core.cache import decode_slot, write_decode_token_layer
 from hydragen_torch.models.config import ModelConfig
 from hydragen_torch.ops import decode as decode_ops
 from hydragen_torch.ops import flash
@@ -218,7 +218,7 @@ def model_forward(
     spec: ForwardSpec,
     history_lens: torch.Tensor | None = None,
     history_mask: torch.Tensor | None = None,
-    inplace_slot: int | None = None,
+    inplace_slot: int | torch.Tensor | None = None,
     quantize_new_kv: int | None = None,
     fill_level: int | None = None,
 ):
@@ -233,10 +233,13 @@ def model_forward(
             when ``spec.unique_history``).
         history_mask: optional ``[b, unique_filled]`` bool mask of valid
             unique-cache slots; overrides length masking.
-        inplace_slot: decode write path (``t == 1``): the host-known unique
-            slot shared by all rows. Each layer writes its token's KV into the
-            cache in place right after its attention. Returns ``(hidden,
-            cache)``.
+        inplace_slot: decode write path (``t == 1``): the unique slot
+            shared by all rows, a host int or a device int32 scalar (the
+            decode step passes its own, ``unique_position_ids[0]``, as the
+            JAX engine passes a traced value, so a captured step writes the
+            slot each replay computes). Each layer writes its token's KV
+            into the cache in place right after its attention. Returns
+            ``(hidden, cache)``.
         quantize_new_kv: 8 (or 4) -> return each layer's new KV quantized
             (``quantize_kv``, or unpacked int4 from ``quantize_kv4``) instead
             of in the compute dtype.
@@ -424,11 +427,12 @@ def model_forward(
 
     if inplace_slot is not None:
         assert t == 1, "inplace_slot is a single-token decode path"
+        slot = decode_slot(cache, inplace_slot, h.device)
         for li in range(L):
             h, k, v = layer(h, li)
             # This step's token is never in its own history (lens mask it),
             # so writing it right after its layer's read is safe.
-            write_decode_token_layer(cache, li, k, v, inplace_slot, plain=impl == "torch")
+            write_decode_token_layer(cache, li, k, v, slot, plain=impl == "torch")
         return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
     new_k, new_v = [], []

@@ -11,6 +11,7 @@ when the package is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,7 +32,10 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # Launch count of each kernel wrapper: incremented where the wrapper launches
-# its kernel and nowhere else (a CPU tensor's plain path does not count).
+# its kernel and nowhere else (a CPU tensor's plain path does not count). A
+# CUDA graph's capture launches nothing: its wrappers' counts are moved out
+# of LAUNCHES into the graph (``captured_launches``) and added back at each
+# replay (``add_launches``), so a replayed step counts what an eager one does.
 LAUNCHES: dict[str, int] = {
     "w8a8_matmul_cached": 0,
     "w8a8_matmul": 0,
@@ -133,6 +137,26 @@ def check_aligned(what: str, t, nbytes: int = 16) -> None:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches(into: dict):
+    """Within the block (a CUDA graph's capture), the wrappers' counts go to
+    ``into`` (name: count) and LAUNCHES is left as it was."""
+    before = dict(LAUNCHES)
+    try:
+        yield into
+    finally:
+        for name, n in LAUNCHES.items():
+            if n != before[name]:
+                into[name] = n - before[name]
+        LAUNCHES.update(before)
+
+
+def add_launches(counts: dict) -> None:
+    """Count one replay of a graph whose capture recorded ``counts``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 @functools.cache

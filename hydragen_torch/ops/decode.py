@@ -46,7 +46,7 @@ def _fn():
 
 def _write_fn():
     f = cuda_lib.library("decode").hydragen_write_int4
-    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     f.restype = ctypes.c_int
     return f
 
@@ -193,30 +193,43 @@ def decode_attention_cached(
     return out, lse
 
 
-def gather_token_row_cached(layer: int | None, row: int, buf: torch.Tensor) -> torch.Tensor:
+def gather_token_row_cached(layer: int | None, row, buf: torch.Tensor) -> torch.Tensor:
     """Byte row ``row`` of layer ``layer`` of a stacked BSHD cache buffer
     ``[L, B, S, hkv, d]`` -> ``[B, hkv, d]`` (``layer=None``: every layer,
-    ``[L, B, hkv, d]``), as a copy. On the TPU this read is a kernel that
-    pins the buffer's layout; here it is an index, read by the plain int4
-    write."""
-    if layer is None:
-        return buf[:, :, row].clone()
-    return buf[layer, :, row].clone()
+    ``[L, B, hkv, d]``), as a copy. ``row`` is a host int or a one-element
+    device index. On the TPU this read is a kernel that pins the buffer's
+    layout; here it is an index, read by the plain int4 write."""
+    rows = buf if layer is None else buf[layer]
+    if torch.is_tensor(row):
+        return rows.index_select(-3, row.reshape(1).long()).squeeze(-3)
+    return rows[..., row, :, :].clone()
+
+
+def slot_index(slot, device) -> torch.Tensor:
+    """A decode slot as a one-element int64 index on ``device``: a host int,
+    or a device int scalar (a decode step's own, which a captured graph
+    reads from device memory at every replay)."""
+    if torch.is_tensor(slot):
+        return slot.reshape(1).long()
+    return torch.tensor([slot], dtype=torch.long, device=device)
 
 
 def write_token_int4_cached_plain(layer, k, v, k_all, v_all, k_scale_all, v_scale_all,
                                   slot):
     """Plain PyTorch version of ``write_token_int4_cached``: ``quantize_kv4``,
     the nibble read-modify-write of byte row ``slot % S`` and the scale
-    write, in place."""
+    write, in place. ``slot`` is a host int or a device int scalar, indexed
+    on the device (no host sync)."""
     b, hkv = k.shape[0], k.shape[1]
     S = k_all.shape[2]
-    row, is_hi = slot % S, slot >= S
+    idx = slot_index(slot, k.device)
+    row, is_hi = idx % S, idx >= S
+    cols = idx * hkv + torch.arange(hkv, device=k.device)
     for x, buf, sbuf in ((k, k_all, k_scale_all), (v, v_all, v_scale_all)):
         q4, sc = quantize_kv4(x[:, :, 0])  # [b, hkv, d], [b, hkv]
         old = gather_token_row_cached(layer, row, buf)[:b]
-        buf[layer, :b, row] = nibble_merge(old, q4, is_hi)
-        sbuf[layer, :b, slot * hkv:(slot + 1) * hkv] = sc
+        buf[layer, :b].index_copy_(1, row, nibble_merge(old, q4, is_hi)[:, None])
+        sbuf[layer, :b].index_copy_(1, cols, sc)
 
 
 def write_token_int4_cached(
@@ -227,7 +240,7 @@ def write_token_int4_cached(
     v_all: torch.Tensor,
     k_scale_all: torch.Tensor,
     v_scale_all: torch.Tensor,
-    slot: int,
+    slot,
 ) -> None:
     """Write one layer's decode token into the int4 BSHD cache, in place.
 
@@ -238,21 +251,33 @@ def write_token_int4_cached(
             rows; byte row j holds token j low and token j + S high).
         k_scale_all, v_scale_all: ``[L, B, 2S*hkv]`` f32 flat scales.
         slot: the logical token written, the same for every row
-            (``0 <= slot < 2S``).
+            (``0 <= slot < 2S``): a host int, checked here, or a one-element
+            int32 tensor on the card, which the kernel reads from device
+            memory where it runs (a captured graph's step writes the slot
+            it computed). The kernel writes nothing for a device slot out of
+            range; the caller checks it (``generate`` does, once a call).
 
     One kernel launch writes K and V: the quantized nibbles into byte row
     ``slot % S`` (the high nibble at ``slot >= S``, keeping the live low
-    token; the low nibble below, clearing the stale high one) and the scales
-    at ``slot*hkv``. On a CUDA tensor it raises where ``k``, ``v`` or the
-    layer's cache base is not 16-byte aligned.
+    token; the low nibble below, clearing the stale high one; the kernel
+    picks the plane from the slot it reads) and the scales at ``slot*hkv``.
+    On a CUDA tensor it raises where ``k``, ``v`` or the layer's cache base
+    is not 16-byte aligned.
     """
-    layer, slot = int(layer), int(slot)
+    layer = int(layer)
     if not k.is_cuda:
         return write_token_int4_cached_plain(layer, k, v, k_all, v_all, k_scale_all,
                                              v_scale_all, slot)
     b, hkv, m, d = k.shape
     L, B, S, hkv2, d2 = k_all.shape
     dev = k.device
+    slot_ptr = None
+    if torch.is_tensor(slot):
+        if slot.device != dev or slot.dtype != torch.int32 or slot.numel() != 1:
+            raise ValueError(f"int4 write kernel: a slot tensor must be one int32 on {dev}, "
+                             f"got {slot.dtype} {tuple(slot.shape)} on {slot.device}")
+        slot_ptr, slot = slot.data_ptr(), 0
+    slot = int(slot)
     if m != 1 or (hkv2, d2) != (hkv, d) or b > B or not 0 <= layer < L \
             or not 0 <= slot < 2 * S or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"int4 write kernel: bad shapes k {tuple(k.shape)} cache "
@@ -279,7 +304,7 @@ def write_token_int4_cached(
         k_all.data_ptr() + layer * row_bytes, v_all.data_ptr() + layer * row_bytes,
         k_scale_all.data_ptr() + layer * B * 2 * S * hkv * 4,
         v_scale_all.data_ptr() + layer * B * 2 * S * hkv * 4,
-        b, S, hkv, d, slot, cuda_lib.stream_ptr(dev),
+        b, S, hkv, d, slot, slot_ptr, cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(status, "write_token_int4_cached")
     cuda_lib.LAUNCHES["write_token_int4_cached"] += 1

@@ -27,13 +27,17 @@ from typing import NamedTuple
 import torch
 
 from hydragen_torch.ops import cuda_lib
+from hydragen_torch.ops.quant import RECIP_127
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row dynamic activation quantization: [M, K] -> (s8, f32 [M, 1])."""
+    """Per-row dynamic activation quantization: [M, K] -> (s8, f32 [M, 1]).
+    amax times the f32 reciprocal of 127, as the jitted JAX engine computes
+    it (XLA folds the division by a constant; ``quant.RECIP_127``), on the
+    CPU and on the card alike."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-20) / 127.0
+    scale = torch.clamp(amax, min=1e-20) * RECIP_127
     q = torch.round(xf / scale).to(torch.int8)
     return q, scale
 

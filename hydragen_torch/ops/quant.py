@@ -108,14 +108,15 @@ def unpack4(qp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return lo, hi
 
 
-def nibble_merge(old: torch.Tensor, q4: torch.Tensor, is_hi: bool) -> torch.Tensor:
-    """New packed bytes of a one-token int4 write: at ``is_hi`` the token
-    goes to the high nibble over the live low one; otherwise to the low
-    nibble, and the stale high one is cleared. 32-bit arithmetic, as
+def nibble_merge(old: torch.Tensor, q4: torch.Tensor,
+                 is_hi: torch.Tensor) -> torch.Tensor:
+    """New packed bytes of a one-token int4 write: where the device bool
+    ``is_hi`` holds, the token goes to the high nibble over the live low one;
+    otherwise to the low nibble, and the stale high one is cleared. Both
+    planes are computed and one kept, so no host sync. 32-bit arithmetic, as
     ``unpack4``."""
     o32, q32 = old.to(torch.int32), q4.to(torch.int32)
-    new = (o32 & 0xF) | (q32 << 4) if is_hi else q32 & 0xF
-    return new.to(torch.int8)
+    return torch.where(is_hi, (o32 & 0xF) | (q32 << 4), q32 & 0xF).to(torch.int8)
 
 
 def quantize4(w: torch.Tensor, group: int = 128) -> Quantized4Tensor:

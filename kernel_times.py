@@ -540,20 +540,25 @@ def k3_variants(failures: list) -> dict:
 # loads, and other block sizes. "x times 1/scale" replaces the IEEE division
 # by a product (codes differ: wrong by design), to read what the divisions
 # cost.
-_K7_OLD_READ = "    if constexpr (HI) old = *reinterpret_cast<const uint2*>(dst);\n"
+_K7_OLD_READ = "  if (live && hi) old = *reinterpret_cast<const uint2*>(dst);\n"
 _K7_THREADS = "constexpr int WRITE_THREADS = 256;\n"
+_K7_SHIFT = "  const int shift"
+_K7_INV = "  const float inv = 1.0f / scale;\n" + _K7_SHIFT
 K7_VARIANTS = {
     "old row read after the arithmetic": [
         (_K7_OLD_READ, ""),
-        ("  if (!live) return;\n", "  if (!live) return;\n" + _K7_OLD_READ.replace("    ", "  ", 1))],
+        ("  if (!live) return;\n",
+         "  if (!live) return;\n  if (hi) old = *reinterpret_cast<const uint2*>(dst);\n")],
     "2-byte loads": [
-        ("    xw = __ldg(reinterpret_cast<const uint4*>(src));\n",
+        ("  if (live) xw = __ldg(reinterpret_cast<const uint4*>(src));\n",
+         "  if (live) {\n"
          "    const unsigned short* h = reinterpret_cast<const unsigned short*>(src);\n"
          "    uint32_t e[8];\n"
          "#pragma unroll\n"
          "    for (int i = 0; i < 8; ++i) e[i] = __ldg(h + i);\n"
          "    xw = make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,\n"
-         "                    e[6] | e[7] << 16);\n")],
+         "                    e[6] | e[7] << 16);\n"
+         "  }\n")],
     "64 threads a block": [(_K7_THREADS, _K7_THREADS.replace("256", "64"))],
     "1024 threads a block": [(_K7_THREADS, _K7_THREADS.replace("256", "1024"))],
     "product, division near a half code": [
@@ -561,10 +566,9 @@ K7_VARIANTS = {
          "    float r = x[i] * inv;\n"
          "    if (fabsf(r - floorf(r) - 0.5f) <= 2e-6f) r = x[i] / scale;\n"
          "    const int q = min(max(__float2int_rn(r), -7), 7);\n"),
-        ("  constexpr int SHIFT", "  const float inv = 1.0f / scale;\n  constexpr int SHIFT")],
+        (_K7_SHIFT, _K7_INV)],
     "x times 1/scale": [("__float2int_rn(x[i] / scale)", "__float2int_rn(x[i] * inv)"),
-                        ("  constexpr int SHIFT", "  const float inv = 1.0f / scale;\n"
-                                                  "  constexpr int SHIFT")],
+                        (_K7_SHIFT, _K7_INV)],
 }
 K7_WRONG = ("x times 1/scale",)
 K7_REPS = 2

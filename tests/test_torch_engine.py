@@ -7,9 +7,8 @@ identical. Per-step logits along a forced token stream (``token_overrides``)
 must agree to 1e-3, in fp32 and under w8a8 + int8 KV; at these inputs they
 agree to about 2e-6 in both. The inputs are fixed by their seeds for a
 reason: under w8a8 + int8 KV each per-row activation quantization rounds at
-half-code boundaries. The KV quantizers compute what the jitted JAX
-functions compute, bit for bit (the activation quantizer still divides by
-127 on the CPU, ROADMAP.md), and what moves a code is mostly a last-bit
+half-code boundaries. The KV and activation quantizers compute what the
+jitted JAX functions compute, bit for bit, and what moves a code is a last-bit
 difference in the float sums upstream (XLA's and PyTorch's reductions,
 rsqrt, exp) meeting such a boundary: one activation lands one code apart
 and moves a logit by up to ~4e-2 (prompts from seed 2 do that; either

@@ -505,12 +505,17 @@ def test_kv_cache_bytes_count_the_buffers(kv_quant):
 
 CFG = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
            num_attention_heads=2, num_key_value_heads=2, dtype="float32")
-# name: (quantization, kv_quant, unique_bshd)
+# name: (quantization, kv_quant, unique_bshd, seed of the prompt and suffixes,
+# the requests held to JAX in full at that seed, at least)
 ENGINE_MODES = {
-    "w4a8_kv4_bshd": ("w4a8", "int4", True),
-    "w4a8_kv4_bhsd": ("w4a8", "int4", False),
-    "mixed_kv4": ("mixed", "int4", True),
-    "int4_kv4": ("int4", "int4", True),
+    "w4a8_kv4_bshd": ("w4a8", "int4", True, 21, 1),
+    "w4a8_kv4_bhsd": ("w4a8", "int4", False, 21, 1),
+    "mixed_kv4": ("mixed", "int4", True, 21, 1),
+    "int4_kv4": ("int4", "int4", True, 21, 1),
+    # At seed 21 the w4a8 runs meet a tie in request 2's first pass; at this
+    # seed they meet none, so the w4a8 PRESERVE request (suffix prefill and
+    # decode) is held in full.
+    "w4a8_kv4_bshd_preserve": ("w4a8", "int4", True, 5, 2),
 }
 
 
@@ -518,6 +523,62 @@ ENGINE_MODES = {
 def fp_params():
     p = jllama.init_params(JConfig(**CFG), jax.random.PRNGKey(0))
     return p, params_from_numpy(jax.tree.map(np.asarray, p))
+
+
+# A code that differs between the engines is a tie of their float sums when
+# the quotient x / scale of each side lies within this many ulps of a half
+# code (round half to even takes one side one way and the other the other).
+TIE_ULPS = 4
+
+
+def _spy_quantize_rows(monkeypatch):
+    """Record every per-row activation quantization of both engines, in call
+    order: (x in f32, codes, scales) each. The port's calls are recorded
+    where the model makes them; JAX's (inside jitted programs and scans)
+    through ordered host callbacks. The jit caches are cleared so that the
+    JAX programs are traced anew with the spy; the test's finalizer clears
+    them again."""
+    from hydragen_tpu.ops import gemm as jgemm_mod
+    from hydragen_torch.models import llama as tllama_mod
+
+    calls = {"t": [], "j": []}
+    tquant_rows, jquant_rows = tllama_mod.quantize_rows, jgemm_mod.quantize_rows
+
+    def t_spy(x):
+        q, sc = tquant_rows(x)
+        calls["t"].append((_np(x.float()), _np(q), _np(sc)))
+        return q, sc
+
+    def j_spy(x):
+        q, sc = jquant_rows(x)
+        jax.debug.callback(
+            lambda x, q, sc: calls["j"].append((np.asarray(x), np.asarray(q), np.asarray(sc))),
+            x.astype(jnp.float32), q, sc, ordered=True)
+        return q, sc
+
+    jax.clear_caches()
+    monkeypatch.setattr(tllama_mod, "quantize_rows", t_spy)
+    monkeypatch.setattr(jgemm_mod, "quantize_rows", j_spy)
+    return calls
+
+
+def _first_tie(calls):
+    """The index of the first quantization whose codes differ between the
+    engines (None if none does), after asserting that each code differing
+    there is a tie on both sides: x / scale within TIE_ULPS ulps of a half
+    code in each engine. Every quantization before it gave equal codes."""
+    assert len(calls["t"]) == len(calls["j"]), (len(calls["t"]), len(calls["j"]))
+    for c, ((xt, qt, st), (xj, qj, sj)) in enumerate(zip(calls["t"], calls["j"])):
+        assert qt.shape == qj.shape, (c, qt.shape, qj.shape)
+        diff = qt != qj
+        if not diff.any():
+            continue
+        for x, sc in ((xt, st), (xj, sj)):
+            v = (x / sc)[diff]
+            ulps = np.abs(v - (np.floor(v) + np.float32(0.5))) / np.spacing(np.abs(v))
+            assert ulps.max() <= TIE_ULPS, (c, v, ulps)
+        return c
+    return None
 
 
 @pytest.mark.parametrize("mode", sorted(ENGINE_MODES))
@@ -528,53 +589,108 @@ def test_engine_int4_matches_jax(fp_params, mode, monkeypatch):
     8), then 4 suffixes of 5 tokens over the kept prompt (PRESERVE; the
     suffix prefill pads to the 16-token window, so the pack fills both
     planes, and decode writes slots 5-9). Greedy tokens identical, per-step
-    logits within 1e-3 (the w4a8 activations quantize per row on both
-    sides, so a last-bit difference can move a code: at these inputs they
-    agree to about 1e-5), and the caches equal tensor by tensor after each
-    request."""
-    quant, kv, bshd = ENGINE_MODES[mode]
+    logits within 1e-3 and the caches equal tensor by tensor after each
+    request, on every forward pass before the first tie.
+
+    Both engines quantize the w4a8 activations per row with the product by
+    the f32 reciprocal of 127, so on the same input their codes are equal;
+    but the inputs differ in the last bits of XLA's and PyTorch's float sums
+    upstream (norms, rsqrt, rope), and an activation within those bits of a
+    half code lands one code apart, after which the two runs compute on
+    different codes. A spy on both engines' quantizations finds the first
+    call whose codes differ and asserts that every differing code there is
+    such a tie (TIE_ULPS) on both sides. Forward passes up to that one are
+    held to the bounds above; from it on the runs are apart by a code, as
+    the parity tests at other keys show (ROADMAP.md). Each mode states how
+    many requests it holds in full at least, so the check cannot shrink to
+    nothing unseen."""
+    quant, kv, bshd, seed, full = ENGINE_MODES[mode]
     monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
+    calls = _spy_quantize_rows(monkeypatch)
+    try:
+        tie, starts = _engine_int4_requests(fp_params, quant, kv, bshd, seed, calls)
+    finally:
+        jax.clear_caches()
+    # The first ``full`` requests are held in full: the tie comes after them.
+    assert tie is None or tie >= starts[full], (mode, tie, starts)
+
+
+def _engine_int4_requests(fp_params, quant, kv, bshd, seed, calls):
+    """Run both requests on both engines and hold every forward pass before
+    the first tie. Returns the tie's call index (None if none) and the call
+    index each request starts at, followed by the total."""
     jp, tp = fp_params
     je = JEngine(JConfig(**CFG), jp, quantization=quant)
     te = TEngine(TConfig(**CFG), tp, quantization=quant, device="cpu")
     for e in (je, te):
         e.setup_caches(4, 16, [1], [16], kv_quant=kv, unique_bshd=bshd)
     assert te.cache.unique_k.shape == je.cache.unique_k.shape
-    rng = np.random.RandomState(21)
+    rng = np.random.RandomState(seed)
     prompt = rng.randint(1, 256, (1, 12)).astype(np.int32)
     suffixes = rng.randint(1, 256, (4, 5)).astype(np.int32)
     requests = (
         (dict(input_ids=[prompt], num_return_sequences=4, max_new_tokens=11), "WIPE"),
         (dict(input_ids=[suffixes], num_return_sequences=1, max_new_tokens=5), "PRESERVE"),
     )
+    results = []
     for kw, op in requests:
+        start = len(calls["t"])
         jt, jl = je.generate(shared_cache_op=getattr(JOp, op), temperature=0.0,
                              return_logits=True, **kw)
         tt, tl = te.generate(shared_cache_op=getattr(TOp, op), temperature=0.0,
                              return_logits=True, **kw)
-        np.testing.assert_array_equal(_np(tt), _np(jt), err_msg=op)
+        jax.effects_barrier()
+        # One forward pass a logit step: the prefill, then each decode step.
+        per_pass = (len(calls["t"]) - start) // kw["max_new_tokens"]
+        assert len(calls["t"]) - start == per_pass * kw["max_new_tokens"]
+        results.append((op, start, per_pass, jt, jl, tt, tl, _snapshot(te.cache, je.cache)))
+    tie = _first_tie(calls)
+    for op, start, per_pass, jt, jl, tt, tl, caches in results:
         assert len(tl) == len(jl)
-        for step, (t, j) in enumerate(zip(tl, jl)):
+        # Logit step s (and token column s) comes from this request's pass s.
+        held = len(tl) if tie is None or not per_pass else \
+            max(0, min(len(tl), (tie - start) // per_pass))
+        np.testing.assert_array_equal(_np(tt)[:, :held], _np(jt)[:, :held], err_msg=op)
+        for step, (t, j) in enumerate(zip(tl[:held], jl[:held])):
             d = np.abs(_np(t) - _np(j)).max()
-            assert d <= 1e-3, (mode, op, step, d)
-        tc, jc = te.cache, je.cache
-        assert tc.unique_bits == jc.unique_bits == 4
-        for name in ("unique_k", "unique_v"):
-            t, j = _np(getattr(tc, name)), np.asarray(getattr(jc, name))
-            assert t.shape == j.shape and t.dtype == j.dtype
-            lo_t, hi_t = tquant.unpack4(T(t))
-            lo_j, hi_j = jquant.unpack4(J(j))
-            for pt, pj in ((lo_t, lo_j), (hi_t, hi_j)):
-                diff = np.abs(_np(pt).astype(np.int32) - np.asarray(pj).astype(np.int32))
-                assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (name, diff.max())
-        for name in ("unique_k_scale", "unique_v_scale"):
-            np.testing.assert_allclose(_np(getattr(tc, name)), np.asarray(getattr(jc, name)),
-                                       rtol=1e-4, atol=1e-6, err_msg=name)
-        for tlv, jlv in zip(tc.shared, jc.shared):
-            assert tlv.quantized and jlv.quantized  # int8 levels under "follow"
-            np.testing.assert_array_equal(_np(tlv.seq_lens), np.asarray(jlv.seq_lens))
-            diff = np.abs(_np(tlv.k).astype(np.int32) - np.asarray(jlv.k).astype(np.int32))
-            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+            assert d <= 1e-3, (quant, op, step, d)
+        if held == len(tl):
+            _same_engine_caches(*caches)
+    return tie, [r[1] for r in results] + [len(calls["t"])]
+
+
+def _snapshot(tc, jc):
+    """Copies of both engines' caches as numpy arrays (the next request
+    writes them in place)."""
+    def arrays(c, conv):
+        out = {n: conv(getattr(c, n)) for n in ("unique_k", "unique_v", "unique_k_scale",
+                                                 "unique_v_scale")}
+        out["shared"] = [(conv(lv.seq_lens), conv(lv.k)) for lv in c.shared]
+        out["bits"] = c.unique_bits
+        out["levels_quantized"] = [lv.quantized for lv in c.shared]
+        return out
+
+    return arrays(tc, lambda x: _np(x).copy()), arrays(jc, np.asarray)
+
+
+def _same_engine_caches(tc, jc):
+    assert tc["bits"] == jc["bits"] == 4
+    # int8 levels under "follow".
+    assert all(tc["levels_quantized"]) and all(jc["levels_quantized"])
+    for name in ("unique_k", "unique_v"):
+        t, j = tc[name], jc[name]
+        assert t.shape == j.shape and t.dtype == j.dtype
+        lo_t, hi_t = tquant.unpack4(T(t))
+        lo_j, hi_j = jquant.unpack4(J(j))
+        for pt, pj in ((lo_t, lo_j), (hi_t, hi_j)):
+            diff = np.abs(_np(pt).astype(np.int32) - np.asarray(pj).astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (name, diff.max())
+    for name in ("unique_k_scale", "unique_v_scale"):
+        np.testing.assert_allclose(tc[name], jc[name], rtol=1e-4, atol=1e-6, err_msg=name)
+    for (tl, tk), (jl, jk) in zip(tc["shared"], jc["shared"]):
+        np.testing.assert_array_equal(tl, jl)
+        diff = np.abs(tk.astype(np.int32) - jk.astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
 def test_engine_int4_ragged_suffixes_raise(fp_params):

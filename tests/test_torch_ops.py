@@ -175,22 +175,14 @@ def test_f32_reciprocals_are_xlas_folded_constants():
 
 def test_quantize_rows_bit_equal():
     x = np.random.RandomState(3).randn(37, 256).astype(np.float32) * 3
-    tq, ts = tgemm.quantize_rows(T(x))
-    jq, js = jgemm.quantize_rows(J(x))
-    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    _held_to_jit(tgemm.quantize_rows, jgemm.quantize_rows, x, "float32")
 
 
 def test_quantize_rows_bit_equal_bf16():
-    """bf16 input, against eager JAX: on the CPU ``quantize_rows`` still
-    divides amax by 127 (its product with the f32 reciprocal, which jitted
-    JAX computes, is held back while the engine parity tests hinge on
-    half-code ties; ROADMAP.md)."""
+    """bf16 input, against jitted JAX (the engine's function): amax times the
+    f32 reciprocal of 127."""
     x = np.random.RandomState(13).randn(256, 512).astype(np.float32) * 3
-    tq, ts = tgemm.quantize_rows(T(x).to(torch.bfloat16))
-    jq, js = jgemm.quantize_rows(J(x).astype(jnp.bfloat16))
-    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    _held_to_jit(tgemm.quantize_rows, jgemm.quantize_rows, x, "bfloat16")
 
 
 def test_quantize_kv_bit_equal():
