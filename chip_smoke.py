@@ -59,7 +59,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    launch counts, tokens equal to Hydragen's (or, where a bf16 tie breaks
    the other way, the logits of a forced stream within ``TOL_NOSHARE``), the
    baseline's graph equal to its eager loop, profiles.
-8. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
+8. serving: ``ContinuousBatcher`` over the main path's configuration at
+   full width and depth (one 2,048-token shared prompt, a pool of 256 rows
+   of 200 ring slots): a stream of 640 requests, suffixes of 16-128 tokens
+   and budgets of 8-64 from ``--seed``, admitted longest budget first,
+   decoded in chunks of 8 graph replays with a lookahead of 1; then the
+   same stream through the eager loop. Gates: every request back within
+   its budget, tokens in range, the eager stream's tokens equal for every
+   request, launches exactly what the dispatch log implies (per admission
+   224 K1, 32 K2, 32 K4; per decode step 224 K1, 32 K2; no K3 or K5: the
+   masked ring read is the plain path, as in the JAX package), one capture
+   a key. Prints requests/s, new tokens/s, decode ms a step through the
+   graph and eagerly, admission seconds, capture seconds and pool MiB, and
+   a profile of 8 replayed steps split into K1, K2, the plain ring read,
+   the int8 write (both timed alone) and the rest. Then a short stream at 4
+   layers of full width over a level of two prefixes, first in first out,
+   a lookahead of 2, stop 2-grams on every third request: the same gates.
+9. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
    unique read is K5) at 2 layers of full width on one forced token stream,
    and the w4a8 + int4-KV model over two requests whose decode crosses into
    the high plane: the kernel path, and each kernel alone in the plain path,
@@ -1228,7 +1244,8 @@ def profile_decode(eng, decode_steps, request, tag: str, names, failures: list,
         key = next((k for k in names if k in name), "other")
         groups[key] += us
     stats = dict(wall_ms_per_step=wall / steps / 1e3, busy_ms_per_step=busy / steps / 1e3,
-                 idle_share=1 - busy / wall, kernels_per_step=len(kernels) / steps)
+                 idle_share=1 - busy / wall, kernels_per_step=len(kernels) / steps,
+                 groups={k: v / steps / 1e3 for k, v in groups.items()})
     print(f"[profile {tag} {mode}] {steps} decode steps: wall {stats['wall_ms_per_step']:.3f} "
           f"ms/step, device busy {stats['busy_ms_per_step']:.3f} ms/step, idle share "
           f"{stats['idle_share']:.4f}, {stats['kernels_per_step']:.0f} kernels/step", flush=True)
@@ -1377,6 +1394,296 @@ def drive_no_sharing(args, failures: list) -> dict:
           f"graph {g['idle_share']:.4f}; kernels/step eager {e['kernels_per_step']:.0f} graph "
           f"{g['kernels_per_step']:.0f}; graphs {json.dumps(graph_stats(eng))}", flush=True)
     return launches
+
+
+# The serving phase: a stream of requests through ContinuousBatcher over one
+# shared prompt (scripts/serving_bench.py's traffic on the TPU side).
+SERVE_REQUESTS = 640
+SERVE_SUFFIX = (16, 128)  # uniform suffix lengths, inclusive
+SERVE_BUDGET = (8, 64)  # uniform new-token budgets, inclusive
+SERVE_CHUNK = 8
+SERVE_BUCKET = 32
+# The short grouped stream: 4 layers of full width, two prefixes.
+GROUPED_LAYERS = 4
+GROUPED_POOL = 64
+GROUPED_REQUESTS = 96
+GROUPED_SUFFIX = (16, 64)
+GROUPED_BUDGET = (4, 24)
+
+
+def expected_launches_serving(L: int, admissions: int, steps: int) -> dict:
+    """Launches a stream implies, from its dispatch log: each admission
+    dispatch prefills its requests' suffixes (7L s8 GEMMs, L level reads of
+    the folded queries, L causal suffix reads); each decode step runs 7L
+    GEMMs and L level reads, and its unique read is the plain masked ring
+    read (no K3, no K5), as in the JAX package."""
+    return {
+        "w8a8_matmul_cached": 7 * L * (admissions + steps),
+        "flash_attention_cached_bhsd": L * (admissions + steps),
+        "flash_attention_bhsd": L * admissions,
+    }
+
+
+def count_captures(eng) -> dict:
+    """Wrap ``eng._capture``: the returned dict counts captures by key."""
+    captures, capture = {}, eng._capture
+
+    def counting(st, *a, **kw):
+        captures[st.key] = captures.get(st.key, 0) + 1
+        return capture(st, *a, **kw)
+
+    eng._capture = counting
+    return captures
+
+
+def serve_stream(eng, requests, cb_kw, graphs: bool, timed: bool = False):
+    """One stream through a new ``ContinuousBatcher`` over ``eng``, the
+    launch counts set to 0 just before and read just after. ``timed``:
+    admissions fenced by synchronizes and timed (that serializes the
+    pipeline, so only the eager yardstick run times them). Returns (tokens
+    by request, launches, the batcher's stats, wall s, admission s)."""
+    from hydragen_torch import ContinuousBatcher
+    from hydragen_torch.ops import cuda_lib
+
+    eng.graph(graphs)
+    cb = ContinuousBatcher(eng, **cb_kw)
+    rids = [cb.submit(ids, max_new_tokens=n, group=grp, stop_sequences=stops)
+            for ids, n, grp, stops in requests]
+    admit_s = [0.0]
+    if timed:
+        admit = cb._admit_batch
+
+        def timed_admit(pairs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            admit(pairs)
+            torch.cuda.synchronize()
+            admit_s[0] += time.perf_counter() - t
+
+        cb._admit_batch = timed_admit
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    out = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    eng.graph(True)
+    return [out.get(r) for r in rids], launches, dict(cb.stats), wall, admit_s[0], cb
+
+
+def check_stream(tag: str, requests, toks, vocab: int, failures: list) -> int:
+    """Every request back, with 1 to its budget tokens, all in range; a
+    request with stop sequences ends at the first completed one or runs to
+    its budget without one. Returns the new tokens."""
+    bad = []
+    for i, ((_, n, _, stops), t) in enumerate(zip(requests, toks)):
+        if t is None or not 1 <= len(t) <= n or min(t) < 0 or max(t) >= vocab:
+            bad.append((i, None if t is None else len(t)))
+            continue
+        for s in stops or ():
+            s = list(s)
+            ends = [j + len(s) for j in range(len(t) - len(s) + 1) if t[j:j + len(s)] == s]
+            if (ends and ends[0] != len(t)) or (not ends and len(t) != n):
+                bad.append((i, "stop", len(t), ends[:2]))
+    ok = not bad
+    print(f"[{tag}] {len(toks)} requests back, lengths within budgets, tokens in range, "
+          f"stops honoured: {ok}", flush=True)
+    if not ok:
+        failures.append(f"{tag}: requests out of contract {bad[:6]}")
+    return sum(len(t) for t in toks if t is not None)
+
+
+def check_launches(tag: str, L: int, launches: dict, stats: dict, failures: list) -> None:
+    want = expected_launches_serving(L, stats["admit_dispatches"], stats["decode_steps"])
+    ok = launches == want
+    print(f"[{tag}] dispatches {json.dumps(stats)}; launches {json.dumps(launches)} "
+          f"(expected {json.dumps(want)}) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{tag} launches {launches} != expected {want}")
+
+
+def check_captures(tag: str, captures: dict, keys, failures: list) -> None:
+    """One capture a key: each graph stream's batcher (``keys``) captured its
+    step once, and no step recaptured a graph it had."""
+    ok = all(n == 1 for n in captures.values()) and all(captures.get(k) == 1 for k in keys)
+    print(f"[{tag}] captures by key: {sorted(captures.values())} -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failures.append(f"{tag}: a decode key captured more than once {sorted(captures.values())}")
+
+
+def drive_serving(args, failures: list, card: str) -> dict:
+    """``ContinuousBatcher`` at full Llama-2-7B width and depth, w8a8 +
+    int8 KV, one shared level of a 2,048-token prompt, a pool of 256 rows of
+    128 + 64 + 8 ring slots: a stream of 640 requests (suffixes and budgets
+    uniform from ``--seed``), admitted longest budget first, decoded in
+    chunks of 8 graph replays with a lookahead of 1, then the same stream
+    through the eager loop (the yardstick: every request's tokens equal).
+    Exact launches from the dispatch log, one capture a key, every request
+    back within its budget. Then the step: ms through the graph and eagerly,
+    a profile of 8 replayed steps split into K1, K2, the plain masked ring
+    read and the int8 write (each timed alone at the step's shapes) and the
+    rest. Then a short stream at 4 layers of full width over two prefixes
+    (``sb = 2``) follows as a phase of its own (``drive_grouped_stream``).
+    Returns the 7B graph stream's launches."""
+    import numpy as np
+
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.core.batching import ring_mask
+    from hydragen_torch.core.cache import write_decode_token_layer
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+    from hydragen_torch.ops.reference import attention_bhsd
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    tag, cfg = "serving", PRESETS["llama-2-7b"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    U = SERVE_SUFFIX[1] + SERVE_BUDGET[1] + 8
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    t0 = time.perf_counter()
+    eng = HydragenLlama(cfg, init_params(cfg, g, quantized="w8a8", device="cuda"),
+                        quantization="w8a8")
+    eng.setup_caches(BATCH, U, [1], [SHARED_LEN], kv_quant="int8")
+    eng.append_shared(torch.randint(1, V, (1, SHARED_LEN), generator=g, device="cuda"))
+    rng = np.random.RandomState(args.seed)
+    requests = [(rng.randint(1, V, (rng.randint(SERVE_SUFFIX[0], SERVE_SUFFIX[1] + 1),)),
+                 int(rng.randint(SERVE_BUDGET[0], SERVE_BUDGET[1] + 1)), 0, None)
+                for _ in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    print(f"[{tag}] {card}; llama-2-7b, {L} layers, w8a8 + int8 KV, pool {BATCH} rows x {U} "
+          f"ring slots ({eng.cache.max_unique_seq_len} allocated), bshd "
+          f"{eng.cache.unique_bshd} flat scales {eng.cache.flat_scales}; set-up "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated", flush=True)
+    cb_kw = dict(chunk=SERVE_CHUNK, bucket=SERVE_BUCKET, admit_policy="lpt", lookahead=1,
+                 temperature=0.0, seed=args.seed)
+    captures = count_captures(eng)
+    torch.cuda.reset_peak_memory_stats()
+    toks, launches, stats, wall, _, cb = serve_stream(eng, requests, cb_kw, graphs=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    new_tokens = check_stream(tag, requests, toks, V, failures)
+    check_launches(tag, L, launches, stats, failures)
+    check_captures(tag, captures, [cb._key], failures)
+    gstats = graph_stats(eng)
+    print(f"[{tag}] {card}; graph stream: {SERVE_REQUESTS} requests in {wall:.3f} s: "
+          f"{SERVE_REQUESTS / wall:.2f} requests/s, {new_tokens} new tokens, "
+          f"{new_tokens / wall:.1f} new tokens/s; peak {peak:.2f} GiB; {gstats['graphs']} graphs "
+          f"captured in {gstats['capture_s']:.3f} s, pool {gstats['pool_MiB']} MiB", flush=True)
+
+    # The eager yardstick: the same stream through graph(False), admissions
+    # and decode steps fenced and timed.
+    decode_steps, decode_s = time_decode_loop(eng)
+    toks_e, launches_e, stats_e, wall_e, admit_s, _ = serve_stream(
+        eng, requests, cb_kw, graphs=False, timed=True)
+    same = toks_e == toks
+    print(f"[{tag}] {card}; eager stream (admissions and chunks fenced): {wall_e:.3f} s, "
+          f"admissions {admit_s:.3f} s in {stats_e['admit_dispatches']} dispatches, decode "
+          f"{decode_s[0]:.3f} s in {stats_e['decode_steps']} steps "
+          f"({1e3 * decode_s[0] / max(stats_e['decode_steps'], 1):.3f} ms/step); tokens equal to "
+          f"the graph stream's for every request: {same}; launches equal: "
+          f"{launches_e == launches}", flush=True)
+    if not same or launches_e != launches or stats_e != stats:
+        failures.append(f"{tag}: eager stream differs from the graph stream (tokens equal "
+                        f"{same}, stats {stats_e} vs {stats})")
+
+    # The step: graph against eager over the finished batcher's buffers (a
+    # step's work does not depend on which rows are live), then its profile.
+    step_ms = {}
+    for name, graphs in (("eager", False), ("graph", True)):
+        eng.graph(graphs)
+        decode_s[0] = 0.0
+        for _ in range(2):
+            cb._decode_chunk(PROFILE_STEPS)
+        step_ms[name] = 1e3 * decode_s[0] / (2 * PROFILE_STEPS)
+    eng.graph(True)
+    eng._decode_steps = decode_steps
+    prof = profile_decode(eng, decode_steps, lambda: cb._decode_chunk(PROFILE_STEPS), tag,
+                          ("w8a8_kernel", "flash_kernel", "split_combine"), failures,
+                          graphs=True)
+    # The plain masked ring read and the int8 write of each layer, timed alone
+    # on the device's clock at the step's shapes, over the engine's cache.
+    cache = eng.cache
+    hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    q = torch.randn(BATCH, cfg.num_attention_heads, 1, hd, device="cuda", generator=g).to(
+        torch.bfloat16)
+    kv_tok = [torch.randn(BATCH, hkv, 1, hd, device="cuda", generator=g).to(torch.bfloat16)
+              for _ in range(2)]
+    mask = ring_mask(cb.state.start, cb.state.cursor, cb.U)
+    Ua = cache.max_unique_seq_len
+
+    def ring_read(li):
+        return attention_bhsd(
+            q, cache.unique_k[li], cache.unique_v[li], kv_mask=mask, kv_bshd=True,
+            k_scale=cache.unique_k_scale[li].reshape(BATCH, Ua, hkv),
+            v_scale=cache.unique_v_scale[li].reshape(BATCH, Ua, hkv))
+
+    slot = torch.remainder(cb.state.cursor, Ua)
+    ring_ms = L * cuda_graph_time_ms(Cycle(ring_read, L), iters=8, warmup=2)
+    write_ms = L * cuda_graph_time_ms(Cycle(
+        lambda li: write_decode_token_layer(cache, li, *kv_tok, slot), L))
+    k1 = prof["groups"].get("w8a8_kernel", 0.0)
+    k2 = prof["groups"].get("flash_kernel", 0.0) + prof["groups"].get("split_combine", 0.0)
+    busy = prof["busy_ms_per_step"]
+    other = busy - k1 - k2 - ring_ms - write_ms
+    split = dict(K1=k1, K2=k2, ring_read=ring_ms, int8_write=write_ms, other=other)
+    print(f"[{tag}] {card}; decode ms/step (bs {BATCH}, {Ua} ring slots), eager "
+          f"{step_ms['eager']:.3f}, graph {step_ms['graph']:.3f}; graph profile: busy "
+          f"{busy:.3f}, idle share {prof['idle_share']:.4f}, {prof['kernels_per_step']:.0f} "
+          f"kernels/step; device ms/step: " + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f" (ring read and int8 write timed alone, {L} layers each; ring read share of busy "
+          f"{ring_ms / busy:.4f})", flush=True)
+    return launches
+
+
+def drive_grouped_stream(args, failures: list, card: str) -> None:
+    """The short grouped stream: Llama-2-7B width at GROUPED_LAYERS layers,
+    one level of two prefixes (each half of the pool decodes under its own),
+    first in, first out, lookahead 2. A first graph run without stops picks
+    a stop 2-gram for every third request (its own tokens 3-4); then the
+    stream with those stops through graphs and eagerly: tokens equal, exact
+    launches, one capture a key, stops honoured."""
+    import numpy as np
+
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+
+    tag = "serving grouped"
+    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=GROUPED_LAYERS)
+    V = cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 4)
+    eng = HydragenLlama(cfg, init_params(cfg, g, quantized="w8a8", device="cuda"),
+                        quantization="w8a8")
+    U = GROUPED_SUFFIX[1] + GROUPED_BUDGET[1] + 8
+    eng.setup_caches(GROUPED_POOL, U, [2], [SHARED_LEN], kv_quant="int8")
+    eng.append_shared(torch.randint(1, V, (2, SHARED_LEN), generator=g, device="cuda"))
+    rng = np.random.RandomState(args.seed + 1)
+    requests = [(rng.randint(1, V, (rng.randint(GROUPED_SUFFIX[0], GROUPED_SUFFIX[1] + 1),)),
+                 int(rng.randint(GROUPED_BUDGET[0], GROUPED_BUDGET[1] + 1)), i % 2, None)
+                for i in range(GROUPED_REQUESTS)]
+    cb_kw = dict(chunk=SERVE_CHUNK, bucket=SERVE_BUCKET, admit_policy="fifo", lookahead=2,
+                 temperature=0.0, seed=args.seed)
+    captures = count_captures(eng)
+    plain, *_, cb0 = serve_stream(eng, requests, cb_kw, graphs=True)
+    requests = [(ids, n, grp, [t[2:4]] if i % 3 == 0 and t and len(t) >= 4 else None)
+                for i, ((ids, n, grp, _), t) in enumerate(zip(requests, plain))]
+    toks, launches, stats, wall, _, cb = serve_stream(eng, requests, cb_kw, graphs=True)
+    new_tokens = check_stream(tag, requests, toks, V, failures)
+    check_launches(tag, GROUPED_LAYERS, launches, stats, failures)
+    toks_e, launches_e, stats_e, wall_e, _, _ = serve_stream(eng, requests, cb_kw,
+                                                             graphs=False)
+    check_captures(tag, captures, [cb0._key, cb._key], failures)
+    same = toks_e == toks
+    stopped = sum(1 for (_, n, _, s), t in zip(requests, toks) if s and t and len(t) < n)
+    print(f"[{tag}] {card}; {GROUPED_LAYERS} layers, pool {GROUPED_POOL} over 2 prefixes: "
+          f"{GROUPED_REQUESTS} requests, {sum(1 for r in requests if r[3])} with a stop "
+          f"2-gram, {stopped} stopped by it; graph {wall:.3f} s ({GROUPED_REQUESTS / wall:.2f} "
+          f"requests/s, {new_tokens / wall:.1f} new tokens/s), eager {wall_e:.3f} s; tokens "
+          f"equal graph vs eager: {same}; launches equal: {launches_e == launches}", flush=True)
+    if not same or launches_e != launches or stats_e != stats:
+        failures.append(f"{tag}: eager stream differs from the graph stream (tokens equal "
+                        f"{same}, stats {stats_e} vs {stats})")
 
 
 @contextlib.contextmanager
@@ -1555,7 +1862,7 @@ def main() -> int:
     print_ptxas(cuda_lib.BUILD_LOG)
 
     report: dict = {}
-    launches: dict = {"main": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {}}
+    launches: dict = {"main": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {}, "serving": {}}
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
@@ -1563,6 +1870,8 @@ def main() -> int:
         ("gqa path", lambda: launches["gqa"].update(drive_path(args, failures, "gqa"))),
         ("gqa no-sharing", lambda: launches["gqa no-sharing"].update(
             drive_no_sharing(args, failures))),
+        ("serving", lambda: launches["serving"].update(drive_serving(args, failures, card))),
+        ("serving grouped", lambda: drive_grouped_stream(args, failures, card)),
         ("plain path", lambda: check_plain_path(args, failures, "w8a8")),
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),

@@ -411,19 +411,24 @@ class HydragenLlama:
         self._graph_pool = None
         self._decode_params = None
 
-    def _decode_state(self, key: DecodeKey) -> DecodeStep:
-        """The static buffers (and graph) of ``key``. New parameters drop
-        every graph first: a graph reads the parameters it was captured over
-        (held here until then) by address."""
+    def _graph_state(self, key, make):
+        """The graph holder of ``key`` (a ``DecodeStep``, or a continuous
+        batcher's chunk step), made by ``make()`` where there is none. New
+        parameters drop every graph first: a graph reads the parameters it
+        was captured over (held here until then) by address."""
         if self._decode_params is not self.params:
             self._drop_graphs()
             self._decode_params = self.params
         st = self._decode.get(key)
         if st is None:
-            st = DecodeStep(key, self.cache.max_unique_seq_len, self.config.vocab_size,
-                            self.device)
+            st = make()
             self._decode[key] = st
         return st
+
+    def _decode_state(self, key: DecodeKey) -> DecodeStep:
+        """The static buffers (and graph) of ``key``."""
+        return self._graph_state(key, lambda: DecodeStep(
+            key, self.cache.max_unique_seq_len, self.config.vocab_size, self.device))
 
     def _step_body(self, st: DecodeStep) -> None:
         """One decode step (``hydragen_tpu/core/engine.py:_decode_steps``'s
@@ -454,11 +459,11 @@ class HydragenLlama:
         st.tok.copy_(nxt if st.overrides is None else st.overrides.index_select(0, col).T)
         st.i.add_(1)
 
-    def _capture(self, st: DecodeStep) -> None:
-        """Capture ``st``'s step body into a CUDA graph (its first step has
-        run eagerly on the capture stream, so every lazily made thing exists:
-        kernel attributes, tensor maps, workspaces, handles). Its launches
-        are recorded, not counted, and a failed capture raises."""
+    def _capture(self, st, body) -> None:
+        """Capture ``body()``, ``st``'s step, into a CUDA graph (its first
+        step has run eagerly on the capture stream, so every lazily made
+        thing exists: kernel attributes, tensor maps, workspaces, handles).
+        Its launches are recorded, not counted, and a failed capture raises."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -469,33 +474,36 @@ class HydragenLlama:
         try:
             with cuda_lib.captured_launches(launches), torch.cuda.graph(
                     graph, pool=self._graph_pool, stream=self._graph_stream):
-                self._step_body(st)
+                body()
         except RuntimeError as e:
             raise RuntimeError(f"decode step capture failed for {st.key}: {e}") from e
         st.capture_s = time.perf_counter() - t0
         st.graph, st.launches = graph, launches
 
-    def _decode_steps(self, st: DecodeStep, steps: int) -> list:
+    def _decode_steps(self, st, steps: int, body=None) -> list:
         """``steps`` decode steps over ``st``: replays of its graph (the first
         step of a new key runs eagerly on the capture stream, and the second
-        captures), or the step body eagerly. Returns each step's logits
-        (clones enqueued after the step, where ``return_logits``)."""
+        captures), or the step body eagerly. ``body`` is the step (``st``'s
+        ``_step_body`` by default). Returns each step's logits (clones
+        enqueued after the step, where ``st.logits`` is kept)."""
+        if body is None:
+            body = lambda: self._step_body(st)  # noqa: E731
         logits = []
         for _ in range(steps):
             if not self._use_graphs:
-                self._step_body(st)
+                body()
             elif st.graph is None and not st.warm:
                 if self._graph_stream is None:
                     self._graph_stream = torch.cuda.Stream(self.device)
                 side = self._graph_stream
                 side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(side):
-                    self._step_body(st)
+                    body()
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 st.warm = True
             else:
                 if st.graph is None:
-                    self._capture(st)
+                    self._capture(st, body)
                 st.graph.replay()
                 cuda_lib.add_launches(st.launches)
             if st.logits is not None:

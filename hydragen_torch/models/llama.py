@@ -206,6 +206,10 @@ class ForwardSpec(NamedTuple):
     matmul: str = "dq"
     # Filled prefix count per active level; () = all allocated rows.
     level_batch: Tuple[int, ...] = ()
+    # First prefix row read per active level; () = row 0. A continuous
+    # batcher's admission reads one prefix row of each level of an ``sb > 1``
+    # pool (with ``level_batch`` all 1), where the JAX batcher slices it.
+    level_row: Tuple[int, ...] = ()
 
 
 def model_forward(
@@ -263,7 +267,8 @@ def model_forward(
 
     active_levels = cache.shared[: spec.num_used_levels]
     level_sb = spec.level_batch or tuple(lv.max_batch_size for lv in active_levels)
-    level_lens = [lv.seq_lens[:sb] for lv, sb in zip(active_levels, level_sb)]
+    level_row = spec.level_row or (0,) * len(active_levels)
+    level_lens = [lv.seq_lens[r:r + sb] for lv, r, sb in zip(active_levels, level_row, level_sb)]
     lp = params["layers"]
     has_bias = "bq" in lp
     L = cfg.num_hidden_layers
@@ -338,18 +343,18 @@ def model_forward(
             outs, lses = [], []
             if not spec.disable_hydragen:
                 for j, lvl in enumerate(active_levels):
-                    sb, fl = level_sb[j], spec.level_filled[j]
+                    sb, fl, r = level_sb[j], spec.level_filled[j], level_row[j]
                     qf = fold_queries_for_shared(q, sb)
                     if impl == "kernel":
-                        # The stacked level read in place, layer by index.
+                        # The stacked level read in place, layer and row by index.
                         o, l = flash.flash_attention_cached_bhsd(
                             li, qf, lvl.k, lvl.v, kv_seq_lens=level_lens[j],
-                            k_scale_all=lvl.k_scale, v_scale_all=lvl.v_scale,
+                            k_scale_all=lvl.k_scale, v_scale_all=lvl.v_scale, row_start=r,
                         )
                     else:
                         def view(p, s):
-                            pv = p[li, :sb, :, :fl]
-                            return pv if s is None else (pv, s[li, :sb, :, :fl])
+                            pv = p[li, r:r + sb, :, :fl]
+                            return pv if s is None else (pv, s[li, r:r + sb, :, :fl])
 
                         o, l = _attention(
                             qf, view(lvl.k, lvl.k_scale), view(lvl.v, lvl.v_scale),

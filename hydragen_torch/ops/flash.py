@@ -295,13 +295,14 @@ def _flash_decode_bhsd(q, k, v, *, causal, kv_seq_lens, scale, k_scale, v_scale)
 
 
 def flash_attention_cached_plain(layer, q, k_all, v_all, *, kv_seq_lens=None,
-                                 k_scale_all=None, v_scale_all=None, scale=None):
+                                 k_scale_all=None, v_scale_all=None, scale=None,
+                                 row_start=0):
     """Plain PyTorch version of ``flash_attention_cached_bhsd``."""
-    b = q.shape[0]
+    rows = slice(row_start, row_start + q.shape[0])
     return attention_bhsd(
-        q, k_all[layer, :b], v_all[layer, :b], kv_seq_lens=kv_seq_lens, scale=scale,
-        k_scale=None if k_scale_all is None else k_scale_all[layer, :b],
-        v_scale=None if v_scale_all is None else v_scale_all[layer, :b],
+        q, k_all[layer, rows], v_all[layer, rows], kv_seq_lens=kv_seq_lens, scale=scale,
+        k_scale=None if k_scale_all is None else k_scale_all[layer, rows],
+        v_scale=None if v_scale_all is None else v_scale_all[layer, rows],
     )
 
 
@@ -315,25 +316,28 @@ def flash_attention_cached_bhsd(
     k_scale_all: torch.Tensor | None = None,
     v_scale_all: torch.Tensor | None = None,
     scale: float | None = None,
+    row_start: int = 0,
 ):
     """Non-causal flash attention reading ONE layer of stacked level buffers.
 
     q ``[b, hq, m, d]`` (folded); k_all/v_all ``[L, SB, hkv, S, d]`` with
-    ``b <= SB``; scales ``[L, SB, hkv, S]`` f32; kv_seq_lens ``[b]``. The
-    kernel indexes kv row ``layer * SB * hkv + b * hkv + kv_head`` of the
-    buffers as they are: no per-layer slice is made. Returns ``(out
-    [b, hq, m, d], lse [b, hq, m])``, equal to ``flash_attention_bhsd`` on the
-    layer's slice."""
-    layer = int(layer)
+    ``row_start + b <= SB``; scales ``[L, SB, hkv, S]`` f32; kv_seq_lens
+    ``[b]``. Query row ``i`` reads prefix row ``row_start + i``: the kernel
+    indexes kv row ``(layer * SB + row_start + i) * hkv + kv_head`` of the
+    buffers as they are, so neither a layer nor a row is sliced out. Returns
+    ``(out [b, hq, m, d], lse [b, hq, m])``, equal to ``flash_attention_bhsd``
+    on that slice."""
+    layer, row_start = int(layer), int(row_start)
     if not q.is_cuda:
         return flash_attention_cached_plain(
             layer, q, k_all, v_all, kv_seq_lens=kv_seq_lens, k_scale_all=k_scale_all,
-            v_scale_all=v_scale_all, scale=scale,
+            v_scale_all=v_scale_all, scale=scale, row_start=row_start,
         )
     b, hq, m, d = q.shape
     L, SB, hkv, s, dk = k_all.shape
     assert dk == d and hq % hkv == 0 and v_all.shape == k_all.shape
-    assert b <= SB, f"folded batch {b} exceeds allocated level batch {SB}"
+    assert 0 <= row_start and row_start + b <= SB, (
+        f"prefix rows {row_start}..{row_start + b} exceed allocated level batch {SB}")
     assert 0 <= layer < L
     group = hq // hkv
     if scale is None:
@@ -342,7 +346,7 @@ def flash_attention_cached_bhsd(
     # The kernel reads the buffers as [L * SB * hkv, S, d] rows, in place.
     out, lse = _launch(
         qf, k_all, v_all, k_scale_all, v_scale_all, kv_seq_lens,
-        row_offset=layer * SB * hkv, BH=b * hkv, M=group * m, q_len=m, S=s, hkv=hkv,
+        row_offset=(layer * SB + row_start) * hkv, BH=b * hkv, M=group * m, q_len=m, S=s, hkv=hkv,
         causal=False, scale=scale,
     )
     cuda_lib.LAUNCHES["flash_attention_cached_bhsd"] += 1

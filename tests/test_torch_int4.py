@@ -693,6 +693,120 @@ def _same_engine_caches(tc, jc):
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
+# Prompt seeds (params key 0, mode w4a8_kv4_bshd) at which the spy on the
+# activation quantizer alone finds a first differing code that is not within
+# TIE_ULPS of a half code, and the quantizer whose code differs first when
+# every quantizer is spied: an int8 KV code of the shared level (7, 39) or an
+# activation code (4, 31, 38).
+SPY_SEEDS = {4: "rows", 7: "kv", 31: "rows", 38: "rows", 39: "kv"}
+
+
+def _spy_all_quantizers(monkeypatch):
+    """Record every quantization of both engines, activation rows
+    (``quantize_rows``) and KV (``quantize_kv``, ``quantize_kv4``), in call
+    order: (kind, x in f32, codes, scales). Each kind comes in the same order
+    and sizes in both engines (the port quantizes each layer's KV where the
+    JAX scan does)."""
+    from hydragen_tpu.ops import gemm as jgemm_mod
+
+    calls = {"t": [], "j": []}
+
+    def t_spy(kind, fn):
+        def spy(x):
+            q, sc = fn(x)
+            calls["t"].append((kind, _np(x.float()), _np(q), _np(sc)))
+            return q, sc
+        return spy
+
+    def j_spy(kind, fn):
+        def spy(x):
+            q, sc = fn(x)
+            jax.debug.callback(
+                lambda x, q, sc: calls["j"].append(
+                    (kind, np.asarray(x), np.asarray(q), np.asarray(sc))),
+                x.astype(jnp.float32), q, sc, ordered=True)
+            return q, sc
+        return spy
+
+    jax.clear_caches()
+    monkeypatch.setattr(tllama, "quantize_rows", t_spy("rows", tllama.quantize_rows))
+    monkeypatch.setattr(jgemm_mod, "quantize_rows", j_spy("rows", jgemm_mod.quantize_rows))
+    for mod in (tllama, tcache, tdecode):
+        for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, t_spy(kind, getattr(mod, name)))
+    # The JAX model imports its KV quantizers from ops.quant when it traces.
+    for mod in (jquant, jcache):
+        for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
+            monkeypatch.setattr(mod, name, j_spy(kind, getattr(mod, name)))
+    return calls
+
+
+def _quotients(x, sc, mask):
+    """x / scale of the masked codes (the scale broadcast over each row)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return (x2 / np.broadcast_to(sc.reshape(-1, 1), x2.shape)).ravel()[mask], x2, \
+        np.broadcast_to(sc.reshape(-1, 1), x2.shape)
+
+
+@pytest.mark.parametrize("seed", sorted(SPY_SEEDS))
+def test_first_differing_code_of_any_quantizer_is_a_tie(fp_params, seed, monkeypatch):
+    """Both w4a8 + int4-KV requests of ``test_engine_int4_matches_jax`` at a
+    seed where the activation spy alone finds no tie first: with every
+    quantizer spied, the first code that differs between the engines (in
+    the port's call order) is a tie of their float sums. Each engine's
+    quotient x / scale lies on the same half code's two sides (or on it),
+    within TIE_ULPS plus the ulps the engines' own x and scale at that
+    element are apart (a quotient is as far apart as its operands are).
+    At 7 and 39 it is an int8 KV code of the shared level (0 ulps in the
+    port, 1 in JAX); at 4, 31 and 38 an activation code 5-13 ulps from the
+    half code, with x and the row's scale 9-31 and 0-7 ulps apart."""
+    monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
+    calls = _spy_all_quantizers(monkeypatch)
+    jp, tp = fp_params
+    try:
+        je = JEngine(JConfig(**CFG), jp, quantization="w4a8")
+        te = TEngine(TConfig(**CFG), tp, quantization="w4a8", device="cpu")
+        for e in (je, te):
+            e.setup_caches(4, 16, [1], [16], kv_quant="int4", unique_bshd=True)
+        rng = np.random.RandomState(seed)
+        prompt = rng.randint(1, 256, (1, 12)).astype(np.int32)
+        suffixes = rng.randint(1, 256, (4, 5)).astype(np.int32)
+        for e, op in ((je, JOp), (te, TOp)):
+            e.generate(input_ids=[prompt], num_return_sequences=4, max_new_tokens=11,
+                       temperature=0.0, shared_cache_op=op.WIPE)
+            e.generate(input_ids=[suffixes], max_new_tokens=5, temperature=0.0,
+                       shared_cache_op=op.PRESERVE)
+        jax.effects_barrier()
+    finally:
+        jax.clear_caches()
+    by_kind = {"t": {}, "j": {}}
+    for side in "tj":
+        for pos, (kind, x, q, sc) in enumerate(calls[side]):
+            by_kind[side].setdefault(kind, []).append((pos, x, q, sc))
+    first = None
+    for kind, tcalls in by_kind["t"].items():
+        jcalls = by_kind["j"][kind]
+        assert len(tcalls) == len(jcalls), (kind, len(tcalls), len(jcalls))
+        for (pos, xt, qt, st), (_, xj, qj, sj) in zip(tcalls, jcalls):
+            assert qt.size == qj.size, (kind, qt.shape, qj.shape)
+            diff = qt.ravel() != qj.ravel()
+            if diff.any():
+                if first is None or pos < first[0]:
+                    first = (pos, kind, (xt, st), (xj, sj), diff)
+                break
+    assert first is not None and first[1] == SPY_SEEDS[seed], (seed, first and first[1])
+    _, _, (xt, st), (xj, sj), diff = first
+    vt, xt2, st2 = _quotients(xt, st, diff)
+    vj, xj2, sj2 = _quotients(xj, sj, diff)
+    apart = (np.abs(xt2 - xj2) / np.spacing(np.abs(xj2))
+             + np.abs(st2 - sj2) / np.spacing(np.abs(sj2))).ravel()[diff]
+    np.testing.assert_array_equal(np.round(2 * vt), np.round(2 * vj))  # the same half code
+    for v in (vt, vj):
+        ulps = np.abs(v - (np.floor(v) + np.float32(0.5))) / np.spacing(np.abs(v))
+        assert (ulps <= TIE_ULPS + apart).all(), (seed, v, ulps, apart)
+
+
 def test_engine_int4_ragged_suffixes_raise(fp_params):
     """Ragged suffix lengths with int4 KV: the decode write refuses the
     sub-byte scatter, as the JAX engine does."""
