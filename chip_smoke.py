@@ -13,7 +13,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    peak rate of their type) and, where one PyTorch call computes the same
    function, that call's time. K1 is timed at every decode and 2,048-row
    shape of both models and at request 2's 32,768-row gate/up, and each
-   output must equal the scaled ``torch._int_mm`` product bit for bit. K2
+   output must equal the scaled ``torch._int_mm`` product bit for bit; its
+   f32-scale instantiation likewise at the unpadded 7B MLP's decode shapes,
+   beside the bf16-scale K1. K2
    and K4 are also timed at the other shapes the paths give them (the 8B
    decode read, the 7B request-2 read, the 8B prefill, the 7B suffix
    prefill), nested under their entries. K6 is held to its f32 oracle at
@@ -43,15 +45,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    time by kernel (the full table goes to ``chiprun_out/profile_decode.txt``).
    A line a path sets the graph beside the eager loop, with kernels a step,
    capture time and pool memory.
-5. int4 path: the same at full 7B width with int4 weights
+5. load: the main path's model (Llama-2-7B width, ``LOAD_LAYERS`` layers)
+   as a HF checkpoint: bf16 weights drawn from ``--seed`` as ``init_params``
+   draws them, written under ``build/`` as safetensors shards with an index,
+   loaded by ``HydragenLlama.from_pretrained(dir, quantization="w8a8")``
+   (host quantization: f32 weight scales, the MLP unpadded). Gates: the
+   loaded params equal the host quantizers' output on the in-memory dict bit
+   for bit; the device's peak during the load at most 1.05 times the params'
+   bytes; request 1 of the main path through the graphs with exact launches
+   (K1 on its f32-scale instantiation), equal to the eager loop bit for bit;
+   ``save_checkpoint`` and ``load_checkpoint`` into a new engine, the same
+   request bit for bit; the hierarchy ablation (``disable_hierarchy``) with
+   tokens equal, or forced-stream logits within ``TOL_NOSHARE``. Prints the
+   load, host quantization, save and reload seconds, the bytes and both
+   decode rates. The directory is deleted at the end.
+6. int4 path: the same at full 7B width with int4 weights
    (``quantization="w4a8"``) and the token-planar int4 unique cache
    (``kv_quant="int4"``; the shared level int8). Request 1's decode writes
    the low nibble plane, request 2's the high plane over live low tokens.
-6. gqa path: the same on ``PRESETS["llama-3-8b"]`` (32 query heads over 8 kv
+7. gqa path: the same on ``PRESETS["llama-3-8b"]`` (32 query heads over 8 kv
    heads) at full width and depth, w8a8 + int8 KV. Its unique cache is
    BHSD, so every decode layer's unique read is the small-M read (K5) in
    place of K3. The profile fails on any copy of a unique-cache layer.
-7. gqa no-sharing: the no-sharing baseline (``disable_hydragen=True``,
+8. gqa no-sharing: the no-sharing baseline (``disable_hydragen=True``,
    ``bench.py``'s protocol: one 2,048-token prompt, 256 greedy completions,
    the prompt's KV in every unique row) against Hydragen on the same model
    and prompt in one engine, three rounds of the two arms in turn through
@@ -59,7 +75,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    launch counts, tokens equal to Hydragen's (or, where a bf16 tie breaks
    the other way, the logits of a forced stream within ``TOL_NOSHARE``), the
    baseline's graph equal to its eager loop, profiles.
-8. serving: ``ContinuousBatcher`` over the main path's configuration at
+9. serving: ``ContinuousBatcher`` over the main path's configuration at
    full width and depth (one 2,048-token shared prompt, a pool of 256 rows
    of 200 ring slots): a stream of 640 requests, suffixes of 16-128 tokens
    and budgets of 8-64 from ``--seed``, admitted longest budget first,
@@ -75,7 +91,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the int8 write (both timed alone) and the rest. Then a short stream at 4
    layers of full width over a level of two prefixes, first in first out,
    a lookahead of 2, stop 2-grams on every third request: the same gates.
-9. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
+10. plain path: the w8a8 + int8-KV models (Llama-2-7B, and Llama-3-8B whose
    unique read is K5) at 2 layers of full width on one forced token stream,
    and the w4a8 + int4-KV model over two requests whose decode crosses into
    the high plane: the kernel path, and each kernel alone in the plain path,
@@ -112,6 +128,10 @@ SHARED_LEN = 2048
 BATCH = 256
 SUFFIX_LEN = 128
 NEW_TOKENS = 64  # per request; cut this, never the width or the batch
+# The kernel phase's GEMMs cycle over this many layers of weights, and sum
+# one layer's projections: q, k, v, o share a shape, as do gate and up.
+GEMM_LAYERS = 6
+PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
 PROFILE_STEPS = 8
 
 TOL_REL = 2e-2  # kernel vs plain: max |err| / max |plain|, bf16 outputs
@@ -205,73 +225,15 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
         if not ok:
             failures.append(f"kernel {name}: {msg}")
 
-    # K1: the seven projections of one layer, at decode (M = 256) and at the
-    # shared prefill (M = 2,048), then the gate/up projection of request 2's
-    # unique prefill (M = 32,768). The JSON reports one decode layer's sum;
-    # each shape's own readings are nested under "shapes". Each output must
-    # also equal the exact i32 product scaled in the kernel's order bit for
-    # bit (torch._int_mm as the oracle). device_ms: a CUDA graph of the
-    # calls (no host work between them); ms: host-paced.
-    NL = 6
+    # K1 on bf16 column scales (``quantize_params``, the MLP padded): the seven
+    # projections of one layer, at decode (M = 256) and at the shared prefill
+    # (M = 2,048), then the gate/up projection of request 2's unique prefill
+    # (M = 32,768).
+    NL = GEMM_LAYERS
     shapes = {"qkvo": (H, H), "gate_up": (I_PAD, H), "down": (H, I_PAD)}
-    per_layer = {"qkvo": 4, "gate_up": 2, "down": 1}
-    weights = {}
-    for key, (N, K) in shapes.items():
-        w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
-        ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
-        weights[key] = (w, ws, w.transpose(1, 2).contiguous())
-    k1 = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, int_mm_device_ms=0.0,
-              err=0.0, bytes=0, ops=0)
-    k1_shapes = {}
     runs = [(M, key) for M in (BATCH, SHARED_LEN) for key in shapes]
     runs.append((BATCH * SUFFIX_LEN, "gate_up"))
-    for M, key in runs:
-        N, K = shapes[key]
-        w, ws, wt = weights[key]
-        a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
-        out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
-        ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
-        err, rel = rel_err(out, ref)
-        exact = torch.equal(out, int_mm_oracle(a_q, a_s, wt[NL - 1], ws[NL - 1]))
-        del ref
-        ms = time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL))
-        dms = cuda_graph_time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws),
-                                       NL))
-        pms = time_ms(Cycle(lambda i: gemm.w8a8_cached_plain(i, a_q, a_s, w, ws), NL),
-                      iters=2 if M > SHARED_LEN else 5, warmup=1)
-        lms = time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
-        ldms = cuda_graph_time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL))
-        nbytes = M * K + M * 4 + N * K + N * 2 + M * N * 2
-        ops = 2 * M * N * K
-        bms, by = bound_ms(nbytes, ops, "int8")
-        plan = gemm_plan_of(gemm, M, N, K)
-        record(
-            f"w8a8_matmul_cached M={M} N={N} K={K}", rel <= TOL_REL and exact,
-            f"max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) bit-exact vs int_mm {exact} "
-            f"ms {ms:.4f} device_ms {dms:.4f} plain_ms {pms:.4f} int_mm_ms {lms:.4f} "
-            f"int_mm_device_ms {ldms:.4f} bound_ms {bms:.4f} ({by}) device TOP/s "
-            f"{ops / dms / 1e9:.1f} plan {plan}",
-        )
-        k1_shapes[f"M={M} N={N} K={K}"] = dict(
-            max_abs_err=err, bit_exact=exact, ms=ms, device_ms=dms, plain_ms=pms,
-            library_ms=lms, int_mm_device_ms=ldms, bound_ms=bms, bound_by=by,
-            device_top_s=ops / dms / 1e9, plan=plan)
-        if M == BATCH:
-            n = per_layer[key]
-            for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
-                             ("library_ms", lms), ("int_mm_device_ms", ldms),
-                             ("bytes", nbytes), ("ops", ops)):
-                k1[field] += n * v
-            k1["err"] = max(k1["err"], err)
-        del a_q, a_s, out
-    bms, by = bound_ms(k1["bytes"], k1["ops"], "int8")
-    report["w8a8_matmul_cached"] = dict(
-        max_abs_err=k1["err"], ms=k1["ms"], device_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
-        bound_ms=bms, bound_by=by, library_ms=k1["library_ms"],
-        int_mm_device_ms=k1["int_mm_device_ms"], shapes=k1_shapes,
-        at="sum of one decode layer's 7 projections, M=256 (library: torch._int_mm, "
-           "no scale epilogue; device_ms: from a CUDA graph of the calls)",
-    )
+    weights = check_k1(report, time_ms, g, record, torch.bfloat16, shapes, runs)
 
     # K1': the 2-D entry of K1's kernel (layer stride 0), through qmatmul,
     # at the q projection's decode shape.
@@ -307,6 +269,13 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
            "weight-only",
     )
     del weights
+    # K1 on f32 column scales (the HF loader's, the MLP unpadded) at every
+    # shape the load path gives it: the seven projections at decode, at the
+    # ablation's 1,024-token prompt and at the 2,048-token prefills.
+    I_HF = 11008
+    shapes_hf = {"qkvo": (H, H), "gate_up": (I_HF, H), "down": (H, I_HF)}
+    check_k1(report, time_ms, g, record, torch.float32, shapes_hf,
+             [(M, key) for M in (BATCH, ABLATION_PROMPT, SHARED_LEN) for key in shapes_hf])
 
     # K6: the int4 projections of one layer (group 128), at decode and at the
     # shared prefill, then the gate/up projection of request 2's unique
@@ -349,7 +318,7 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
             max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
             bound_by=by, device_top_s=ops / dms / 1e9)
         if M == BATCH:
-            n = per_layer[key]
+            n = PER_LAYER[key]
             for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
                              ("bytes", nbytes), ("ops", ops)):
                 k6[field] += n * v
@@ -486,6 +455,99 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_decode_kernels(report, time_ms, g, record)
     check_gqa_kernels(report, failures, time_ms, g, record)
     check_flash_shapes(report, time_ms, g, record)
+
+
+def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: list) -> dict:
+    """K1 (``w8a8_matmul_cached``) on column scales of ``scale_dtype`` at each
+    (M, projection) of ``runs``, the projections' (N, K) in ``shapes``. Each
+    output is held to the plain version, to the exact i32 product scaled in
+    the kernel's order bit for bit (``torch._int_mm`` as the oracle), and to
+    one launch under the dtype's count. f32 scales are also held to the
+    bf16-scale K1 at bf16 scales cast to f32 (the epilogue takes f32 either
+    way), whose device time stands beside theirs. device_ms: a CUDA graph of
+    the calls (no host work between them); ms: host-paced. The report sums
+    one decode layer's 7 projections (M = BATCH); each shape's own readings
+    are nested under "shapes". Returns ``{projection: (w, ws, w transposed)}``."""
+    from hydragen_torch.ops import cuda_lib, gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    dev = torch.device("cuda")
+    NL = GEMM_LAYERS
+    f32 = scale_dtype == torch.float32
+    name = "w8a8_matmul_cached" + ("_f32_scales" if f32 else "")
+    label = "w8a8_matmul_cached" + (" f32 column scales" if f32 else "")
+    weights = {}
+    for key, (N, K) in shapes.items():
+        w = torch.randint(-127, 128, (NL, N, K), dtype=torch.int8, device=dev, generator=g)
+        ws = (torch.rand(NL, N, device=dev, generator=g) * 2e-3 + 1e-4).to(scale_dtype)
+        weights[key] = (w, ws, w.transpose(1, 2).contiguous())
+    summed = ["ms", "device_ms", "plain_ms", "library_ms", "int_mm_device_ms"]
+    summed += ["bf16_scales_device_ms"] if f32 else []
+    acc = dict.fromkeys(summed + ["bytes", "ops", "err"], 0.0)
+    per_shape = {}
+    for M, key in runs:
+        N, K = shapes[key]
+        w, ws, wt = weights[key]
+        a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+        before = cuda_lib.LAUNCHES[name]
+        out = gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws)
+        launched = cuda_lib.LAUNCHES[name] - before
+        ref = gemm.w8a8_cached_plain(NL - 1, a_q, a_s, w, ws, out_dtype=torch.float32)
+        err, rel = rel_err(out, ref)
+        exact = torch.equal(out, int_mm_oracle(a_q, a_s, wt[NL - 1], ws[NL - 1]))
+        del ref
+        r = dict(
+            max_abs_err=err, bit_exact=exact,
+            ms=time_ms(Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL)),
+            device_ms=cuda_graph_time_ms(
+                Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws), NL)),
+            plain_ms=time_ms(Cycle(lambda i: gemm.w8a8_cached_plain(i, a_q, a_s, w, ws), NL),
+                             iters=2 if M > SHARED_LEN else 5, warmup=1),
+            library_ms=time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL)),
+            int_mm_device_ms=cuda_graph_time_ms(Cycle(lambda i: torch._int_mm(a_q, wt[i]), NL)),
+        )
+        ok = rel <= TOL_REL and exact and launched == 1
+        extra = ""
+        if f32:
+            ws16 = ws.to(torch.bfloat16)
+            cast = torch.equal(gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws16.float()),
+                               gemm.w8a8_matmul_cached(NL - 1, a_q, a_s, w, ws16))
+            r["bf16_scales_device_ms"] = cuda_graph_time_ms(
+                Cycle(lambda i: gemm.w8a8_matmul_cached(i, a_q, a_s, w, ws16), NL))
+            r["equal_to_bf16_scale_k1"] = cast
+            ok = ok and cast
+            extra = (f", equal to the bf16-scale K1 at cast scales {cast}; bf16 scales "
+                     f"device_ms {r['bf16_scales_device_ms']:.4f}")
+        nbytes = M * K + M * 4 + N * K + N * ws.element_size() + M * N * 2
+        ops = 2 * M * N * K
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, "int8")
+        r["device_top_s"] = ops / r["device_ms"] / 1e9
+        r["plan"] = gemm_plan_of(gemm, M, N, K)
+        record(
+            f"{label} M={M} N={N} K={K}", ok,
+            f"launches {launched} max_abs_err {err:.4g} rel {rel:.3g} (tol {TOL_REL}) bit-exact "
+            f"vs int_mm {exact}{extra} ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} int_mm_ms {r['library_ms']:.4f} int_mm_device_ms "
+            f"{r['int_mm_device_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) device "
+            f"TOP/s {r['device_top_s']:.1f} plan {r['plan']}",
+        )
+        per_shape[f"M={M} N={N} K={K}"] = r
+        if M == BATCH:
+            for field, v in [(f, r[f]) for f in summed] + [("bytes", nbytes), ("ops", ops)]:
+                acc[field] += PER_LAYER[key] * v
+            acc["err"] = max(acc["err"], err)
+        del a_q, a_s, out
+    bms, by = bound_ms(acc.pop("bytes"), acc.pop("ops"), "int8")
+    (N, K), (I, _) = shapes["qkvo"], shapes["gate_up"]
+    report[name] = dict(
+        max_abs_err=acc.pop("err"), **acc, bound_ms=bms, bound_by=by, shapes=per_shape,
+        at=f"sum of one decode layer's 7 projections (q, k, v, o: N=K={N}; gate, up: N={I} "
+           f"K={K}; down: N={K} K={I}) with {'f32' if f32 else 'bf16'} column scales, M={BATCH} "
+           f"(library: torch._int_mm, no scale epilogue; device_ms: from a CUDA graph of the "
+           f"calls" + ("; bf16_scales_device_ms: the bf16-scale K1 at the same shapes" if f32
+                       else "") + ")",
+    )
+    return weights
 
 
 def check_decode_kernels(report: dict, time_ms, g, record) -> None:
@@ -1396,6 +1458,323 @@ def drive_no_sharing(args, failures: list) -> dict:
     return launches
 
 
+# The load phase: a HF-layout checkpoint of the main path's model, written
+# here as safetensors shards and loaded through HydragenLlama.from_pretrained.
+LOAD_LAYERS = 32  # depth of the written checkpoint: cut this, never the width
+LOAD_SHARDS = 5
+LOAD_PEAK_RATIO = 1.05  # device peak during the load over the loaded params' bytes
+# The hierarchy ablation: one prompt, suffixes over it, samples of each.
+ABLATION_PROMPT, ABLATION_SUFFIXES, ABLATION_SUFFIX_LEN = 1024, 16, 128
+ABLATION_SAMPLES, ABLATION_NEW_TOKENS = 16, 32
+_HF_PROJ = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+            "wo": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+            "down": "mlp.down_proj"}
+_SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def hf_state_dict(cfg, g) -> dict:
+    """The float weights of ``cfg`` drawn on the card from ``g`` as
+    ``init_params`` draws them, under HF Llama's names and in its ``[out,
+    in]`` layout, on the host."""
+    from hydragen_torch.models.llama import init_params
+
+    p = init_params(cfg, g, device="cuda")
+    lp = p["layers"]
+    sd = {"model.embed_tokens.weight": p["embed_tokens"], "model.norm.weight": p["final_norm"],
+          "lm_head.weight": p["lm_head"].t()}
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = lp["input_norm"][i]
+        sd[pre + "post_attention_layernorm.weight"] = lp["post_attn_norm"][i]
+        for k, name in _HF_PROJ.items():
+            sd[f"{pre}{name}.weight"] = lp[k][i].t()
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
+def write_hf_checkpoint(directory: Path, cfg, state: dict, shards: int) -> int:
+    """HF's layout of a Llama checkpoint under ``directory``: ``config.json``
+    and the tensors of ``state`` in order, as ``shards`` safetensors files of
+    about equal size (an 8-byte little-endian header length, a JSON header
+    padded to 8 bytes, the raw tensors) with ``model.safetensors.index.json``.
+    Returns the bytes of the weight files."""
+    import struct
+
+    directory.mkdir(parents=True, exist_ok=True)
+    sizes = {k: t.numel() * t.element_size() for k, t in state.items()}
+    total = sum(sizes.values())
+    groups, acc = [[]], 0
+    for name in state:
+        if acc >= len(groups) * total / shards and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(name)
+        acc += sizes[name]
+    weight_map, written = {}, 0
+    for s, group in enumerate(groups):
+        fname = f"model-{s + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, off = {}, 0
+        for name in group:
+            t = state[name]
+            header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [off, off + sizes[name]]}
+            off += sizes[name]
+            weight_map[name] = fname
+        head = json.dumps(header, separators=(",", ":")).encode()
+        head += b" " * (-len(head) % 8)
+        with open(directory / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(head)))
+            f.write(head)
+            for name in group:
+                f.write(state[name].contiguous().reshape(-1).view(torch.uint8).numpy())
+        written += 8 + len(head) + off
+    (directory / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}, indent=1))
+    (directory / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": cfg.dtype,
+    }, indent=1))
+    return written
+
+
+def expected_launches_load(L: int, T: int) -> dict:
+    """Request 1 of the main path on the HF-loaded model: a shared prefill
+    (7L GEMMs, L causal flash) and T-1 decode steps (7L GEMMs, L level
+    reads, L unique reads each), every GEMM on K1's f32-scale
+    instantiation."""
+    return {
+        "w8a8_matmul_cached_f32_scales": 7 * L * T,
+        "flash_attention_cached_bhsd": L * (T - 1),
+        "decode_attention_cached": L * (T - 1),
+        "flash_attention_bhsd": L,
+    }
+
+
+def drive_load(args, failures: list) -> dict:
+    """Checkpoint loading at the main path's configuration (Llama-2-7B width,
+    ``LOAD_LAYERS`` layers, w8a8 + int8 KV):
+
+    1. the bf16 weights, drawn from ``--seed``, written as a HF checkpoint of
+       ``LOAD_SHARDS`` safetensors shards with an index under ``build/``;
+    2. ``HydragenLlama.from_pretrained(dir, quantization="w8a8")`` on the
+       card. Gates: the loaded params equal the host quantizers' output on the
+       in-memory dict bit for bit (f32 scales, the MLP unpadded), and the
+       device's peak allocation during the load is at most LOAD_PEAK_RATIO
+       times the params' bytes;
+    3. request 1 of the main path through the graphs, K1 on f32 column
+       scales at N = K = 11,008: exact launches, tokens in range, logits
+       finite, graph equal to eager bit for bit;
+    4. ``save_checkpoint``, then ``load_checkpoint`` into a new engine and the
+       same request: tokens and every step's logits equal bit for bit;
+    5. the hierarchy ablation on the loaded model (a 1,024-token prompt, 16
+       suffixes of 128 tokens, 16 greedy samples each: 256 rows, 32 new
+       tokens), with ``disable_hierarchy`` False, then True: tokens equal,
+       or, where a bf16 tie breaks them, forced-stream logits within
+       TOL_NOSHARE (RMS, relative) at every step.
+
+    The directory is deleted at the end. Returns request 1's launches."""
+    import shutil
+
+    from hydragen_torch import HydragenLlama, SharedCacheOp
+    from hydragen_torch.models import hf
+    from hydragen_torch.models.checkpoint import flatten, load_checkpoint, save_checkpoint
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.ops import cuda_lib
+
+    tag, T = "load", NEW_TOKENS
+    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=LOAD_LAYERS)
+    L = cfg.num_hidden_layers
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    root = Path(__file__).resolve().parent / "build" / "load_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    stats = {}
+    try:
+        t = time.perf_counter()
+        state = hf_state_dict(cfg, g)
+        torch.cuda.empty_cache()
+        stats["draw_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        stats["bytes_written"] = write_hf_checkpoint(root / "hf", cfg, state, LOAD_SHARDS)
+        stats["write_s"] = time.perf_counter() - t
+
+        # 2. The load, its conversion (the reads of the mmap'd pages and the
+        # host quantization) timed apart.
+        convert, quant_s = hf.params_from_hf_state_dict, [0.0]
+
+        def timed_convert(*a, **kw):
+            t0 = time.perf_counter()
+            out = convert(*a, **kw)
+            quant_s[0] += time.perf_counter() - t0
+            return out
+
+        hf.params_from_hf_state_dict = timed_convert
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = time.perf_counter()
+            eng = HydragenLlama.from_pretrained(root / "hf", quantization="w8a8")
+            torch.cuda.synchronize()
+            stats["load_s"] = time.perf_counter() - t
+        finally:
+            hf.params_from_hf_state_dict = convert
+        stats["read_and_convert_s"] = quant_s[0]
+        stats["bytes_read"] = hf.checkpoint_bytes(root / "hf")
+        loaded = flatten(eng.params)
+        stats["params_bytes"] = sum(x.numel() * x.element_size() for x in loaded.values())
+        stats["device_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        ratio = stats["device_peak_bytes"] / stats["params_bytes"]
+        ok = ratio <= LOAD_PEAK_RATIO and eng.config == cfg
+        print(f"[{tag}] {cfg.num_hidden_layers} layers of llama-2-7b width: drawn in "
+              f"{stats['draw_s']:.2f} s, {stats['bytes_written'] / 1e9:.3f} GB written as "
+              f"{LOAD_SHARDS} safetensors shards in {stats['write_s']:.2f} s; from_pretrained "
+              f"(w8a8) load_s {stats['load_s']:.2f}, bytes read {stats['bytes_read']}, of it the "
+              f"reads and host quantization {stats['read_and_convert_s']:.2f} s; device peak "
+              f"{stats['device_peak_bytes']} B = {ratio:.4f} x the params' "
+              f"{stats['params_bytes']} B (tol {LOAD_PEAK_RATIO}); config as written "
+              f"{eng.config == cfg} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{tag}: device peak {ratio:.4f} x the params, config "
+                            f"{eng.config} (wrote {cfg})")
+        # The host quantizers alone: the same conversion of the in-memory dict.
+        t = time.perf_counter()
+        ref = flatten(hf.params_from_hf_state_dict(state, cfg, "w8a8"))
+        stats["host_quantize_s"] = time.perf_counter() - t
+        del state
+        t = time.perf_counter()
+        unequal = sorted(k for k in ref if k not in loaded or loaded[k].dtype != ref[k].dtype
+                         or not torch.equal(loaded[k].cpu(), ref[k]))
+        scales = {str(loaded[k].dtype) for k in loaded if k.endswith(".scale")}
+        ok = not unequal and set(loaded) == set(ref) and scales == {"torch.float32"} \
+            and loaded["layers.gate.q"].shape[1] == cfg.intermediate_size
+        print(f"[{tag}] loaded params against the host quantizers on the in-memory dict: "
+              f"{len(ref) - len(unequal)} of {len(ref)} tensors bit-equal (host quantization of the "
+              f"in-memory dict alone {stats['host_quantize_s']:.2f} s), weight scales "
+              f"{sorted(scales)}, MLP width {loaded['layers.gate.q'].shape[1]} (unpadded); "
+              f"checked in {time.perf_counter() - t:.2f} s -> {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"{tag}: loaded params differ from the host quantizers' "
+                            f"{unequal[:6]}, scales {scales}")
+        del ref, loaded
+        gc.collect()
+
+        # 3. Request 1 of the main path through the graphs, eager first.
+        prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
+        request1 = dict(input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T,
+                        temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=args.seed)
+        eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant="int8")
+        _, decode_s = time_decode_loop(eng)
+        eager = eager_yardstick(eng, request1)
+        decode_s[0] = 0.0
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks1, logits1 = eng.generate(return_logits=True, **request1)
+        torch.cuda.synchronize()
+        stats["request1_s"] = time.perf_counter() - t
+        stats["request1_decode_tok_s"] = BATCH * (T - 1) / decode_s[0]
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        want = expected_launches_load(L, T)
+        print(f"[{tag}] request 1 launches {json.dumps(launches)} (expected "
+              f"{json.dumps(want)}) -> {'ok' if launches == want else 'FAIL'}", flush=True)
+        if launches != want:
+            failures.append(f"{tag} launches {launches} != expected {want}")
+        ok = (tuple(toks1.shape) == (BATCH, T) and int(toks1.min()) >= 0
+              and int(toks1.max()) < cfg.vocab_size)
+        finite = len(logits1) == T and all(bool(torch.isfinite(x).all()) for x in logits1)
+        print(f"[{tag}] request 1 tokens {tuple(toks1.shape)} in range: {ok}; {len(logits1)} "
+              f"logit steps, all finite: {finite}", flush=True)
+        if not ok or not finite:
+            failures.append(f"{tag} request 1: tokens {tuple(toks1.shape)} in range {ok}, "
+                            f"logits finite {finite}")
+        compare_to_eager(tag, eager, toks1, logits1, failures)
+        logits1 = [x.cpu() for x in logits1]
+        del eager
+
+        # 4. The native checkpoint: save, reload into a new engine, the same request.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_checkpoint(root / "native", eng.config, eng.params)
+        stats["save_s"] = time.perf_counter() - t
+        stats["native_bytes"] = sum(f.stat().st_size for f in (root / "native").iterdir())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        cfg2, params2 = load_checkpoint(root / "native")
+        eng = HydragenLlama(cfg2, params2, quantization="w8a8")
+        del params2
+        torch.cuda.synchronize()
+        stats["reload_s"] = time.perf_counter() - t
+        eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant="int8")
+        _, decode_s = time_decode_loop(eng)
+        toks_r, logits_r = eng.generate(return_logits=True, **request1)
+        same = bool(torch.equal(toks_r, toks1)) and cfg2 == cfg
+        steps_equal = sum(bool(torch.equal(a.cpu(), b)) for a, b in zip(logits_r, logits1))
+        ok = same and steps_equal == T == len(logits_r)
+        print(f"[{tag}] native checkpoint: save_s {stats['save_s']:.2f}, "
+              f"{stats['native_bytes']} B on disk, load_s {stats['reload_s']:.2f}; request 1 "
+              f"again: tokens equal {same}, logit steps bit-equal {steps_equal} of {T} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{tag}: the reloaded native checkpoint differs (tokens equal "
+                            f"{same}, {steps_equal} of {T} logit steps bit-equal)")
+        del logits_r, logits1, toks_r
+
+        # 5. The hierarchy ablation on the loaded model.
+        aprompt = torch.randint(1, cfg.vocab_size, (1, ABLATION_PROMPT), generator=g,
+                                device="cuda")
+        asuffixes = torch.randint(1, cfg.vocab_size, (ABLATION_SUFFIXES, ABLATION_SUFFIX_LEN),
+                                  generator=g, device="cuda")
+        rows = ABLATION_SUFFIXES * ABLATION_SAMPLES
+        eng.setup_caches(rows, ABLATION_SUFFIX_LEN + ABLATION_NEW_TOKENS, [1, ABLATION_SUFFIXES],
+                         [ABLATION_PROMPT, ABLATION_SUFFIX_LEN], kv_quant="int8")
+        kw = dict(input_ids=[aprompt, asuffixes], num_return_sequences=ABLATION_SAMPLES,
+                  temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=args.seed)
+        arms = {}
+        for off in (False, True):
+            eng.generate(disable_hierarchy=off, **dict(kw, max_new_tokens=3))  # captures
+            decode_s[0] = 0.0
+            cuda_lib.reset_launches()
+            toks = eng.generate(disable_hierarchy=off, max_new_tokens=ABLATION_NEW_TOKENS, **kw)
+            torch.cuda.synchronize()
+            arms[off] = dict(toks=toks, decode_tok_s=rows * (ABLATION_NEW_TOKENS - 1) / decode_s[0],
+                             launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v})
+        stats["hierarchy_decode_tok_s"] = arms[False]["decode_tok_s"]
+        stats["no_hierarchy_decode_tok_s"] = arms[True]["decode_tok_s"]
+        same = bool(torch.equal(arms[False]["toks"], arms[True]["toks"]))
+        print(f"[{tag}] hierarchy ablation ({ABLATION_PROMPT}-token prompt, "
+              f"{ABLATION_SUFFIXES} suffixes of {ABLATION_SUFFIX_LEN}, {ABLATION_SAMPLES} samples "
+              f"each, {ABLATION_NEW_TOKENS} new tokens): decode tok/s through graphs, hierarchy "
+              f"{stats['hierarchy_decode_tok_s']:.1f}, disable_hierarchy "
+              f"{stats['no_hierarchy_decode_tok_s']:.1f}; launches hierarchy "
+              f"{json.dumps(arms[False]['launches'])}, disable_hierarchy "
+              f"{json.dumps(arms[True]['launches'])}; tokens equal {same}", flush=True)
+        ok = tuple(arms[True]["toks"].shape) == (rows, ABLATION_NEW_TOKENS)
+        if not same:
+            # Both arms on the hierarchy run's tokens: every step's logits.
+            forced = {}
+            for off in (False, True):
+                _, lg = eng.generate(disable_hierarchy=off, token_overrides=arms[False]["toks"],
+                                     return_logits=True, max_new_tokens=ABLATION_NEW_TOKENS, **kw)
+                forced[off] = [x.float() for x in lg]
+            worst = max(rms_rel(a, b) for a, b in zip(forced[True], forced[False]))
+            ok = ok and worst <= TOL_NOSHARE
+            print(f"[{tag}] forced stream: largest rms distance {worst:.4g} (tol "
+                  f"{TOL_NOSHARE})", flush=True)
+        if not ok:
+            failures.append(f"{tag}: disable_hierarchy differs from the hierarchy run")
+        print(f"[{tag}] {json.dumps(stats)}", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # The serving phase: a stream of requests through ContinuousBatcher over one
 # shared prompt (scripts/serving_bench.py's traffic on the TPU side).
 SERVE_REQUESTS = 640
@@ -1862,10 +2241,12 @@ def main() -> int:
     print_ptxas(cuda_lib.BUILD_LOG)
 
     report: dict = {}
-    launches: dict = {"main": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {}, "serving": {}}
+    launches: dict = {"main": {}, "load": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {},
+                      "serving": {}}
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
+        ("load", lambda: launches["load"].update(drive_load(args, failures))),
         ("int4 path", lambda: launches["int4"].update(drive_path(args, failures, "int4"))),
         ("gqa path", lambda: launches["gqa"].update(drive_path(args, failures, "gqa"))),
         ("gqa no-sharing", lambda: launches["gqa no-sharing"].update(
@@ -1895,6 +2276,8 @@ def main() -> int:
     sources = {
         "w8a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222", "main"),
         "w8a8_matmul": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:118", None),
+        "w8a8_matmul_cached_f32_scales": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222",
+                                          "load"),
         "flash_attention_cached_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:924",
                                         "main"),
         "decode_attention_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:616",

@@ -1,9 +1,11 @@
 """HydragenLlama: the generation engine, in PyTorch.
 
-Port of ``hydragen_tpu.core.engine`` (single device): ``setup_caches`` /
-``append_shared`` / ``process_unique`` / ``generate`` with
-``shared_cache_op``, ``starting_logits``, ``return_logits``,
-``token_overrides``, temperature and top-p sampling, EOS and stop sequences.
+Port of ``hydragen_tpu.core.engine`` (single device): ``from_pretrained`` /
+``from_hf_model`` / ``setup_caches`` / ``append_shared`` / ``process_unique``
+/ ``generate`` with ``shared_cache_op``, ``starting_logits``,
+``return_logits``, ``token_overrides``, temperature and top-p sampling, EOS
+and stop sequences, and the ``disable_hydragen`` and ``disable_hierarchy``
+ablations.
 
 Where the JAX engine jit-compiles one program per mode, the prefills here
 run eagerly. The decode loop, which the JAX engine compiles into one
@@ -241,6 +243,33 @@ class HydragenLlama:
         self._decode_params = None
         self._graph_pool = None
         self._graph_stream = None
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(cls, path, dtype: str = "bfloat16", **kw) -> "HydragenLlama":
+        """An engine over a local HF Llama checkpoint directory
+        (``models/hf.py:from_pretrained``). ``quantization`` goes to the
+        conversion, which quantizes on the host, so bf16 originals never
+        occupy device memory (f32 int8 scales, no MLP padding), and then to
+        the engine, which finds the weights quantized. The device is checked
+        before the checkpoint is read."""
+        from hydragen_torch.models import hf
+
+        resolve_device(kw.get("device"))
+        cfg, params = hf.from_pretrained(path, dtype=dtype, quantization=kw.get("quantization"))
+        return cls(cfg, params, **kw)
+
+    @classmethod
+    def from_hf_model(cls, hf_model, dtype: str = "bfloat16", **kw) -> "HydragenLlama":
+        """An engine over an in-memory transformers ``LlamaForCausalLM``. It
+        converts unquantized; ``quantization`` goes to the engine, which runs
+        ``quantize_params`` (bf16 scales, the MLP padded under w8a8 and
+        w4a8)."""
+        from hydragen_torch.models import hf
+
+        cfg, params = hf.from_hf_model(hf_model, dtype=dtype)
+        return cls(cfg, params, **kw)
 
     def graph(self, enabled: bool = True) -> "HydragenLlama":
         """Decode through captured CUDA graphs (the default on the card, as
@@ -526,6 +555,7 @@ class HydragenLlama:
         shared_cache_op: str = SharedCacheOp.PRESERVE,
         disable_hydragen: bool = False,
         disable_attention: bool = False,
+        disable_hierarchy: bool = False,
         token_overrides=None,
         seed: int = 0,
     ):
@@ -542,7 +572,12 @@ class HydragenLlama:
         The last given input is the unique rows' prefill, a level in use is
         copied into the front of every unique row (``copy_shared_to_unique``)
         and attention reads each row's whole history from the unique cache.
-        Refused with int4 unique KV."""
+        Refused with int4 unique KV.
+
+        ``disable_hierarchy``: the no-hierarchy ablation. Exactly three
+        levels in all and ``num_return_sequences > 1``: the last given level
+        goes to the unique cache and is repeated for the samples, in place of
+        a shared level of its own."""
         assert self.cache is not None, "call setup_caches first"
         assert (input_ids is None) or (starting_logits is None)
         assert not (input_ids is None and starting_logits is None)
@@ -561,11 +596,14 @@ class HydragenLlama:
         if shared_cache_op == SharedCacheOp.WIPE:
             self.empty_shared_cache()
         og_levels = self.num_used_levels
+        total_levels = og_levels + len(input_ids) + (1 if num_return_sequences > 1 else 0)
         if disable_hydragen:
-            total_levels = og_levels + len(input_ids) + (1 if num_return_sequences > 1 else 0)
             assert total_levels == 2, "disable_hydragen supports exactly 2 levels"
             if input_ids and (num_return_sequences > 1 or len(input_ids) == 2):
                 assert input_ids[0].shape[0] == 1
+        if disable_hierarchy:
+            assert total_levels == 3 and num_return_sequences > 1, (
+                "disable_hierarchy needs exactly 3 levels and num_return_sequences > 1")
 
         if seq_lens is None:
             seq_lens = [None] * len(input_ids)
@@ -576,7 +614,7 @@ class HydragenLlama:
         else:
             total_batch = int(starting_logits.shape[0]) * num_return_sequences
 
-        if num_return_sequences > 1 and not disable_hydragen:
+        if num_return_sequences > 1 and not (disable_hierarchy or disable_hydragen):
             shared_ids, shared_lens_in = input_ids, seq_lens
             suffix_ids, suffix_lens = None, None
         elif input_ids:

@@ -1,7 +1,9 @@
 // W8A8 and W4A8 GEMMs for Hopper.
 //
 // K1, w8a8_kernel: y[M,N] = (f32(i32(a_s8[M,K] . w_s8[layer][N,K]^T)) *
-// row_scale[M]) * col_scale[N], rounded once to bf16 or f32. Replaces the
+// row_scale[M]) * col_scale[N], rounded once to bf16 or f32; col_scale is
+// bf16 (quantize_params) or f32 (the HF loader's host quantizer), converted
+// to f32 where the epilogue stages it and nowhere else. Replaces the
 // TPU kernels hydragen_tpu/ops/gemm.py:_w8a8_cached_kernel (entry
 // w8a8_matmul_cached) and _w8a8_kernel (entry w8a8_matmul, the same kernel
 // at L = 1).
@@ -129,10 +131,13 @@ __device__ __forceinline__ float dequant(int acc, float rs, float cs) {
 // Grid: one block a (tile, split), the `splits` blocks of a tile adjacent
 // and forming one cluster. split_tiles: 128-byte K steps a split covers (the
 // last split takes the rest).
-template <int MW, int BN, typename OutT>
+__device__ __forceinline__ float to_f32_scale(float s) { return s; }
+__device__ __forceinline__ float to_f32_scale(__nv_bfloat16 s) { return __bfloat162float(s); }
+
+template <int MW, int BN, typename OutT, typename ScaleT>
 __global__ void __launch_bounds__(w8::THREADS, 1)
     w8a8_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-                const float* __restrict__ row_scale, const __nv_bfloat16* __restrict__ col_scale,
+                const float* __restrict__ row_scale, const ScaleT* __restrict__ col_scale,
                 OutT* __restrict__ out, int M, int N, int K, int layer, int splits,
                 int split_tiles) {
   using C = w8::Cfg<MW, BN>;
@@ -177,7 +182,7 @@ __global__ void __launch_bounds__(w8::THREADS, 1)
         if (i < BM) {
           srs[i] = m0 + i < M ? row_scale[m0 + i] : 0.f;
         } else {
-          scs[i - BM] = n0 + i - BM < N ? __bfloat162float(col_scale[n0 + i - BM]) : 0.f;
+          scs[i - BM] = n0 + i - BM < N ? to_f32_scale(col_scale[n0 + i - BM]) : 0.f;
         }
       }
     } else if (pt == 0) {
@@ -688,12 +693,13 @@ struct W8a8Call {
   int M, N, K, L, layer, splits, split_tiles;
 };
 
-// The launch of one (MW, BN, OutT) instantiation: grid and cluster, or, with
-// `max_clusters` set, only how many of its clusters the card holds at once.
-template <int MW, int BN, typename OutT>
+// The launch of one (MW, BN, OutT, ScaleT) instantiation: grid and cluster,
+// or, with `max_clusters` set, only how many of its clusters the card holds at
+// once.
+template <int MW, int BN, typename OutT, typename ScaleT>
 int launch_w8a8(const W8a8Call& c, cudaStream_t st, int* max_clusters = nullptr) {
   using C = w8::Cfg<MW, BN>;
-  auto kernel = w8a8_kernel<MW, BN, OutT>;
+  auto kernel = w8a8_kernel<MW, BN, OutT, ScaleT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e =
@@ -722,17 +728,23 @@ int launch_w8a8(const W8a8Call& c, cudaStream_t st, int* max_clusters = nullptr)
   if (e != 0) return e;
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, kernel, amap, wmap, static_cast<const float*>(c.row_scale),
-      static_cast<const __nv_bfloat16*>(c.col_scale), static_cast<OutT*>(c.out), c.M, c.N, c.K,
+      static_cast<const ScaleT*>(c.col_scale), static_cast<OutT*>(c.out), c.M, c.N, c.K,
       c.layer, c.splits, c.split_tiles));
 }
 
-template <typename OutT>
+template <typename OutT, typename ScaleT>
 int dispatch_w8a8(const W8a8Call& c, int bm, int bn, cudaStream_t st, int* max_clusters) {
-  if (bm == 256 && bn == 128) return launch_w8a8<2, 128, OutT>(c, st, max_clusters);
-  if (bm == 256 && bn == 64) return launch_w8a8<2, 64, OutT>(c, st, max_clusters);
-  if (bm == 128 && bn == 128) return launch_w8a8<1, 128, OutT>(c, st, max_clusters);
-  if (bm == 128 && bn == 64) return launch_w8a8<1, 64, OutT>(c, st, max_clusters);
+  if (bm == 256 && bn == 128) return launch_w8a8<2, 128, OutT, ScaleT>(c, st, max_clusters);
+  if (bm == 256 && bn == 64) return launch_w8a8<2, 64, OutT, ScaleT>(c, st, max_clusters);
+  if (bm == 128 && bn == 128) return launch_w8a8<1, 128, OutT, ScaleT>(c, st, max_clusters);
+  if (bm == 128 && bn == 64) return launch_w8a8<1, 64, OutT, ScaleT>(c, st, max_clusters);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename OutT>
+int dispatch_w8a8_scale(const W8a8Call& c, int bm, int bn, int scale_f32, cudaStream_t st) {
+  return scale_f32 ? dispatch_w8a8<OutT, float>(c, bm, bn, st, nullptr)
+                   : dispatch_w8a8<OutT, __nv_bfloat16>(c, bm, bn, st, nullptr);
 }
 
 // One K6 launch of the (NA, OutT) instantiation; gscale is the layer's [G, N].
@@ -775,7 +787,7 @@ int dispatch_w4a8(const void* a, const void* row_scale, const void* w, const voi
 extern "C" int hydragen_w8a8_gemm(const void* a, const void* row_scale, const void* w,
                                   const void* col_scale, void* out, int M, int N, int K, int L,
                                   int layer, int bm, int bn, int splits, int split_tiles,
-                                  int out_bf16, void* stream) {
+                                  int out_bf16, int scale_f32, void* stream) {
   const int k_tiles = (K + w8::BK - 1) / w8::BK;
   if (M < 1 || N < 2 || N % 2 || K < 16 || K % 16 || layer < 0 || layer >= L ||
       (splits != 1 && splits != 2 && splits != 4) || split_tiles < 1 ||
@@ -783,8 +795,8 @@ extern "C" int hydragen_w8a8_gemm(const void* a, const void* row_scale, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   const W8a8Call c{a, row_scale, w, col_scale, out, M, N, K, L, layer, splits, split_tiles};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? dispatch_w8a8<__nv_bfloat16>(c, bm, bn, st, nullptr)
-                  : dispatch_w8a8<float>(c, bm, bn, st, nullptr);
+  return out_bf16 ? dispatch_w8a8_scale<__nv_bfloat16>(c, bm, bn, scale_f32, st)
+                  : dispatch_w8a8_scale<float>(c, bm, bn, scale_f32, st);
 }
 
 // How many clusters of K1's (bm, bn, splits) launch the card holds at once
@@ -792,7 +804,7 @@ extern "C" int hydragen_w8a8_gemm(const void* a, const void* row_scale, const vo
 extern "C" int hydragen_w8a8_max_clusters(int bm, int bn, int splits, int* status) {
   const W8a8Call c{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 2, 128, 1, 0, splits, 1};
   int n = 0;
-  *status = dispatch_w8a8<__nv_bfloat16>(c, bm, bn, nullptr, &n);
+  *status = dispatch_w8a8<__nv_bfloat16, __nv_bfloat16>(c, bm, bn, nullptr, &n);
   return n;
 }
 

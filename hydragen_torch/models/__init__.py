@@ -1,1 +1,2 @@
-"""Model configuration, the Llama stack and parameter conversion."""
+"""Model configuration, the Llama stack, parameter conversion, HF loading and
+native checkpoints."""

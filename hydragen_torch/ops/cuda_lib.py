@@ -39,6 +39,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 LAUNCHES: dict[str, int] = {
     "w8a8_matmul_cached": 0,
     "w8a8_matmul": 0,
+    # K1 with f32 column scales (a HF-loaded model): its own instantiation.
+    "w8a8_matmul_cached_f32_scales": 0,
+    "w8a8_matmul_f32_scales": 0,
     "flash_attention_cached_bhsd": 0,
     "flash_attention_bhsd": 0,
     "flash_decode_bhsd": 0,

@@ -3,7 +3,8 @@ products with a fused dequant epilogue.
 
 Port of ``hydragen_tpu.ops.gemm``. Scheme:
 - int8 weights: per-output-channel s8, stored ``[out, in]``
-  (``ops/quant.py``), stacked ``[L, N, K]`` with bf16 scales ``[L, N]``;
+  (``ops/quant.py``), stacked ``[L, N, K]`` with bf16 scales ``[L, N]``
+  (f32 when loaded from a HF checkpoint, ``models/hf.py``);
 - int4 weights: planar-packed ``[L, N, K/2]`` int8 (byte j holds
   in-feature j low and j + K/2 high) with bf16 group scales ``[L, G, N]``;
 - activations: per-row dynamic s8 (one f32 scale per token row).
@@ -53,6 +54,11 @@ def w8a8_cached_plain(layer: int, a_q, a_scale, w_all, w_scale_all,
                       out_dtype=torch.bfloat16):
     """Plain PyTorch version of ``w8a8_matmul_cached``."""
     return w8a8_reference(a_q, a_scale, w_all[layer], w_scale_all[layer], out_dtype)
+
+
+# The column-scale types K1 takes: bf16 (quantize_params) and f32 (the host
+# quantizer of models/hf.py, as the JAX package's HF transplant keeps them).
+W8A8_SCALE_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def w8a8_supported(N: int, K: int) -> bool:
@@ -146,7 +152,7 @@ def gemm_plan(M: int, N: int, K: int, n_sm: int) -> GemmPlan:
 @functools.cache
 def _w8a8_fn():
     f = cuda_lib.library("gemm").hydragen_w8a8_gemm
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -185,15 +191,18 @@ def map_encodes() -> int:
 def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype, plan=None, out=None):
     """One K1 launch on layer ``layer`` of ``w [L, N, K]`` (a 2-D weight is
     the stack of one). ``plan`` (default ``gemm_plan``) and ``out`` (default
-    a new tensor) let the tests force a split and poison the output."""
+    a new tensor) let the tests force a split and poison the output. A launch
+    with f32 column scales counts under ``counter + "_f32_scales"``."""
     M, K = a_q.shape
     L, N, K2 = w.shape
     if K != K2 or not 0 <= layer < L:
         raise ValueError(f"w8a8 kernel: a {tuple(a_q.shape)} against weight "
                          f"{tuple(w.shape)} at layer {layer}")
+    if w_scale.dtype not in W8A8_SCALE_DTYPES:
+        raise ValueError(f"w8a8 kernel: weight scale must be bf16 or f32, got {w_scale.dtype}")
     dev = _check_operands("w8a8 kernel", (
         ("a_q", a_q, torch.int8), ("a_scale", a_scale, torch.float32),
-        ("weight", w, torch.int8), ("weight scale", w_scale, torch.bfloat16)), out_dtype)
+        ("weight", w, torch.int8), ("weight scale", w_scale, w_scale.dtype)), out_dtype)
     if a_scale.numel() != M or w_scale.shape != (L, N):
         raise ValueError(f"w8a8 kernel: scale shapes {tuple(a_scale.shape)} "
                          f"{tuple(w_scale.shape)} do not match M={M} L={L} N={N}")
@@ -208,10 +217,10 @@ def _launch_w8a8(counter, a_q, a_scale, w, w_scale, layer, out_dtype, plan=None,
         a_q.data_ptr(), a_scale.data_ptr(), w.data_ptr(),
         w_scale.data_ptr() + layer * N * w_scale.element_size(),
         out.data_ptr(), M, N, K, L, layer, *plan, int(out_dtype == torch.bfloat16),
-        cuda_lib.stream_ptr(dev),
+        int(w_scale.dtype == torch.float32), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(status, counter)
-    cuda_lib.LAUNCHES[counter] += 1
+    cuda_lib.LAUNCHES[counter + ("_f32_scales" if w_scale.dtype == torch.float32 else "")] += 1
     return out
 
 
@@ -220,7 +229,7 @@ def w8a8_matmul_cached(
     a_q: torch.Tensor,          # [M, K] s8 activations (quantize_rows)
     a_scale: torch.Tensor,      # [M, 1] f32
     w_all: torch.Tensor,        # [L, N, K] s8 stacked weights
-    w_scale_all: torch.Tensor,  # [L, N] bf16 per-(layer, out-channel) scales
+    w_scale_all: torch.Tensor,  # [L, N] bf16 or f32 per-(layer, out-channel) scales
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """``a @ w_all[layer]^T`` read straight out of the stacked weight: the
@@ -234,7 +243,7 @@ def w8a8_matmul_cached(
 
 def w8a8_matmul(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
     """2-D entry of K1: ``a @ w_q^T`` for one ``[N, K]`` s8 weight with bf16
-    scales ``[N]``, the same kernel at layer stride 0."""
+    or f32 scales ``[N]``, the same kernel at layer stride 0."""
     if not a_q.is_cuda:
         return w8a8_reference(a_q, a_scale, w_q, w_scale, out_dtype)
     if w_q.ndim != 2:

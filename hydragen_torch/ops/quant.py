@@ -6,7 +6,9 @@ Weights, int8: symmetric per-output-channel, payload stored transposed
 ``[..., out, in]`` with a bf16 scale ``[..., out]``. The payload is quantized
 against the bf16-rounded scale, so storing bf16 costs no precision. Because
 the scale is per output channel, dequantization commutes with the product:
-``y = x @ (w_q * s) == (x @ w_q) * s``.
+``y = x @ (w_q * s) == (x @ w_q) * s``. Weights quantized on the host by the
+HF loader (``models/hf.py``) keep an f32 scale, as the JAX package's do; every
+consumer takes either.
 
 Weights, int4 (:class:`Quantized4Tensor`): symmetric per-(K-group,
 out-channel) scales ``[..., G, out]`` bf16, payload planar-packed
@@ -28,7 +30,8 @@ import torch
 
 
 class QuantizedTensor(NamedTuple):
-    """int8 payload ``q [..., out, in]`` + bf16 scale ``[..., out]``."""
+    """int8 payload ``q [..., out, in]`` + bf16 (or, from the HF loader, f32)
+    scale ``[..., out]``."""
 
     q: torch.Tensor
     scale: torch.Tensor

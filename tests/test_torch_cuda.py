@@ -129,6 +129,53 @@ def test_w8a8_kernel_graph_replays_give_the_same_bits(dev):
     assert torch.equal(runs[0], _w8a8_oracle(a_q, a_s, w[1], ws[1], torch.bfloat16))
 
 
+# The projections of a HF-loaded w8a8 Llama-2-7B (f32 column scales, the MLP
+# unpadded): q/k/v/o (N = K = 4,096), gate/up (N = 11,008, K = 4,096) and down
+# (N = 4,096, K = 11,008), at decode (M = 256) and at 1,024- and 2,048-token
+# prefills, and a ragged shape.
+W8A8_F32_SCALE_SHAPES = [
+    (M, N, K) for M in (256, 1024, 2048)
+    for N, K in ((4096, 4096), (11008, 4096), (4096, 11008))
+] + [(5, 130, 96)]
+
+
+@pytest.mark.parametrize("M,N,K", W8A8_F32_SCALE_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_kernel_f32_col_scales_match_plain(dev, M, N, K, out_dtype):
+    """K1 with f32 column scales: one launch a call (under its own count),
+    within the plain version's tolerance, equal to the scaled exact product
+    bit for bit, and equal to the bf16-scale K1 where the f32 scales are
+    those bf16 scales cast up (the scale enters the epilogue as f32 either
+    way)."""
+    g = _gen(13)
+    a_q, a_s = tgemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+    w = torch.randint(-127, 128, (2, N, K), dtype=torch.int8, device=dev, generator=g)
+    ws = torch.rand(2, N, device=dev, generator=g) * 0.01 + 1e-3
+    before = dict(cuda_lib.LAUNCHES)
+    out = tgemm.w8a8_matmul_cached(1, a_q, a_s, w, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["w8a8_matmul_cached_f32_scales"] == \
+        before["w8a8_matmul_cached_f32_scales"] + 1
+    assert cuda_lib.LAUNCHES["w8a8_matmul_cached"] == before["w8a8_matmul_cached"]
+    ref = tgemm.w8a8_cached_plain(1, a_q, a_s, w, ws, out_dtype=torch.float32)
+    assert _rel(out, ref) < (1e-2 if out_dtype == torch.bfloat16 else 1e-5)
+    assert torch.equal(out, _w8a8_oracle(a_q, a_s, w[1], ws[1], out_dtype))
+    ws16 = ws.to(torch.bfloat16)
+    assert torch.equal(tgemm.w8a8_matmul_cached(1, a_q, a_s, w, ws16.float(), out_dtype),
+                       tgemm.w8a8_matmul_cached(1, a_q, a_s, w, ws16, out_dtype))
+
+
+def test_w8a8_kernel_raises_on_a_scale_dtype_it_does_not_take(dev):
+    """K1 takes bf16 or f32 column scales and raises on any other dtype."""
+    g = _gen(14)
+    a_q, a_s = tgemm.quantize_rows(torch.randn(4, 64, device=dev, generator=g))
+    w = torch.randint(-127, 128, (1, 32, 64), dtype=torch.int8, device=dev, generator=g)
+    for dt in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="weight scale must be bf16 or f32"):
+            tgemm.w8a8_matmul_cached(0, a_q, a_s, w, torch.full((1, 32), 1e-2, dtype=dt,
+                                                                 device=dev))
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal,int8,lens", [
     (True, False, None), (False, True, [70, 0]), (True, True, [100, 37]),
