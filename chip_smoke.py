@@ -14,11 +14,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    function, that call's time. K1 is timed at every decode and 2,048-row
    shape of both models and at request 2's 32,768-row gate/up, and each
    output must equal the scaled ``torch._int_mm`` product bit for bit; its
-   f32-scale instantiation likewise at the unpadded 7B MLP's decode shapes,
-   beside the bf16-scale K1. K2
-   and K4 are also timed at the other shapes the paths give them (the 8B
+   f32-scale instantiation likewise at all 9 shapes the load path gives it
+   (the 7 unpadded projections at M = 256, 1,024 and 2,048), beside the
+   bf16-scale K1; and at a tp=2 rank's shapes (q/k/v N=2,048, o K=2,048,
+   gate/up N=5,632, down K=5,632; M = 256 and 2,048), nested under "tp2".
+   K2 and K4 are also timed at the other shapes the paths give them (the 8B
    decode read, the 7B request-2 read, the 8B prefill, the 7B suffix
-   prefill), nested under their entries. K6 is held to its f32 oracle at
+   prefill, a tp=2 rank's 16-head read and prefill, an sp=2 rank's
+   1,024-token read), and K3 at a tp=2 rank's 16 heads, nested under their
+   entries. K6 is held to its f32 oracle at
    every decode and 2,048-row shape of the 7B int4 layer and at its 2-D
    entry. K7 must equal its plain version byte for byte at a low-plane and
    a high-plane slot, each with its own bound (the low plane reads no old
@@ -98,6 +102,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    held against ``impl="torch"`` (every op's plain version), with the plain
    path in fp32 as the yardstick of all.
 
+11. parallel: ``hydragen_torch.parallel`` at the main path's configuration
+   (w8a8, int8 KV, random weights from ``--seed``, each rank's global draw
+   sliced and freed before its request), request 1 alone: (a) tp=2, two
+   ranks sharing the one card over gloo, 32 layers, eager; (b) sp=2, the
+   same at ``PAR_SP_LAYERS`` layers, the level split 1,024 + 1,024; gates on
+   each rank: exact launches at the sharded shapes, exact collectives, the
+   parameter bytes the sharding rules give, both ranks' tokens equal, and
+   the logits of the ranks' token stream within ``TOL_NOSHARE`` of the
+   meshless engine's (run here after the ranks); decode tok/s and ms a
+   step split into the collectives' host time and the rest. (c) a one-rank
+   NCCL mesh (``keep_trivial``) through the decode graphs: graph = eager =
+   meshless bit for bit, the captured step's 64 all-reduces and one
+   all-gather counted. ``--tp4`` runs only tp=4 over NCCL on four cards
+   (eager, then graphs: bit for bit), which the default run never takes.
+
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
 any phase fails, no CUDA device is present or the package is not beside the
@@ -118,6 +137,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -131,7 +151,7 @@ NEW_TOKENS = 64  # per request; cut this, never the width or the batch
 # The kernel phase's GEMMs cycle over this many layers of weights, and sum
 # one layer's projections: q, k, v, o share a shape, as do gate and up.
 GEMM_LAYERS = 6
-PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
+PER_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1, "qkv": 3, "o": 1}
 PROFILE_STEPS = 8
 
 TOL_REL = 2e-2  # kernel vs plain: max |err| / max |plain|, bf16 outputs
@@ -276,6 +296,12 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     shapes_hf = {"qkvo": (H, H), "gate_up": (I_HF, H), "down": (H, I_HF)}
     check_k1(report, time_ms, g, record, torch.float32, shapes_hf,
              [(M, key) for M in (BATCH, ABLATION_PROMPT, SHARED_LEN) for key in shapes_hf])
+    # K1 at a tp=2 rank's shapes (phase parallel, nested under "tp2"): q/k/v
+    # and gate/up on their column slices, o and down on their row slices.
+    H2, I2 = H // 2, I_PAD // 2
+    shapes_tp2 = {"qkv": (H2, H), "o": (H, H2), "gate_up": (I2, H), "down": (H, I2)}
+    check_k1(report, time_ms, g, record, torch.bfloat16, shapes_tp2,
+             [(M, key) for M in (BATCH, SHARED_LEN) for key in shapes_tp2], nest="tp2")
 
     # K6: the int4 projections of one layer (group 128), at decode and at the
     # shared prefill, then the gate/up projection of request 2's unique
@@ -457,7 +483,8 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_flash_shapes(report, time_ms, g, record)
 
 
-def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: list) -> dict:
+def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: list,
+             nest: str | None = None) -> dict:
     """K1 (``w8a8_matmul_cached``) on column scales of ``scale_dtype`` at each
     (M, projection) of ``runs``, the projections' (N, K) in ``shapes``. Each
     output is held to the plain version, to the exact i32 product scaled in
@@ -467,7 +494,9 @@ def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: 
     way), whose device time stands beside theirs. device_ms: a CUDA graph of
     the calls (no host work between them); ms: host-paced. The report sums
     one decode layer's 7 projections (M = BATCH); each shape's own readings
-    are nested under "shapes". Returns ``{projection: (w, ws, w transposed)}``."""
+    are nested under "shapes". With ``nest`` the report goes under that key of
+    the kernel's entry (its sharded shapes). Returns ``{projection: (w, ws, w
+    transposed)}``."""
     from hydragen_torch.ops import cuda_lib, gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
@@ -538,15 +567,19 @@ def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: 
             acc["err"] = max(acc["err"], err)
         del a_q, a_s, out
     bms, by = bound_ms(acc.pop("bytes"), acc.pop("ops"), "int8")
-    (N, K), (I, _) = shapes["qkvo"], shapes["gate_up"]
-    report[name] = dict(
+    projections = "; ".join(f"{key}: N={N} K={K}" for key, (N, K) in shapes.items())
+    entry = dict(
         max_abs_err=acc.pop("err"), **acc, bound_ms=bms, bound_by=by, shapes=per_shape,
-        at=f"sum of one decode layer's 7 projections (q, k, v, o: N=K={N}; gate, up: N={I} "
-           f"K={K}; down: N={K} K={I}) with {'f32' if f32 else 'bf16'} column scales, M={BATCH} "
+        at=f"sum of one decode layer's 7 projections ({projections}) with "
+           f"{'f32' if f32 else 'bf16'} column scales, M={BATCH} "
            f"(library: torch._int_mm, no scale epilogue; device_ms: from a CUDA graph of the "
            f"calls" + ("; bf16_scales_device_ms: the bf16-scale K1 at the same shapes" if f32
                        else "") + ")",
     )
+    if nest is None:
+        report[name] = entry
+    else:
+        report[name][nest] = entry
     return weights
 
 
@@ -564,16 +597,21 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
     dev = torch.device("cuda")
     F = torch.nn.functional
     NL, hq, hkv, d = 4, 32, 32, 128
-    qd = torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
-    own = tuple(torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
-                for _ in range(2))
-    sh = (torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
-          torch.randn(BATCH, hq, 1, device=dev, generator=g) * 2)
+    qd_all = torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16)
+    own_all = tuple(torch.randn(BATCH, hkv, 1, d, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+    sh_all = (torch.randn(BATCH, hq, 1, d, device=dev, generator=g).to(torch.bfloat16),
+              torch.randn(BATCH, hq, 1, device=dev, generator=g) * 2)
 
-    def k3_case(name, S, filled, bits, lens=None):
-        """K3 over [NL, 256, S, 32, 128] caches (S byte rows; int4 holds 2S
-        tokens), ``filled`` tokens a row unless ``lens`` says otherwise.
-        Returns its readings and the cache buffers."""
+    def k3_case(name, S, filled, bits, lens=None, heads=hkv):
+        """K3 over [NL, 256, S, heads, 128] caches (S byte rows; int4 holds
+        2S tokens; ``heads`` query and kv heads, 32 unless a tp rank's 16),
+        ``filled`` tokens a row unless ``lens`` says otherwise. Returns its
+        readings and the cache buffers."""
+        hq = hkv = heads
+        qd = qd_all[:, :hq].contiguous()
+        own = tuple(x[:, :hkv].contiguous() for x in own_all)
+        sh = tuple(x[:, :hq].contiguous() for x in sh_all)
         planes = 2 if bits == 4 else 1
         shape = (NL, BATCH, S, hkv, d)
         ck, cv = (torch.randint(-128 if bits == 4 else -127, 128, shape, dtype=torch.int8,
@@ -637,11 +675,17 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
     window = SUFFIX_LEN + NEW_TOKENS
     del bufs
     r2, bufs = k3_case("decode_attention_cached request 2", window, window - 1, 8)
+    del bufs
+    # A tp=2 rank's read of request 1's last step: 16 query and kv heads.
+    r_tp2, bufs = k3_case("decode_attention_cached tp=2 rank (16 heads)", 64, 63, 8,
+                          heads=hkv // 2)
     report["decode_attention_cached"] = dict(
         **r1, at="b=256, 63 of 64 int8 slots, own token + shared partial ("
                  + yardstick.format(n=63) + ")",
         request2=dict(r2, at=f"b=256, {window - 1} of {window} int8 slots ("
                              + yardstick.format(n=window - 1) + ")"),
+        tp2=dict(r_tp2, at="a tp=2 rank: b=256, 16 kv heads, 63 of 64 int8 slots, flat "
+                           "local scales (" + yardstick.format(n=63) + ")"),
     )
     del bufs
     # int4, request 2's last step: a 192-token window (S = 96 byte rows),
@@ -761,16 +805,20 @@ def check_flash_shapes(report: dict, time_ms, g, record) -> None:
         outs = [fn(q[:, h * group:(h + 1) * group], h) for h in range(hkv)]
         return torch.cat([o for o, _ in outs], 1), torch.cat([lse for _, lse in outs], 1)
 
-    # K2: one layer of an int8 level, S = 2,048, read in place.
-    for key, hq, hkv, m in (("llama_3_8b_decode", 32, 8, BATCH),
-                            ("request2_read", 32, 32, BATCH * SUFFIX_LEN)):
+    # K2: one layer of an int8 level read in place, S = 2,048, and at the
+    # sharded reads of phase parallel: a tp=2 rank's 16 heads, an sp=2
+    # rank's 1,024-token slice.
+    for key, hq, hkv, m, S in (("llama_3_8b_decode", 32, 8, BATCH, SHARED_LEN),
+                               ("request2_read", 32, 32, BATCH * SUFFIX_LEN, SHARED_LEN),
+                               ("tp2_decode", 16, 16, BATCH, SHARED_LEN),
+                               ("sp2_decode", 32, 32, BATCH, SHARED_LEN // 2)):
         NL = 3
-        shape = (NL, 1, hkv, SHARED_LEN, d)
+        shape = (NL, 1, hkv, S, d)
         lk, lv = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
                   for _ in range(2))
         lks, lvs = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 1e-3
                     for _ in range(2))
-        lens = torch.full((1,), SHARED_LEN, dtype=torch.int32, device=dev)
+        lens = torch.full((1,), S, dtype=torch.int32, device=dev)
         q = torch.randn(1, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
         kw = dict(kv_seq_lens=lens, k_scale_all=lks, v_scale_all=lvs)
         o, lse = flash.flash_attention_cached_bhsd(NL - 1, q, lk, lv, **kw)
@@ -790,12 +838,12 @@ def check_flash_shapes(report: dict, time_ms, g, record) -> None:
             lambda i: flash.flash_attention_cached_bhsd(i, q, lk, lv, **kw), NL))
         ldms = cuda_graph_time_ms(Cycle(lambda i: F.scaled_dot_product_attention(
             q, kdq[i], vdq[i], enable_gqa=hq != hkv), NL))
-        nbytes = 2 * q.numel() * 2 + 2 * hkv * SHARED_LEN * (d + 4) + hq * m * 4
-        bms, by = bound_ms(nbytes, 4 * hq * m * SHARED_LEN * d, "bf16")
+        nbytes = 2 * q.numel() * 2 + 2 * hkv * S * (d + 4) + hq * m * 4
+        bms, by = bound_ms(nbytes, 4 * hq * m * S * d, "bf16")
         splits, chunk = flash.flash_plan(
-            hkv, hq // hkv * m, SHARED_LEN,
+            hkv, hq // hkv * m, S,
             torch.cuda.get_device_properties(dev).multi_processor_count)
-        record(f"flash_attention_cached_bhsd {key}: hkv={hkv} M={hq // hkv * m} S={SHARED_LEN} "
+        record(f"flash_attention_cached_bhsd {key}: hkv={hkv} M={hq // hkv * m} S={S} "
                f"int8, {splits} KV splits of {chunk}", ok,
                f"max_abs_err {err:.4g} rel {rel:.3g} lse_err {lerr:.3g} ms {ms:.4f} plain_ms "
                f"{pms:.4f} sdpa_ms {lms:.4f} bound_ms {bms:.4f}; device (graph) {dms:.4f}, "
@@ -803,14 +851,15 @@ def check_flash_shapes(report: dict, time_ms, g, record) -> None:
         report["flash_attention_cached_bhsd"][key] = dict(
             max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
             device_ms=dms, library_device_ms=ldms,
-            at=f"hkv={hkv}, {hq // hkv * m} folded rows, S={SHARED_LEN} int8, KV splits "
+            at=f"hkv={hkv}, {hq // hkv * m} folded rows, S={S} int8, KV splits "
                f"{splits} (library: SDPA on bf16 dequantized k/v"
                f"{', enable_gqa' if hq != hkv else ''}; plain: one kv head at a time)")
         del lk, lv, lks, lvs, q, o, lse, kdq, vdq
 
     # K4: causal bf16 prefills.
     for key, b, hq, hkv, m in (("llama_3_8b_prefill", 1, 32, 8, SHARED_LEN),
-                               ("suffix_prefill", BATCH, 32, 32, SUFFIX_LEN)):
+                               ("suffix_prefill", BATCH, 32, 32, SUFFIX_LEN),
+                               ("tp2_prefill", 1, 16, 16, SHARED_LEN)):
         q = torch.randn(b, hq, m, d, device=dev, generator=g).to(torch.bfloat16)
         k, v = (torch.randn(b, hkv, m, d, device=dev, generator=g).to(torch.bfloat16)
                 for _ in range(2))
@@ -2203,9 +2252,333 @@ def check_plain_path(args, failures: list, path: str) -> None:
                                 f"{p_max:.4g}")
 
 
+# Phase parallel: two ranks sharing the card over gloo, (a) tp=2 at full
+# depth, (b) sp=2 at PAR_SP_LAYERS layers (full width; cut from 32 so the
+# phase stays near two minutes), and (c) one rank of an NCCL mesh through the
+# decode graphs.
+PAR_SP_LAYERS = 8
+PAR_TIMEOUT = 600.0  # seconds a spawn may take, its set-up included
+
+
+def expected_launches_request1(L: int, T: int) -> dict:
+    """Request 1 of the main path alone: a shared prefill (7L GEMMs, L causal
+    flash) and T-1 decode steps (7L GEMMs, L level reads, L unique reads)."""
+    return {
+        "w8a8_matmul_cached": 7 * L * T,
+        "flash_attention_cached_bhsd": L * (T - 1),
+        "decode_attention_cached": L * (T - 1),
+        "flash_attention_bhsd": L,
+    }
+
+
+def expected_collectives_request1(kind: str, L: int, T: int) -> dict:
+    """The counted collectives of request 1 on each rank. tp: two sum
+    all-reduces a layer (o, down) and one all-gather of the logits, in the
+    prefill and in each of the T-1 steps. sp: each decode layer's level read
+    merges its two halves (one max and one sum all-reduce); the prefill reads
+    no level."""
+    if kind == "sp2":
+        return {"all_reduce_sum": L * (T - 1), "all_reduce_max": L * (T - 1), "all_gather": 0}
+    return {"all_reduce_sum": 2 * L * T, "all_reduce_max": 0, "all_gather": T}
+
+
+def expected_param_bytes(cfg, tp: int) -> int:
+    """A rank's parameter bytes under the sharding rules, from the shapes:
+    ``init_params(quantized="w8a8")``'s bf16 embedding and norms, int8
+    payloads with bf16 column scales, the MLP padded to 11,264; q/k/v,
+    gate/up and the LM head split on their columns, o and down on their
+    rows (their scales whole)."""
+    H, V, L, hd = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers, cfg.head_dim
+    I = -(-cfg.intermediate_size // 512) * 512
+    Hq, Hkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    n = V * H * 2 + H * 2 + (V // tp) * (H + 2) + 2 * L * H * 2
+    for N, K, column in ((Hq, H, True), (Hkv, H, True), (Hkv, H, True), (H, Hq, False),
+                         (I, H, True), (I, H, True), (H, I, False)):
+        n += L * (N // tp) * (K + 2) if column else L * N * (K // tp + 2)
+    return n
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(t.numel() * t.element_size() for t in tree)
+    return tree.numel() * tree.element_size()
+
+
+def parallel_config(kind: str):
+    import dataclasses
+
+    from hydragen_torch.models.config import PRESETS
+
+    cfg = PRESETS["llama-2-7b"]
+    return dataclasses.replace(cfg, num_hidden_layers=PAR_SP_LAYERS) if kind == "sp2" else cfg
+
+
+def parallel_engine(kind: str, seed: int, mesh=None):
+    """The main path's engine (w8a8, int8 KV, request 1's cache) over
+    ``mesh`` (None: meshless), with its prompt: the weights drawn from
+    ``seed`` on the card as the main path draws them, then sliced for the
+    rank, the global draw freed before the request."""
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.models.llama import init_params
+
+    cfg = parallel_config(kind)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, g, quantized="w8a8", device="cuda")
+    eng = HydragenLlama(cfg, params, quantization="w8a8", mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng.setup_caches(BATCH, SUFFIX_LEN + NEW_TOKENS, [1], [SHARED_LEN], kv_quant="int8")
+    prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
+    return eng, prompt
+
+
+def request1(prompt, seed: int) -> dict:
+    from hydragen_torch import SharedCacheOp
+
+    return dict(input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=NEW_TOKENS,
+                temperature=0.0, shared_cache_op=SharedCacheOp.WIPE, seed=seed)
+
+
+def parallel_rank(rank: int, world: int, kind: str, seed: int) -> dict:
+    """One rank of phase parallel's (a) ``kind="tp2"`` or (b) ``"sp2"``: two
+    ranks on the one card over gloo, request 1 through the eager loop; or
+    of ``--tp4``'s ``"tp4"``: four ranks on four cards over NCCL, request 1
+    eagerly and then through the decode graphs.
+    Returns its tokens, row 0's logits a step, launch and collective counts,
+    parameter bytes, device peaks and times; the decode loop's collectives
+    are timed by ``mesh.timed_collectives`` (host staging, transfer and the
+    wait for the other rank, after a synchronize that leaves this rank's
+    queued kernels out)."""
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.parallel import make_mesh
+    from hydragen_torch.parallel import mesh as mesh_lib
+
+    dev = f"cuda:{rank}" if kind == "tp4" else "cuda:0"
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(sp=2, device=dev) if kind == "sp2" else make_mesh(tp=world, device=dev)
+    t_rank = time.perf_counter()
+
+    def reached(stage):  # where a rank is, should a run stall
+        print(f"[parallel {kind}] rank {rank}: {stage} at "
+              f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng, prompt = parallel_engine(kind, seed, mesh)
+    torch.cuda.synchronize()
+    reached("engine ready")
+    out = dict(setup_s=time.perf_counter() - t, param_bytes=param_bytes(eng.params),
+               draw_peak_GiB=torch.cuda.max_memory_allocated() / 2**30,
+               graphs=eng.graphs_enabled)
+    decode_s = [0.0]
+    steps = eng._decode_steps
+
+    def timed_steps(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mesh_lib.timed_collectives():
+            try:
+                return steps(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                decode_s[0] += time.perf_counter() - t
+
+    eng._decode_steps = timed_steps
+    eng.graph(False)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    mesh_lib.reset_collectives()
+    t = time.perf_counter()
+    toks, logits = eng.generate(return_logits=True, **request1(prompt, seed))
+    torch.cuda.synchronize()
+    reached("eager request done")
+    out.update(
+        request_s=time.perf_counter() - t, decode_s=decode_s[0],
+        collective_s=mesh_lib.COLLECTIVE_SECONDS[0],
+        launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+        collectives=dict(mesh_lib.COLLECTIVES),
+        request_peak_GiB=torch.cuda.max_memory_allocated() / 2**30,
+        toks=toks, logits0=torch.stack([x[0].float() for x in logits]),
+        finite=all(bool(torch.isfinite(x).all()) for x in logits),
+        local=dict(heads=eng.cache.unique_k.shape[3], level_tokens=eng.cache.shared[0].k.shape[3],
+                   wq=list(eng.params["layers"]["wq"].q.shape)),
+    )
+    if kind == "tp4":  # the same request through the graphs: bit for bit
+        eager = (toks.cpu(), [x.cpu() for x in logits])
+        del logits
+        eng.graph(True)
+        for name in ("graph_first", "graph"):  # the first captures its step
+            decode_s[0] = 0.0
+            cuda_lib.reset_launches()
+            mesh_lib.reset_collectives()
+            toks_g, logits_g = eng.generate(return_logits=True, **request1(prompt, seed))
+            out[f"{name}_decode_s"] = decode_s[0]
+            reached(f"{name} request done")
+        out["graph_launches"] = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        out["graph_collectives"] = dict(mesh_lib.COLLECTIVES)
+        out["graph_eq_eager"] = bool(torch.equal(toks_g.cpu(), eager[0])) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(logits_g, eager[1]))
+    return out
+
+
+def nccl_rank(rank: int, world: int, seed: int) -> dict:
+    """Phase parallel (c): a one-rank NCCL mesh (``keep_trivial``: its tp
+    collectives run over the one rank) at full width and depth. Request 1
+    through the eager loop, then through the decode graphs (one captured
+    step holding its NCCL all-reduces and all-gather), then the meshless
+    engine on the same weights through its graphs. Returns whether tokens
+    and every step's logits are equal bit for bit, the counts and the
+    captured step's collectives."""
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.parallel import make_mesh
+    from hydragen_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(tp=1, device="cuda:0", keep_trivial=True)
+    eng, prompt = parallel_engine("tp2", seed, mesh)
+    req = request1(prompt, seed)
+    runs = {}
+    for name, graphs in (("eager", False), ("graph", True)):
+        eng.graph(graphs)
+        cuda_lib.reset_launches()
+        mesh_lib.reset_collectives()
+        toks, logits = eng.generate(return_logits=True, **req)
+        runs[name] = (toks.cpu(), [x.cpu() for x in logits],
+                      {k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+                      dict(mesh_lib.COLLECTIVES))
+    step = [st for st in eng._decode.values() if st.graph is not None]
+    captured = dict(step[0].collectives) if step else {}
+    graphs = eng.graphs_enabled
+    del eng, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, prompt = parallel_engine("tp2", seed)
+    toks, logits = eng.generate(return_logits=True, **request1(prompt, seed))
+    runs["meshless"] = (toks.cpu(), [x.cpu() for x in logits], {}, {})
+
+    def same(a, b):
+        return bool(torch.equal(runs[a][0], runs[b][0])) and all(
+            torch.equal(x, y) for x, y in zip(runs[a][1], runs[b][1])) and len(
+            runs[a][1]) == len(runs[b][1])
+
+    return dict(graph_eq_eager=same("graph", "eager"), graph_eq_meshless=same("graph", "meshless"),
+                launches=runs["graph"][2], collectives=runs["graph"][3],
+                eager_collectives=runs["eager"][3], captured=captured, graphs=graphs,
+                steps=len(runs["graph"][1]))
+
+
+def drive_parallel(args, failures: list, card: str) -> dict:
+    """Phase parallel: (a) and (b) spawn two gloo ranks on the card, then
+    run the meshless engine here on the same weights and token stream; (c)
+    spawns one NCCL rank. Returns rank 0's launches of (a)."""
+    from hydragen_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    T = NEW_TOKENS
+    out = {}
+    for kind in ("tp4",) if args.tp4 else ("tp2", "sp2"):
+        t = time.perf_counter()
+        world = 4 if kind == "tp4" else 2
+        ranks = launch(parallel_rank, world, kind, args.seed,
+                       backend="nccl" if kind == "tp4" else "gloo", timeout=PAR_TIMEOUT)
+        cfg = parallel_config(kind)
+        L = cfg.num_hidden_layers
+        tag = f"parallel {kind}"
+        want_l, want_c = expected_launches_request1(L, T), expected_collectives_request1(kind, L, T)
+        want_b = expected_param_bytes(cfg, {"tp2": 2, "sp2": 1, "tp4": 4}[kind])
+        for r, res in enumerate(ranks):
+            print(f"[{tag}] rank {r}: local {json.dumps(res['local'])}, launches "
+                  f"{json.dumps(res['launches'])}, collectives {json.dumps(res['collectives'])}, "
+                  f"param bytes {res['param_bytes']} (rules {want_b}), device peak "
+                  f"{res['request_peak_GiB']:.2f} GiB in the request, {res['draw_peak_GiB']:.2f} "
+                  f"GiB at the draw, graphs {res['graphs']}", flush=True)
+            if res["launches"] != want_l:
+                failures.append(f"{tag} rank {r}: launches {res['launches']} != {want_l}")
+            if res["collectives"] != want_c:
+                failures.append(f"{tag} rank {r}: collectives {res['collectives']} != {want_c}")
+            if res["param_bytes"] != want_b:
+                failures.append(f"{tag} rank {r}: {res['param_bytes']} param bytes != {want_b}")
+            if res["graphs"] != (kind == "tp4") or not res["finite"]:
+                failures.append(f"{tag} rank {r}: graphs {res['graphs']} finite {res['finite']}")
+            if kind == "tp4" and not (res["graph_eq_eager"] and res["graph_launches"] == want_l
+                                      and res["graph_collectives"] == want_c):
+                failures.append(f"{tag} rank {r}: graph = eager {res['graph_eq_eager']}, "
+                                f"launches {res['graph_launches']}, collectives "
+                                f"{res['graph_collectives']}")
+        toks = ranks[0]["toks"]
+        same = all(np.array_equal(r["toks"], toks) for r in ranks)
+        ok = toks.shape == (BATCH, T) and toks.min() >= 0 and toks.max() < cfg.vocab_size
+        if not (same and ok):
+            failures.append(f"{tag}: tokens equal on both ranks {same}, shape/range ok {ok}")
+        # The meshless engine on the same weights and token stream.
+        eng, prompt = parallel_engine(kind, args.seed)
+        _, logits = eng.generate(return_logits=True, token_overrides=torch.as_tensor(toks).cuda(),
+                                 **request1(prompt, args.seed))
+        ref = [x[0].float().cpu() for x in logits]
+        del eng, prompt, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = max(rms_rel(torch.as_tensor(a), b) for a, b in zip(ranks[0]["logits0"], ref))
+        if len(ref) != len(ranks[0]["logits0"]) or worst > TOL_NOSHARE:
+            failures.append(f"{tag}: forced-stream logits {worst:.4g} from the meshless "
+                            f"engine's > {TOL_NOSHARE}")
+        r0 = ranks[0]
+        steps = T - 1
+        stats = dict(
+            layers=L, tokens_equal_on_both_ranks=same, forced_rms_vs_meshless=worst,
+            decode_tok_s=BATCH * steps / r0["decode_s"],
+            decode_ms_per_step=1e3 * r0["decode_s"] / steps,
+            collective_ms_per_step=1e3 * r0["collective_s"] / steps,
+            compute_ms_per_step=1e3 * (r0["decode_s"] - r0["collective_s"]) / steps,
+            request_s=r0["request_s"], setup_s=r0["setup_s"],
+            request_peak_GiB=[r["request_peak_GiB"] for r in ranks],
+            phase_s=time.perf_counter() - t)
+        if kind == "tp4":
+            stats.update(graph_eq_eager=[r["graph_eq_eager"] for r in ranks],
+                         graph_decode_tok_s=BATCH * steps / r0["graph_decode_s"],
+                         graph_decode_ms_per_step=1e3 * r0["graph_decode_s"] / steps,
+                         graph_first_decode_s=r0["graph_first_decode_s"])
+            where = f"four ranks on four cards over NCCL, {torch.cuda.device_count()} cards"
+        else:
+            where = "two ranks sharing one card over gloo (not a multi-card figure)"
+        print(f"[{tag}] {where}, {card}: {json.dumps(stats)}", flush=True)
+        out[kind] = ranks[0]["launches"]
+        del ranks
+    if args.tp4:
+        return out["tp4"]
+
+    t = time.perf_counter()
+    res = launch(nccl_rank, 1, args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
+    L = parallel_config("tp2").num_hidden_layers
+    want_l = expected_launches_request1(L, T)
+    want_c = expected_collectives_request1("tp2", L, T)
+    step_c = {"all_reduce_sum": 2 * L, "all_gather": 1}
+    ok = (res["graph_eq_eager"] and res["graph_eq_meshless"] and res["graphs"]
+          and res["launches"] == want_l and res["collectives"] == want_c
+          and res["eager_collectives"] == want_c and res["captured"] == step_c)
+    print(f"[parallel nccl] one-rank NCCL mesh, full depth, through the decode graphs: graph = "
+          f"eager bit for bit {res['graph_eq_eager']}, graph = meshless bit for bit "
+          f"{res['graph_eq_meshless']}, launches {json.dumps(res['launches'])}, collectives "
+          f"{json.dumps(res['collectives'])}, the captured step's {json.dumps(res['captured'])} "
+          f"(want {json.dumps(step_c)}), {time.perf_counter() - t:.1f} s -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"parallel nccl: {json.dumps(res)}")
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out["tp2"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and prompts")
+    ap.add_argument("--tp4", action="store_true",
+                    help="run only phase parallel's tp=4 case over NCCL on four cards "
+                         "(the default run needs one card and never runs it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2231,7 +2604,7 @@ def main() -> int:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    print(card, flush=True)
+    print("\n".join(smi) or card, flush=True)
 
     failures: list[str] = []
     t = time.perf_counter()
@@ -2240,9 +2613,19 @@ def main() -> int:
           f"wall {time.perf_counter() - t:.2f} s into {cuda_lib.build_dir()}", flush=True)
     print_ptxas(cuda_lib.BUILD_LOG)
 
+    if args.tp4:
+        drive_parallel(args, failures, card)
+        if failures:
+            print("chip_smoke --tp4 FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     report: dict = {}
     launches: dict = {"main": {}, "load": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {},
-                      "serving": {}}
+                      "serving": {}, "parallel": {}}
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
@@ -2256,6 +2639,7 @@ def main() -> int:
         ("plain path", lambda: check_plain_path(args, failures, "w8a8")),
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
+        ("parallel", lambda: launches["parallel"].update(drive_parallel(args, failures, card))),
     )
     for name, phase in phases:
         t = time.perf_counter()

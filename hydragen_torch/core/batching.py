@@ -180,6 +180,9 @@ class ContinuousBatcher:
         assert admit_policy in ("fifo", "lpt")
         assert lookahead >= 1
         assert engine.cache is not None, "call setup_caches first"
+        if engine.mesh is not None:
+            raise NotImplementedError("ContinuousBatcher over a mesh waits for a later slice "
+                                      "(ROADMAP.md)")
         assert engine.cache.unique_bits == 8, (
             "ContinuousBatcher needs kv_quant in (None, 'int8'): the ring "
             "pool's wrapped windows and per-row admissions would need "

@@ -49,13 +49,18 @@ def _nibble_rmw(view: torch.Tensor, dim: int, row: torch.Tensor, q4_val: torch.T
 
 
 class SharedLevel(NamedTuple):
-    """One level of the shared-prefix hierarchy, all layers stacked."""
+    """One level of the shared-prefix hierarchy, all layers stacked. Under a
+    mesh whose sp axis splits the level's sequence, the buffers hold shard
+    ``seq_shard`` of ``seq_shards`` (tokens ``[seq_offset, seq_offset +
+    max_seq_len)``), while ``seq_lens`` stay the global prefix lengths."""
 
     k: torch.Tensor
     v: torch.Tensor
     seq_lens: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    seq_shards: int = 1
+    seq_shard: int = 0
 
     @property
     def max_batch_size(self) -> int:
@@ -63,7 +68,16 @@ class SharedLevel(NamedTuple):
 
     @property
     def max_seq_len(self) -> int:
+        """The tokens these buffers hold (a shard's, under an sp split)."""
         return self.k.shape[3]
+
+    @property
+    def global_seq_len(self) -> int:
+        return self.k.shape[3] * self.seq_shards
+
+    @property
+    def seq_offset(self) -> int:
+        return self.k.shape[3] * self.seq_shard
 
     @property
     def quantized(self) -> bool:
@@ -434,6 +448,22 @@ def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: DecodeSlo
                              (cache.unique_v, cache.unique_v_scale, vq, vs)):
         _nibble_rmw(buf[layer, :b], dim, row, q4[:, :, 0], is_hi)
         sbuf[layer, :b].index_copy_(dim, idx, s.transpose(1, 2) if cache.unique_bshd else s)
+    return cache
+
+
+def expand_unique_rows(cache: KVCache, current_size: int, index: torch.Tensor) -> KVCache:
+    """Row ``i`` <- row ``index[i]`` of rows ``[0:current_size]``, for ``i``
+    in ``[0, len(index))``, in place, layer by layer (a dp rank's share of
+    :func:`repeat_unique_for_samples`, whose rows need not start or end at a
+    whole group of samples)."""
+    n = int(index.shape[0])
+    for buf in (cache.unique_k, cache.unique_v, cache.unique_k_scale,
+                cache.unique_v_scale):
+        if buf is None:
+            continue
+        idx = index.to(buf.device)
+        for li in range(buf.shape[0]):
+            buf[li, :n] = buf[li, :current_size].index_select(0, idx)
     return cache
 
 

@@ -1,6 +1,6 @@
 """HydragenLlama: the generation engine, in PyTorch.
 
-Port of ``hydragen_tpu.core.engine`` (single device): ``from_pretrained`` /
+Port of ``hydragen_tpu.core.engine``: ``from_pretrained`` /
 ``from_hf_model`` / ``setup_caches`` / ``append_shared`` / ``process_unique``
 / ``generate`` with ``shared_cache_op``, ``starting_logits``,
 ``return_logits``, ``token_overrides``, temperature and top-p sampling, EOS
@@ -19,6 +19,17 @@ traced slot. On the card that body is captured once as a CUDA graph a key
 with no host work inside an EOS chunk; ``graph(False)`` runs the same body
 eagerly. The engine runs on the card unless the caller passes
 ``device="cpu"``, where the body runs eagerly.
+
+Under a ``parallel.Mesh`` (``mesh=``, ``shard(mesh)``, ``from_pretrained_tp``)
+every rank is one process that holds its shards and is called with the same
+global inputs; each runs its rows (dp), heads (tp) and level slices (sp)
+and the collectives of ``parallel/``. The logits of the vocab-sharded head
+are gathered over tp before sampling and every rank draws from the same
+generator state, so all ranks give the same tokens; under dp each rank
+decodes its rows, the finished flags are agreed by an all-reduce, and
+``generate`` returns the whole batch on every rank. The step is captured as
+a CUDA graph under NCCL; under gloo (ranks sharing a card, or the CPU) it
+runs eagerly, and ``graph(True)`` raises there.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from hydragen_torch.core.cache import (
     KVCache,
     allocate_cache,
     copy_shared_to_unique,
+    expand_unique_rows,
     repeat_unique_for_samples,
     set_shared_level_buffers,
     shared_len_for_batch,
@@ -47,6 +59,8 @@ from hydragen_torch.models.llama import (
     model_forward,
 )
 from hydragen_torch.ops import cuda_lib
+from hydragen_torch.parallel import mesh as mesh_lib
+from hydragen_torch.parallel.sharding import INT4_WAITS, cache_pspecs, shard_cache, shard_params
 
 
 class SharedCacheOp:
@@ -172,6 +186,7 @@ class DecodeStep:
         self.warm = False  # the first step ran eagerly on the capture stream
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}  # kernel launches one replay makes
+        self.collectives: dict = {}  # counted collectives one replay makes
         self.capture_s = 0.0
 
 
@@ -187,8 +202,17 @@ class HydragenLlama:
         prefill_bucket: int = 128,
         eos_chunk: int = 32,
         device=None,
+        mesh=None,
     ):
+        """``mesh``: a ``parallel.Mesh``; ``params`` are then the GLOBAL
+        parameters (on any device), quantized globally and sliced for this
+        rank, slice by slice onto its device. ``device`` None is the mesh's
+        device, else the card."""
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None and quantization in ("int4", "w4a8", "mixed"):
+            raise NotImplementedError(INT4_WAITS)
         if quantization is not None:
             from hydragen_torch.ops.quant import (
                 Quantized4Tensor,
@@ -210,6 +234,9 @@ class HydragenLlama:
                     bits4_families=("down",) if quantization == "mixed" else (),
                 )
         self.config = config
+        self.mesh = None
+        if mesh is not None:
+            params = shard_params(params, config, mesh, self.device)
         self.params = _params_to(params, self.device)
         self.impl = impl
         # "w8a8"/"w4a8": activations quantized per row and products on the s8
@@ -243,6 +270,46 @@ class HydragenLlama:
         self._decode_params = None
         self._graph_pool = None
         self._graph_stream = None
+        if mesh is not None:
+            self._set_mesh(mesh)
+
+    # -- meshes ----------------------------------------------------------------
+
+    def _set_mesh(self, mesh) -> None:
+        self.mesh = mesh
+        self._drop_graphs()
+        self._use_graphs = self._use_graphs and mesh.graphs_ok
+
+    def shard(self, mesh) -> "HydragenLlama":
+        """Keep this rank's slices of the (global) parameters and of the
+        cache, if allocated, and run over ``mesh`` from now on."""
+        assert self.mesh is None, "the engine is sharded already"
+        if self.matmul_impl == "w4a8" or (self.cache is not None and self.cache.unique_bits == 4):
+            raise NotImplementedError(INT4_WAITS)
+        self.params = shard_params(self.params, self.config, mesh, self.device)
+        if self.cache is not None:
+            self.cache = shard_cache(self.cache, self.config, mesh)
+        self._set_mesh(mesh)
+        return self
+
+    @property
+    def graphs_enabled(self) -> bool:
+        """Whether decode runs through captured CUDA graphs (off on the CPU,
+        after ``graph(False)``, and under a gloo mesh)."""
+        return self._use_graphs
+
+    def _dp(self) -> tuple:
+        """(dp ranks, this rank's dp index), (1, 0) without a dp split."""
+        if self.mesh is None or not self.mesh.active("dp"):
+            return 1, 0
+        return self.mesh.size("dp"), self.mesh.index("dp")
+
+    def _dp_rows(self, total: int) -> tuple:
+        """(first row, rows) of this rank's share of a ``total``-row batch."""
+        dp, i = self._dp()
+        if total % dp:
+            raise ValueError(f"a batch of {total} rows must divide over dp={dp}")
+        return i * (total // dp), total // dp
 
     # -- constructors ------------------------------------------------------
 
@@ -253,12 +320,32 @@ class HydragenLlama:
         conversion, which quantizes on the host, so bf16 originals never
         occupy device memory (f32 int8 scales, no MLP padding), and then to
         the engine, which finds the weights quantized. The device is checked
-        before the checkpoint is read."""
+        before the checkpoint is read. With ``mesh``, each rank reads and
+        quantizes the whole checkpoint on the host, so host memory holds one
+        quantized model a rank, and the constructor moves only the rank's
+        slices to its device."""
         from hydragen_torch.models import hf
 
-        resolve_device(kw.get("device"))
+        mesh = kw.get("mesh")
+        resolve_device(kw.get("device", None if mesh is None else mesh.device))
         cfg, params = hf.from_pretrained(path, dtype=dtype, quantization=kw.get("quantization"))
         return cls(cfg, params, **kw)
+
+    @classmethod
+    def from_pretrained_tp(cls, path, tp: int = 0, dp: int = 1, dtype: str = "bfloat16",
+                           **kw) -> "HydragenLlama":
+        """Load over a ``(dp, tp)`` mesh in one call, on every rank of an
+        initialised default group (``torchrun`` or ``parallel.launch``):
+        ``tp`` 0 takes the world size over ``dp``. ``device`` goes to the
+        mesh (None: this rank's card)."""
+        import torch.distributed as dist
+
+        from hydragen_torch.parallel import make_mesh
+
+        if tp <= 0:
+            tp = dist.get_world_size() // dp
+        mesh = make_mesh(tp=tp, dp=dp, device=kw.pop("device", None))
+        return cls.from_pretrained(path, dtype=dtype, mesh=mesh, **kw)
 
     @classmethod
     def from_hf_model(cls, hf_model, dtype: str = "bfloat16", **kw) -> "HydragenLlama":
@@ -275,8 +362,13 @@ class HydragenLlama:
         """Decode through captured CUDA graphs (the default on the card, as
         the JAX engine always runs its compiled scan), or with ``enabled=
         False`` through the eager loop over the same step body. On the CPU
-        the loop is eager. Returns ``self`` (the JAX engine's shim sits at
-        the same place in the API)."""
+        the loop is eager. Under a gloo mesh ``enabled`` raises: gloo's
+        collectives go through the host and cannot be captured. Returns
+        ``self`` (the JAX engine's shim sits at the same place in the
+        API)."""
+        if enabled and self.mesh is not None and not self.mesh.graphs_ok:
+            raise RuntimeError(f"decode graphs need NCCL collectives; this mesh runs "
+                               f"{self.mesh.backend}, so decode runs eagerly")
         self._use_graphs = enabled and self.device.type == "cuda"
         return self
 
@@ -308,14 +400,29 @@ class HydragenLlama:
             shared_quantized = shared_kv_quant == "int8"
         cfg = self.config
         max_unique_seq_length = -(-max_unique_seq_length // 16) * 16
+        dtype = cache_dtype or cfg.torch_dtype
+        quantized = kv_quant in ("int8", "int4")
+        nkv, B, level_lens = cfg.num_key_value_heads, max_unique_batch_size, None
+        if self.mesh is not None:
+            if kv_quant == "int4":
+                raise NotImplementedError(INT4_WAITS)
+            # Local rows, heads and level slices; the layout from the global heads.
+            local = cache_pspecs(cfg, self.mesh, B, list(max_shared_seq_lengths), quantized,
+                                 dtype, unique_bshd)
+            nkv, B, level_lens = local.num_kv_heads, local.unique_batch, local.level_lens
+            unique_bshd = local.unique_bshd
         self.cache = allocate_cache(
-            cfg.num_hidden_layers, max_unique_batch_size, max_unique_seq_length,
-            list(max_shared_batch_sizes), list(max_shared_seq_lengths),
-            cfg.num_key_value_heads, cfg.head_dim,
-            dtype=cache_dtype or cfg.torch_dtype, quantized=kv_quant in ("int8", "int4"),
+            cfg.num_hidden_layers, B, max_unique_seq_length,
+            list(max_shared_batch_sizes), list(level_lens or max_shared_seq_lengths),
+            nkv, cfg.head_dim, dtype=dtype, quantized=quantized,
             unique_bshd=unique_bshd, shared_quantized=shared_quantized,
             unique_bits=4 if kv_quant == "int4" else 8, device=self.device,
         )
+        if self.mesh is not None:
+            sp, spi = self.mesh.size("sp"), self.mesh.index("sp")
+            self.cache.shared = tuple(
+                lv._replace(seq_shards=sp, seq_shard=spi) if split else lv
+                for lv, split in zip(self.cache.shared, local.level_split))
         self.num_used_levels = 0
         self.level_filled = []
         self.level_batch = []
@@ -336,7 +443,7 @@ class HydragenLlama:
     def get_num_used_shared_caches(self) -> int:
         return self.num_used_levels
 
-    def _spec(self, mode: str, unique_history: bool) -> ForwardSpec:
+    def _spec(self, mode: str, unique_history: bool, rows=()) -> ForwardSpec:
         return ForwardSpec(
             mode=mode,
             num_used_levels=self.num_used_levels,
@@ -348,6 +455,7 @@ class HydragenLlama:
             impl=self.impl,
             matmul=self.matmul_impl,
             level_batch=tuple(self.level_batch),
+            rows=tuple(rows),
         )
 
     def _ids(self, x) -> torch.Tensor:
@@ -367,12 +475,12 @@ class HydragenLlama:
         assert b <= level.max_batch_size, (
             f"level {self.num_used_levels} allocated for {level.max_batch_size} "
             f"prefixes, got {b}")
-        assert t <= level.max_seq_len, (
-            f"level {self.num_used_levels} holds {level.max_seq_len} tokens, got {t}")
+        assert t <= level.global_seq_len, (
+            f"level {self.num_used_levels} holds {level.global_seq_len} tokens, got {t}")
         if seq_lens is not None:
             seq_lens = self._ids(seq_lens)
         input_ids, seq_lens, padded = _pad_to_bucket(
-            input_ids, seq_lens, self.prefill_bucket, level.max_seq_len)
+            input_ids, seq_lens, self.prefill_bucket, level.global_seq_len)
         has_pad = seq_lens is not None
         orig_t, t = t, int(input_ids.shape[1])
         spec = self._spec("shared_prefill", unique_history=False)
@@ -388,11 +496,11 @@ class HydragenLlama:
         # The layer loop writes each layer's KV straight into the level.
         hidden, self.cache = model_forward(
             self.params, self.config, self.cache, input_ids, pos, local_pos, spec,
-            fill_level=self.num_used_levels,
+            fill_level=self.num_used_levels, mesh=self.mesh,
         )
         set_shared_level_buffers(self.cache, self.num_used_levels, seq_lens)
         logits = logits_from_hidden(self.params, self.config, hidden,
-                                    seq_lens if has_pad else None, full_logits)
+                                    seq_lens if has_pad else None, full_logits, mesh=self.mesh)
         self.num_used_levels += 1
         self.level_filled.append(t)
         self.level_batch.append(b)
@@ -402,18 +510,52 @@ class HydragenLlama:
 
     @torch.no_grad()
     def process_unique(self, input_ids, seq_lens=None):
-        """Prefill per-sequence suffixes into the unique cache."""
+        """Prefill per-sequence suffixes into the unique cache. Under a mesh
+        whose dp splits the rows, this rank prefills its share of the rows
+        and the logits of every row come back, gathered over dp."""
         assert self.cache is not None
-        input_ids = self._ids(input_ids)
+        return self._prefill_unique(self._ids(input_ids),
+                                    None if seq_lens is None else self._ids(seq_lens), 1)
+
+    def _prefill_unique(self, input_ids, seq_lens, samples: int):
+        """Prefill the suffixes ``input_ids`` into unique rows ``[0, b *
+        samples)`` of the global batch, suffix ``i`` into rows ``[i * samples,
+        (i + 1) * samples)``; returns the suffixes' last-token logits ``[b,
+        1, V]``. Under dp this rank prefills the suffixes its rows read,
+        places its rows, and gathers every row's logits over dp."""
+        b = int(input_ids.shape[0])
+        dp, _ = self._dp()
+        if dp == 1:
+            # Not expand_unique_rows: this copy's transient is one layer's
+            # source rows, not one layer's repeated rows.
+            logits = self._unique_forward(input_ids, seq_lens)
+            if samples > 1:
+                repeat_unique_for_samples(self.cache, b, samples)
+            return logits
+        r0, n = self._dp_rows(b * samples)
+        s0, s1 = r0 // samples, -(-(r0 + n) // samples)
+        logits = self._unique_forward(input_ids[s0:s1],
+                                      None if seq_lens is None else seq_lens[s0:s1],
+                                      rows=(s0, b))
+        index = (r0 + torch.arange(n, device=self.device)) // samples - s0
+        if samples > 1 or s1 - s0 != n:
+            expand_unique_rows(self.cache, s1 - s0, index)
+        rows = mesh_lib.all_gather(logits.index_select(0, index), self.mesh, "dp", dim=0)
+        return rows[::samples]
+
+    def _unique_forward(self, input_ids, seq_lens, rows=()):
+        """The unique prefill of ``input_ids`` (this rank's suffixes, rows
+        ``rows`` of the global suffix batch) into unique rows ``[0, b)``."""
         has_pad = seq_lens is not None
-        if has_pad:
-            seq_lens = self._ids(seq_lens)
         b, t = input_ids.shape
         nohydra = self._disable_hydragen
         spec = self._spec("unique_prefill",
-                          unique_history=nohydra and self.num_used_levels > 0)
-        shared_lens = shared_len_for_batch(self.cache, spec.num_used_levels, b,
-                                           spec.level_batch or None)
+                          unique_history=nohydra and self.num_used_levels > 0, rows=rows)
+        # Each row's shared length, from the global suffix batch under dp.
+        shared_lens = shared_len_for_batch(self.cache, spec.num_used_levels,
+                                           rows[1] if rows else b, spec.level_batch or None)
+        if rows:
+            shared_lens = shared_lens[rows[0]:rows[0] + b]
         ar = torch.arange(t, device=self.device, dtype=torch.int32)[None, :]
         pos = shared_lens[:, None] + ar
         # No sharing: the prefix was copied to the front of each unique row,
@@ -423,13 +565,14 @@ class HydragenLlama:
             self.params, self.config, self.cache, input_ids, pos, unique_pos, spec,
             history_lens=shared_lens if nohydra else None,
             quantize_new_kv=self.cache.unique_bits if self.cache.quantized else None,
+            mesh=self.mesh,
         )
         # All rows share one prefix length (generate allows one prefix), so
         # the suffixes are one block after the copied prefix.
         update_unique_prefill(self.cache, nk, nv,
                               start=int(shared_lens[0]) if nohydra and b else 0)
         return logits_from_hidden(self.params, self.config, hidden,
-                                  seq_lens if has_pad else None)
+                                  seq_lens if has_pad else None, mesh=self.mesh)
 
     # -- generation ------------------------------------------------------------
 
@@ -469,18 +612,26 @@ class HydragenLlama:
         if key.write == "inplace":
             hidden, _ = model_forward(
                 self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
-                spec, history_lens=upos, inplace_slot=upos[0],
+                spec, history_lens=upos, inplace_slot=upos[0], mesh=self.mesh,
             )
         else:
             hidden, nk, nv = model_forward(
                 self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
-                spec, history_lens=upos,
+                spec, history_lens=upos, mesh=self.mesh,
             )
             update_unique_decode(self.cache, upos, nk, nv,
                                  uniform=upos[0] if key.write == "uniform" else None,
                                  plain=spec.impl == "torch")
-        logits = logits_from_hidden(self.params, self.config, hidden)[:, 0]
-        nxt = sample_from_logits(logits, self._generator, key.temperature, key.top_p, 1)
+        logits = logits_from_hidden(self.params, self.config, hidden, mesh=self.mesh)[:, 0]
+        if key.temperature > 0 and spec.rows:
+            # A draw per row of the whole batch from one generator state, as
+            # without a mesh: every dp rank samples all rows and keeps its own.
+            r0, b = spec.rows[0], logits.shape[0]
+            logits_all = mesh_lib.all_gather(logits, self.mesh, "dp", dim=0)
+            nxt = sample_from_logits(logits_all, self._generator, key.temperature, key.top_p,
+                                     1)[r0:r0 + b]
+        else:
+            nxt = sample_from_logits(logits, self._generator, key.temperature, key.top_p, 1)
         col = st.i.long().reshape(1)
         st.out.index_copy_(1, col, nxt)
         if st.logits is not None:
@@ -500,14 +651,21 @@ class HydragenLlama:
             graph.register_generator_state(self._generator)
         t0 = time.perf_counter()
         launches: dict = {}
+        collectives: dict = {}
+        # Under a mesh, PyTorch's NCCL watchdog thread queries the events of
+        # earlier collectives while this thread captures: "thread_local"
+        # lets it (the default, "global", would invalidate the capture).
+        mode = "global" if self.mesh is None else "thread_local"
         try:
-            with cuda_lib.captured_launches(launches), torch.cuda.graph(
-                    graph, pool=self._graph_pool, stream=self._graph_stream):
+            with cuda_lib.captured_launches(launches), \
+                    mesh_lib.captured_collectives(collectives), torch.cuda.graph(
+                        graph, pool=self._graph_pool, stream=self._graph_stream,
+                        capture_error_mode=mode):
                 body()
         except RuntimeError as e:
             raise RuntimeError(f"decode step capture failed for {st.key}: {e}") from e
         st.capture_s = time.perf_counter() - t0
-        st.graph, st.launches = graph, launches
+        st.graph, st.launches, st.collectives = graph, launches, collectives
 
     def _decode_steps(self, st, steps: int, body=None) -> list:
         """``steps`` decode steps over ``st``: replays of its graph (the first
@@ -535,6 +693,7 @@ class HydragenLlama:
                     self._capture(st, body)
                 st.graph.replay()
                 cuda_lib.add_launches(st.launches)
+                mesh_lib.add_collectives(st.collectives)
             if st.logits is not None:
                 logits.append(st.logits.clone())
         return logits
@@ -577,7 +736,12 @@ class HydragenLlama:
         ``disable_hierarchy``: the no-hierarchy ablation. Exactly three
         levels in all and ``num_return_sequences > 1``: the last given level
         goes to the unique cache and is repeated for the samples, in place of
-        a shared level of its own."""
+        a shared level of its own.
+
+        Under a mesh every rank passes the same global inputs and gets the
+        whole batch back; under dp it decodes its share of the rows (the
+        batch must divide over dp). ``disable_hydragen`` waits for a later
+        slice there."""
         assert self.cache is not None, "call setup_caches first"
         assert (input_ids is None) or (starting_logits is None)
         assert not (input_ids is None and starting_logits is None)
@@ -613,6 +777,12 @@ class HydragenLlama:
             total_batch = int(input_ids[-1].shape[0]) * num_return_sequences
         else:
             total_batch = int(starting_logits.shape[0]) * num_return_sequences
+        if disable_hydragen and self.mesh is not None:
+            raise NotImplementedError("disable_hydragen under a mesh waits for a later slice "
+                                      "(ROADMAP.md)")
+        # This rank's rows of the batch (all of them without a dp split).
+        r0, b_loc = self._dp_rows(total_batch)
+        rows = slice(r0, r0 + b_loc)
 
         if num_return_sequences > 1 and not (disable_hierarchy or disable_hydragen):
             shared_ids, shared_lens_in = input_ids, seq_lens
@@ -650,10 +820,8 @@ class HydragenLlama:
                 0 if disable_hydragen else self.prefill_bucket,
                 self.cache.max_unique_seq_len,
             )
-            starting_logits = self.process_unique(suffix_ids, suffix_lens)
-            if num_return_sequences > 1:
-                repeat_unique_for_samples(self.cache, int(suffix_ids.shape[0]),
-                                          num_return_sequences)
+            starting_logits = self._prefill_unique(suffix_ids, suffix_lens,
+                                                   num_return_sequences)
 
         self._generator.manual_seed(seed)
         prefill_logits = starting_logits[:, -1]
@@ -664,7 +832,7 @@ class HydragenLlama:
         if return_logits:
             logits_out = [prefill_logits.repeat_interleave(num_return_sequences, dim=0)]
 
-        start_pos = self.get_shared_cache_len(total_batch)
+        start_pos = self.get_shared_cache_len(total_batch)[rows]
         # Every row decodes at one unique slot (a step writes it once, the
         # JAX engine's uniform_pos) unless the suffixes are ragged.
         uniform = suffix_uniform
@@ -674,12 +842,11 @@ class HydragenLlama:
             else:
                 sl = torch.full((suffix_ids.shape[0],), int(suffix_ids.shape[1]),
                                 dtype=torch.int32, device=self.device)
-            sl = sl.repeat_interleave(num_return_sequences)
+            sl = sl.repeat_interleave(num_return_sequences)[rows]
             start_pos = start_pos + sl
             start_unique_pos = sl
         else:
-            start_unique_pos = torch.zeros((total_batch,), dtype=torch.int32,
-                                           device=self.device)
+            start_unique_pos = torch.zeros((b_loc,), dtype=torch.int32, device=self.device)
         if disable_hydragen:
             # Unique positions are global; the slot is uniform when every
             # row's history has one length (checked on the host, once).
@@ -689,7 +856,9 @@ class HydragenLlama:
 
         use_overrides = token_overrides is not None
         if use_overrides:
-            token_overrides = self._ids(token_overrides)
+            token_overrides = self._ids(token_overrides)[rows]
+        first_token = first_token[rows]
+        dp, _ = self._dp()
 
         steps = max_new_tokens - 1
         tokens = first_token
@@ -701,7 +870,8 @@ class HydragenLlama:
                 raise ValueError(
                     f"{steps} decode steps reach unique position {top}, past the unique "
                     f"cache's {self.cache.max_unique_seq_len} (setup_caches)")
-            spec = self._spec("decode", unique_history=True)
+            spec = self._spec("decode", unique_history=True,
+                              rows=(r0, total_batch) if dp > 1 else ())
             # No sharing writes through the batched update, as the JAX engine does.
             if not uniform:
                 write = "rows"
@@ -710,8 +880,7 @@ class HydragenLlama:
             else:
                 write = "uniform"
             st = self._decode_state(DecodeKey(
-                spec, total_batch, float(temperature), top_p, use_overrides, return_logits,
-                write))
+                spec, b_loc, float(temperature), top_p, use_overrides, return_logits, write))
             st.tok.copy_(token_overrides[:, 0:1] if use_overrides else first_token)
             st.start_pos.copy_(start_pos)
             st.start_upos.copy_(start_unique_pos)
@@ -742,11 +911,17 @@ class HydragenLlama:
                     window = np.concatenate([tail, toks.cpu().numpy()], axis=1)
                     hit = _finished_mask(window, eos_token_id, stop_sequences)[:, -1]
                     fin_rows = hit if fin_rows is None else (fin_rows | hit)
-                    if fin_rows.all():
+                    if self._all_finished(bool(fin_rows.all())):
                         break
                     tail = window[:, window.shape[1] - (max_l - 1):] if max_l > 1 \
                         else window[:, :0]
             tokens = torch.cat(tok_chunks, dim=1)
+        if dp > 1:
+            tokens = mesh_lib.all_gather(tokens, self.mesh, "dp", dim=0)
+            if return_logits and len(logits_out) > 1:
+                steps_all = mesh_lib.all_gather(torch.stack(logits_out[1:]), self.mesh, "dp",
+                                                dim=1)
+                logits_out = logits_out[:1] + list(steps_all.unbind(0))
 
         # Truncate at the first column where every row has finished.
         if (eos_token_id is not None or stop_sequences) and tokens.shape[1] > 1:
@@ -767,3 +942,12 @@ class HydragenLlama:
         if return_logits:
             return tokens, logits_out
         return tokens
+
+    def _all_finished(self, local: bool) -> bool:
+        """Whether every row of the batch has finished: this rank's rows'
+        flag, agreed over dp (an all-reduce), so that every rank leaves the
+        decode loop at the same step."""
+        if self._dp()[0] == 1:
+            return local
+        flag = torch.tensor([0 if local else 1], dtype=torch.int32, device=self.device)
+        return int(mesh_lib.all_reduce(flag, "max", self.mesh, "dp")) == 0

@@ -1,7 +1,10 @@
 """The Llama stack with Hydragen attention, in PyTorch.
 
-Port of ``hydragen_tpu.models.llama`` (single device; the mesh paths wait for
-the parallel slice). Parameters are a plain dict of stacked ``[L, ...]``
+Port of ``hydragen_tpu.models.llama``, with its mesh paths: under a
+``parallel.Mesh`` each rank runs this stack on its shards (its heads and MLP
+channels over tp, its unique rows over dp, its slice of each level over sp)
+and the collectives of ``parallel/`` sit where the JAX program has them (see
+``model_forward``'s ``mesh``). Parameters are a plain dict of stacked ``[L, ...]``
 tensors, as in the JAX package, so a test can carry one parameter set into
 both. In every mode attention is computed as LSE-mergeable partials: the
 active shared levels, the previously written unique cache (length-masked),
@@ -54,6 +57,13 @@ from hydragen_torch.ops.quant import (
     quantize_kv4,
     s8_stacked_eligible,
 )
+from hydragen_torch.parallel.mesh import all_gather
+from hydragen_torch.parallel.shard_attn import fold_segments, sharded_level_attention
+from hydragen_torch.parallel.shard_gemm import (
+    sharded_qmatmul_stacked,
+    sharded_qmatmul_stacked_row,
+)
+from hydragen_torch.parallel.sharding import shard_plan
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -210,6 +220,9 @@ class ForwardSpec(NamedTuple):
     # batcher's admission reads one prefix row of each level of an ``sb > 1``
     # pool (with ``level_batch`` all 1), where the JAX batcher slices it.
     level_row: Tuple[int, ...] = ()
+    # Under a mesh: (first row, global rows) of this rank's rows of the
+    # batch; () = all rows (every rank computes a shared prefill whole).
+    rows: Tuple[int, ...] = ()
 
 
 def model_forward(
@@ -225,6 +238,7 @@ def model_forward(
     inplace_slot: int | torch.Tensor | None = None,
     quantize_new_kv: int | None = None,
     fill_level: int | None = None,
+    mesh=None,
 ):
     """Run the decoder stack in one of the three cache modes.
 
@@ -251,6 +265,12 @@ def model_forward(
             prefilled. Each layer writes its new KV (quantized if the level
             stores int8) straight into that level's buffers, in place.
             Returns ``(hidden, cache)``.
+        mesh: a ``parallel.Mesh``: ``params`` and ``cache`` are this rank's
+            shards and ``input_ids`` its rows (``spec.rows``). The heads are
+            the rank's (``shard_plan``); column-parallel projections run on
+            its output slice, o and down on its input slice with a sum
+            all-reduce over tp after each; each level read covers the
+            rank's rows (``fold_segments``) and merges its sp partials.
 
     Returns ``(hidden [b, t, H], new_k [L, b, hkv, t, hd], new_v)`` by
     default (new_k/new_v as ``(payload, scale)`` pairs under
@@ -258,7 +278,8 @@ def model_forward(
     """
     impl = pick_impl(spec.impl)
     b, t = input_ids.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    plan = shard_plan(cfg, mesh)
+    nh, nkv, hd = plan.nh, plan.nkv, cfg.head_dim
     dt = cfg.torch_dtype
 
     h = params["embed_tokens"][input_ids.long()].to(dt)
@@ -273,11 +294,20 @@ def model_forward(
     has_bias = "bq" in lp
     L = cfg.num_hidden_layers
 
+    # Under a mesh: the families split over tp, by their parallel kind.
+    col_tp = {"wq": plan.heads, "wk": plan.kv, "wv": plan.kv, "gate": plan.mlp,
+              "up": plan.mlp}
+    row_tp = {"wo": plan.heads, "down": plan.mlp}
+
     def qmm(x, family, li, memo):
         w = lp[family]
         mm = spec.matmul
         if mm == "w8a8" and isinstance(w, Quantized4Tensor):
             mm = "w4a8"  # "mixed": an int4 family under the w8a8 mode
+        sub = {"wo": "btd,dh->bth", "down": "bti,ih->bth"}.get(family, "bth,hd->btd")
+        if row_tp.get(family):
+            return sharded_qmatmul_stacked_row(x, w, li, sub, mm, mesh, plain=impl == "torch")
+        a_pre = None
         if mm in ("w8a8", "w4a8") and s8_stacked_eligible(x, w, mm):
             # One per-row quantization shared by the projections reading the
             # same activation (q/k/v off one rmsnorm, gate/up off the other).
@@ -285,10 +315,16 @@ def model_forward(
             if hit is None:
                 hit = (x, quantize_rows(x.reshape(-1, x.shape[-1])))
                 memo[id(x)] = hit
-            return qmatmul_stacked(x, w, li, "", impl=mm, a_pre=hit[1],
-                                   plain=impl == "torch")
-        sub = {"wo": "btd,dh->bth", "down": "bti,ih->bth"}.get(family, "bth,hd->btd")
+            a_pre = hit[1]
+        if col_tp.get(family):
+            return sharded_qmatmul_stacked(x, w, li, sub, mm, a_pre, plain=impl == "torch")
+        if a_pre is not None:
+            return qmatmul_stacked(x, w, li, "", impl=mm, a_pre=a_pre, plain=impl == "torch")
         return qmatmul_stacked(x, w, li, sub, impl="dq")
+
+    if mesh is not None:  # this rank's rows against each level's prefixes
+        row0, total = spec.rows or (0, b)
+        segments = [fold_segments(row0, b, total, sb) for sb in level_sb]
 
     use_dec_kernel = (
         t == 1
@@ -332,6 +368,9 @@ def model_forward(
         v = qmm(x, "wv", li, memo)
         if has_bias:
             q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
+        if plan.kv_head0 is not None:  # replicated k/v: the one head this rank reads
+            heads = slice(plan.kv_head0 * hd, (plan.kv_head0 + 1) * hd)
+            k, v = k[..., heads], v[..., heads]
         q = apply_rope(q.reshape(b, t, nh, hd).transpose(1, 2), cos, sin)
         k = apply_rope(k.reshape(b, t, nkv, hd).transpose(1, 2), cos, sin)
         v = v.reshape(b, t, nkv, hd).transpose(1, 2)
@@ -344,6 +383,12 @@ def model_forward(
             if not spec.disable_hydragen:
                 for j, lvl in enumerate(active_levels):
                     sb, fl, r = level_sb[j], spec.level_filled[j], level_row[j]
+                    if mesh is not None:
+                        o, l = sharded_level_attention(li, q, lvl, segments[j], fl, impl,
+                                                       mesh)
+                        outs.append(o)
+                        lses.append(l)
+                        continue
                     qf = fold_queries_for_shared(q, sb)
                     if impl == "kernel":
                         # The stacked level read in place, layer and row by index.
@@ -419,15 +464,19 @@ def model_forward(
     if fill_level is not None:
         assert inplace_slot is None
         lvl = cache.shared[fill_level]
-        assert b <= lvl.max_batch_size and t <= lvl.max_seq_len
+        assert b <= lvl.max_batch_size and t <= lvl.global_seq_len
+        # This rank's slice of the level's tokens (all of them unless sp splits it).
+        off = lvl.seq_offset
+        n = max(0, min(t, off + lvl.max_seq_len) - off)
         for li in range(L):
             h, k, v = layer(h, li)
+            k, v = k[:, :, off:off + n], v[:, :, off:off + n]
             if lvl.quantized:
                 (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-                lvl.k_scale[li, :b, :, :t] = ks
-                lvl.v_scale[li, :b, :, :t] = vs
-            lvl.k[li, :b, :, :t] = k.to(lvl.k.dtype)
-            lvl.v[li, :b, :, :t] = v.to(lvl.v.dtype)
+                lvl.k_scale[li, :b, :, :n] = ks
+                lvl.v_scale[li, :b, :, :n] = vs
+            lvl.k[li, :b, :, :n] = k.to(lvl.k.dtype)
+            lvl.v[li, :b, :, :n] = v.to(lvl.v.dtype)
         return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
     if inplace_slot is not None:
@@ -462,9 +511,11 @@ def model_forward(
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
                        seq_lens: torch.Tensor | None = None,
-                       full_logits: bool = False) -> torch.Tensor:
+                       full_logits: bool = False, mesh=None) -> torch.Tensor:
     """LM head; last token only unless ``full_logits``. Always the
-    weight-only path, even under w8a8: logits feed sampling directly."""
+    weight-only path, even under w8a8: logits feed sampling directly. Under
+    a mesh whose tp splits the vocab, the ranks' slices are all-gathered, so
+    every rank holds the whole logits."""
     if full_logits:
         to_head = hidden
     elif seq_lens is not None:
@@ -472,7 +523,10 @@ def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
         to_head = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
     else:
         to_head = hidden[:, -1:]
-    return qmatmul(to_head, params["lm_head"], "bth,hv->btv").float()
+    logits = qmatmul(to_head, params["lm_head"], "bth,hv->btv").float()
+    if shard_plan(cfg, mesh).vocab:
+        logits = all_gather(logits, mesh, "tp", dim=-1)
+    return logits
 
 
 def is_quantized_params(params: dict) -> bool:
