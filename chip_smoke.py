@@ -24,7 +24,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    1,024-token read), and K3 at a tp=2 rank's 16 heads, nested under their
    entries. K6 is held to its f32 oracle at
    every decode and 2,048-row shape of the 7B int4 layer and at its 2-D
-   entry. K7 must equal its plain version byte for byte at a low-plane and
+   entry, and at a tp=2 rank's column shapes (q/k/v N=2,048, gate/up
+   N=5,632, K=4,096; M = 256 and 2,048: its own entry,
+   "w4a8_matmul_cached_tp2"). K7 must equal its plain version byte for byte at a low-plane and
    a high-plane slot, each with its own bound (the low plane reads no old
    byte row); its row reports the slower plane. K1, K2, K4, K5 (at the gqa
    and no-sharing reads and two split shapes) and K6 (at each of its
@@ -114,7 +116,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    step split into the collectives' host time and the rest. (c) a one-rank
    NCCL mesh (``keep_trivial``) through the decode graphs: graph = eager =
    meshless bit for bit, the captured step's 64 all-reduces and one
-   all-gather counted. ``--tp4`` runs only tp=4 over NCCL on four cards
+   all-gather counted. (d) ``tp2-int4``: (a) with int4 weights
+   (``init_params(quantized="w4a8")``, group 128, ``quantization="w4a8"``,
+   int8 KV) at full width and depth: K6 on each rank's column slices, o and
+   down on the weight-only product of the rank's repacked K slice and the
+   sum all-reduce, no K1; the same gates against the meshless w4a8 engine.
+   ``--tp4`` runs only tp=4 over NCCL on four cards
    (eager, then graphs: bit for bit), which the default run never takes.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
@@ -383,6 +390,7 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
            "scales; device_ms: from a CUDA graph of the calls)",
     )
     del weights4
+    check_k6_tp2(report, time_ms, g, record)
 
     # K2: the shared-level read of one decode layer: sb=1, 256 folded rows,
     # 2,048 int8 keys with per-token scales.
@@ -481,6 +489,72 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_decode_kernels(report, time_ms, g, record)
     check_gqa_kernels(report, failures, time_ms, g, record)
     check_flash_shapes(report, time_ms, g, record)
+
+
+def check_k6_tp2(report: dict, time_ms, g, record) -> None:
+    """K6 at a tp=2 rank's column shapes of the 7B int4 layer (phase
+    parallel's case (d)): q/k/v at N = 2,048 and gate/up at N = 5,632 of the
+    padded MLP, K = 4,096, group 128, at decode (M = 256) and at the shared
+    prefill (M = 2,048), each held to the f32 oracle under ``TOL_W4A8`` and
+    timed host-paced, on the device's clock (a CUDA graph of the calls) and
+    beside its bound. The report ("w4a8_matmul_cached_tp2") sums one decode
+    layer's five column projections of a rank; each shape's own readings
+    are nested under "shapes". The row-parallel o/down run the weight-only
+    product, not K6."""
+    from hydragen_torch.ops import gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    dev = torch.device("cuda")
+    NL, H = GEMM_LAYERS, 4096
+    shapes = {"qkv": (H // 2, H), "gate_up": (11264 // 2, H)}
+    acc = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, err=0.0, bytes=0, ops=0)
+    per_shape = {}
+    for key, (N, K) in shapes.items():
+        qp = torch.randint(-128, 128, (NL, N, K // 2), dtype=torch.int8, device=dev,
+                           generator=g)
+        gs = (torch.rand(NL, K // 128, N, device=dev, generator=g) * 2e-3 + 1e-4
+              ).to(torch.bfloat16)
+        for M in (BATCH, SHARED_LEN):
+            a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+            out = gemm.w4a8_matmul_cached(NL - 1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+            ref = gemm.w4a8_reference(a_q, a_s, qp[NL - 1], gs[NL - 1], out_dtype=torch.float32)
+            err, rel = rel_err(out, ref)
+            del out, ref
+            ms = time_ms(Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+            dms = cuda_graph_time_ms(
+                Cycle(lambda i: gemm.w4a8_matmul_cached(i, a_q, a_s, qp, gs), NL))
+            pms = time_ms(Cycle(lambda i: gemm.w4a8_cached_plain(i, a_q, a_s, qp, gs), NL),
+                          iters=5, warmup=1)
+            nbytes = M * K + M * 4 + N * K // 2 + (K // 128) * N * 2 + M * N * 2
+            ops = 2 * M * N * K
+            bms, by = bound_ms(nbytes, ops, "int8")
+            record(f"w4a8_matmul_cached tp=2 rank M={M} N={N} K={K}", rel <= TOL_W4A8,
+                   f"max_abs_err {err:.4g} rel {rel:.3g} (fp32 out, tol {TOL_W4A8}) ms {ms:.4f} "
+                   f"device_ms {dms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by}) device "
+                   f"TOP/s {ops / dms / 1e9:.1f}")
+            per_shape[f"M={M} N={N} K={K}"] = dict(
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, device_top_s=ops / dms / 1e9)
+            if M == BATCH:
+                n = PER_LAYER[key]
+                for field, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                 ("bytes", nbytes), ("ops", ops)):
+                    acc[field] += n * v
+                acc["err"] = max(acc["err"], err)
+            del a_q, a_s
+        del qp, gs
+    bms, by = bound_ms(acc["bytes"], acc["ops"], "int8")
+    print(f"[kernel] w4a8_matmul_cached, one tp=2 rank's decode layer (5 column projections, "
+          f"M={BATCH}): device_ms {acc['device_ms']:.4f} ms {acc['ms']:.4f} bound_ms {bms:.4f} "
+          f"({by})", flush=True)
+    report["w4a8_matmul_cached_tp2"] = dict(
+        max_abs_err=acc["err"], ms=acc["ms"], device_ms=acc["device_ms"],
+        plain_ms=acc["plain_ms"], bound_ms=bms, bound_by=by, library_ms=None, shapes=per_shape,
+        at="sum of one tp=2 rank's decode layer of int4 column projections (q/k/v N=2048, "
+           "gate/up N=5632, K=4096, group 128), M=256 (library: none, no PyTorch call "
+           "multiplies packed int4 weights with group scales; device_ms: from a CUDA graph of "
+           "the calls)",
+    )
 
 
 def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: list,
@@ -2260,11 +2334,14 @@ PAR_SP_LAYERS = 8
 PAR_TIMEOUT = 600.0  # seconds a spawn may take, its set-up included
 
 
-def expected_launches_request1(L: int, T: int) -> dict:
+def expected_launches_request1(L: int, T: int, int4: bool = False) -> dict:
     """Request 1 of the main path alone: a shared prefill (7L GEMMs, L causal
-    flash) and T-1 decode steps (7L GEMMs, L level reads, L unique reads)."""
+    flash) and T-1 decode steps (7L GEMMs, L level reads, L unique reads).
+    With ``int4`` (case (d), w4a8 at tp=2): the five column-parallel
+    projections a layer on K6, o and down on the weight-only product, no K1."""
+    gemm = {"w4a8_matmul_cached": 5 * L * T} if int4 else {"w8a8_matmul_cached": 7 * L * T}
     return {
-        "w8a8_matmul_cached": 7 * L * T,
+        **gemm,
         "flash_attention_cached_bhsd": L * (T - 1),
         "decode_attention_cached": L * (T - 1),
         "flash_attention_bhsd": L,
@@ -2282,19 +2359,32 @@ def expected_collectives_request1(kind: str, L: int, T: int) -> dict:
     return {"all_reduce_sum": 2 * L * T, "all_reduce_max": 0, "all_gather": T}
 
 
-def expected_param_bytes(cfg, tp: int) -> int:
+def expected_param_bytes(cfg, tp: int, int4: bool = False) -> int:
     """A rank's parameter bytes under the sharding rules, from the shapes:
     ``init_params(quantized="w8a8")``'s bf16 embedding and norms, int8
     payloads with bf16 column scales, the MLP padded to 11,264; q/k/v,
     gate/up and the LM head split on their columns, o and down on their
-    rows (their scales whole)."""
+    rows (their scales whole). With ``int4`` (``quantized="w4a8"``): the
+    projections planar int4 (K/2 bytes a row) with bf16 scales a 128-wide
+    group, a column family's cut on N, a row family's on K with its groups
+    (or, where tp does not divide them, the subgroups of the rank's K
+    slice); the LM head int8 as above."""
     H, V, L, hd = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers, cfg.head_dim
     I = -(-cfg.intermediate_size // 512) * 512
     Hq, Hkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
     n = V * H * 2 + H * 2 + (V // tp) * (H + 2) + 2 * L * H * 2
     for N, K, column in ((Hq, H, True), (Hkv, H, True), (Hkv, H, True), (H, Hq, False),
                          (I, H, True), (I, H, True), (H, I, False)):
-        n += L * (N // tp) * (K + 2) if column else L * N * (K // tp + 2)
+        if not int4:
+            n += L * (N // tp) * (K + 2) if column else L * N * (K // tp + 2)
+            continue
+        g = math.gcd(K // 2, 128)
+        if column:
+            n += L * (N // tp) * (K // 2 + 2 * (K // g))
+        else:
+            k = K // tp
+            groups = K // g // tp if (K // g) % tp == 0 else k // math.gcd(g, k)
+            n += L * N * (k // 2 + 2 * groups)
     return n
 
 
@@ -2307,8 +2397,6 @@ def param_bytes(tree) -> int:
 
 
 def parallel_config(kind: str):
-    import dataclasses
-
     from hydragen_torch.models.config import PRESETS
 
     cfg = PRESETS["llama-2-7b"]
@@ -2316,17 +2404,18 @@ def parallel_config(kind: str):
 
 
 def parallel_engine(kind: str, seed: int, mesh=None):
-    """The main path's engine (w8a8, int8 KV, request 1's cache) over
-    ``mesh`` (None: meshless), with its prompt: the weights drawn from
-    ``seed`` on the card as the main path draws them, then sliced for the
-    rank, the global draw freed before the request."""
+    """The main path's engine (w8a8, int8 KV, request 1's cache; w4a8 for
+    case (d) "tp2-int4") over ``mesh`` (None: meshless), with its prompt: the
+    weights drawn from ``seed`` on the card as the main path draws them,
+    then sliced for the rank, the global draw freed before the request."""
     from hydragen_torch import HydragenLlama
     from hydragen_torch.models.llama import init_params
 
     cfg = parallel_config(kind)
+    quant = "w4a8" if kind == "tp2-int4" else "w8a8"
     g = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(cfg, g, quantized="w8a8", device="cuda")
-    eng = HydragenLlama(cfg, params, quantization="w8a8", mesh=mesh)
+    params = init_params(cfg, g, quantized=quant, device="cuda")
+    eng = HydragenLlama(cfg, params, quantization=quant, mesh=mesh)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2343,8 +2432,9 @@ def request1(prompt, seed: int) -> dict:
 
 
 def parallel_rank(rank: int, world: int, kind: str, seed: int) -> dict:
-    """One rank of phase parallel's (a) ``kind="tp2"`` or (b) ``"sp2"``: two
-    ranks on the one card over gloo, request 1 through the eager loop; or
+    """One rank of phase parallel's (a) ``kind="tp2"``, (b) ``"sp2"`` or (d)
+    ``"tp2-int4"``: two ranks on the one card over gloo, request 1 through
+    the eager loop; or
     of ``--tp4``'s ``"tp4"``: four ranks on four cards over NCCL, request 1
     eagerly and then through the decode graphs.
     Returns its tokens, row 0's logits a step, launch and collective counts,
@@ -2405,7 +2495,7 @@ def parallel_rank(rank: int, world: int, kind: str, seed: int) -> dict:
         toks=toks, logits0=torch.stack([x[0].float() for x in logits]),
         finite=all(bool(torch.isfinite(x).all()) for x in logits),
         local=dict(heads=eng.cache.unique_k.shape[3], level_tokens=eng.cache.shared[0].k.shape[3],
-                   wq=list(eng.params["layers"]["wq"].q.shape)),
+                   wq=list(eng.params["layers"]["wq"][0].shape)),
     )
     if kind == "tp4":  # the same request through the graphs: bit for bit
         eager = (toks.cpu(), [x.cpu() for x in logits])
@@ -2472,85 +2562,97 @@ def nccl_rank(rank: int, world: int, seed: int) -> dict:
                 steps=len(runs["graph"][1]))
 
 
+def drive_parallel_case(args, failures: list, card: str, kind: str) -> dict:
+    """One two-rank case of phase parallel ((a) "tp2", (b) "sp2", (d)
+    "tp2-int4"), or ``--tp4``'s four: spawn the ranks, hold their gates,
+    then the meshless engine here on the same weights and token stream.
+    Returns rank 0's launches."""
+    from hydragen_torch.parallel import launch
+
+    T = NEW_TOKENS
+    t = time.perf_counter()
+    world = 4 if kind == "tp4" else 2
+    ranks = launch(parallel_rank, world, kind, args.seed,
+                   backend="nccl" if kind == "tp4" else "gloo", timeout=PAR_TIMEOUT)
+    cfg = parallel_config(kind)
+    L = cfg.num_hidden_layers
+    tag = f"parallel {kind}"
+    int4 = kind == "tp2-int4"
+    want_l = expected_launches_request1(L, T, int4)
+    want_c = expected_collectives_request1(kind, L, T)
+    want_b = expected_param_bytes(cfg, {"sp2": 1, "tp4": 4}.get(kind, 2), int4)
+    for r, res in enumerate(ranks):
+        print(f"[{tag}] rank {r}: local {json.dumps(res['local'])}, launches "
+              f"{json.dumps(res['launches'])}, collectives {json.dumps(res['collectives'])}, "
+              f"param bytes {res['param_bytes']} (rules {want_b}), device peak "
+              f"{res['request_peak_GiB']:.2f} GiB in the request, {res['draw_peak_GiB']:.2f} "
+              f"GiB at the draw, graphs {res['graphs']}", flush=True)
+        if res["launches"] != want_l:
+            failures.append(f"{tag} rank {r}: launches {res['launches']} != {want_l}")
+        if res["collectives"] != want_c:
+            failures.append(f"{tag} rank {r}: collectives {res['collectives']} != {want_c}")
+        if res["param_bytes"] != want_b:
+            failures.append(f"{tag} rank {r}: {res['param_bytes']} param bytes != {want_b}")
+        if res["graphs"] != (kind == "tp4") or not res["finite"]:
+            failures.append(f"{tag} rank {r}: graphs {res['graphs']} finite {res['finite']}")
+        if kind == "tp4" and not (res["graph_eq_eager"] and res["graph_launches"] == want_l
+                                  and res["graph_collectives"] == want_c):
+            failures.append(f"{tag} rank {r}: graph = eager {res['graph_eq_eager']}, "
+                            f"launches {res['graph_launches']}, collectives "
+                            f"{res['graph_collectives']}")
+    toks = ranks[0]["toks"]
+    same = all(np.array_equal(r["toks"], toks) for r in ranks)
+    ok = toks.shape == (BATCH, T) and toks.min() >= 0 and toks.max() < cfg.vocab_size
+    if not (same and ok):
+        failures.append(f"{tag}: tokens equal on both ranks {same}, shape/range ok {ok}")
+    # The meshless engine on the same weights and token stream.
+    eng, prompt = parallel_engine(kind, args.seed)
+    _, logits = eng.generate(return_logits=True, token_overrides=torch.as_tensor(toks).cuda(),
+                             **request1(prompt, args.seed))
+    ref = [x[0].float().cpu() for x in logits]
+    del eng, prompt, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(rms_rel(torch.as_tensor(a), b) for a, b in zip(ranks[0]["logits0"], ref))
+    if len(ref) != len(ranks[0]["logits0"]) or worst > TOL_NOSHARE:
+        failures.append(f"{tag}: forced-stream logits {worst:.4g} from the meshless "
+                        f"engine's > {TOL_NOSHARE}")
+    r0 = ranks[0]
+    steps = T - 1
+    stats = dict(
+        layers=L, tokens_equal_on_both_ranks=same, forced_rms_vs_meshless=worst,
+        decode_tok_s=BATCH * steps / r0["decode_s"],
+        decode_ms_per_step=1e3 * r0["decode_s"] / steps,
+        collective_ms_per_step=1e3 * r0["collective_s"] / steps,
+        compute_ms_per_step=1e3 * (r0["decode_s"] - r0["collective_s"]) / steps,
+        request_s=r0["request_s"], setup_s=r0["setup_s"],
+        request_peak_GiB=[r["request_peak_GiB"] for r in ranks],
+        phase_s=time.perf_counter() - t)
+    if kind == "tp4":
+        stats.update(graph_eq_eager=[r["graph_eq_eager"] for r in ranks],
+                     graph_decode_tok_s=BATCH * steps / r0["graph_decode_s"],
+                     graph_decode_ms_per_step=1e3 * r0["graph_decode_s"] / steps,
+                     graph_first_decode_s=r0["graph_first_decode_s"])
+        where = f"four ranks on four cards over NCCL, {torch.cuda.device_count()} cards"
+    else:
+        where = "two ranks sharing one card over gloo (not a multi-card figure)"
+    print(f"[{tag}] {where}, {card}: {json.dumps(stats)}", flush=True)
+    return ranks[0]["launches"]
+
+
 def drive_parallel(args, failures: list, card: str) -> dict:
-    """Phase parallel: (a) and (b) spawn two gloo ranks on the card, then
-    run the meshless engine here on the same weights and token stream; (c)
-    spawns one NCCL rank. Returns rank 0's launches of (a)."""
+    """Phase parallel: (a), (b) and (d) spawn two gloo ranks on the card,
+    then run the meshless engine here on the same weights and token stream;
+    (c) spawns one NCCL rank. Returns rank 0's launches of each case by
+    kind."""
     from hydragen_torch.parallel import launch
 
     t_phase = time.perf_counter()
     T = NEW_TOKENS
-    out = {}
-    for kind in ("tp4",) if args.tp4 else ("tp2", "sp2"):
-        t = time.perf_counter()
-        world = 4 if kind == "tp4" else 2
-        ranks = launch(parallel_rank, world, kind, args.seed,
-                       backend="nccl" if kind == "tp4" else "gloo", timeout=PAR_TIMEOUT)
-        cfg = parallel_config(kind)
-        L = cfg.num_hidden_layers
-        tag = f"parallel {kind}"
-        want_l, want_c = expected_launches_request1(L, T), expected_collectives_request1(kind, L, T)
-        want_b = expected_param_bytes(cfg, {"tp2": 2, "sp2": 1, "tp4": 4}[kind])
-        for r, res in enumerate(ranks):
-            print(f"[{tag}] rank {r}: local {json.dumps(res['local'])}, launches "
-                  f"{json.dumps(res['launches'])}, collectives {json.dumps(res['collectives'])}, "
-                  f"param bytes {res['param_bytes']} (rules {want_b}), device peak "
-                  f"{res['request_peak_GiB']:.2f} GiB in the request, {res['draw_peak_GiB']:.2f} "
-                  f"GiB at the draw, graphs {res['graphs']}", flush=True)
-            if res["launches"] != want_l:
-                failures.append(f"{tag} rank {r}: launches {res['launches']} != {want_l}")
-            if res["collectives"] != want_c:
-                failures.append(f"{tag} rank {r}: collectives {res['collectives']} != {want_c}")
-            if res["param_bytes"] != want_b:
-                failures.append(f"{tag} rank {r}: {res['param_bytes']} param bytes != {want_b}")
-            if res["graphs"] != (kind == "tp4") or not res["finite"]:
-                failures.append(f"{tag} rank {r}: graphs {res['graphs']} finite {res['finite']}")
-            if kind == "tp4" and not (res["graph_eq_eager"] and res["graph_launches"] == want_l
-                                      and res["graph_collectives"] == want_c):
-                failures.append(f"{tag} rank {r}: graph = eager {res['graph_eq_eager']}, "
-                                f"launches {res['graph_launches']}, collectives "
-                                f"{res['graph_collectives']}")
-        toks = ranks[0]["toks"]
-        same = all(np.array_equal(r["toks"], toks) for r in ranks)
-        ok = toks.shape == (BATCH, T) and toks.min() >= 0 and toks.max() < cfg.vocab_size
-        if not (same and ok):
-            failures.append(f"{tag}: tokens equal on both ranks {same}, shape/range ok {ok}")
-        # The meshless engine on the same weights and token stream.
-        eng, prompt = parallel_engine(kind, args.seed)
-        _, logits = eng.generate(return_logits=True, token_overrides=torch.as_tensor(toks).cuda(),
-                                 **request1(prompt, args.seed))
-        ref = [x[0].float().cpu() for x in logits]
-        del eng, prompt, logits
-        gc.collect()
-        torch.cuda.empty_cache()
-        worst = max(rms_rel(torch.as_tensor(a), b) for a, b in zip(ranks[0]["logits0"], ref))
-        if len(ref) != len(ranks[0]["logits0"]) or worst > TOL_NOSHARE:
-            failures.append(f"{tag}: forced-stream logits {worst:.4g} from the meshless "
-                            f"engine's > {TOL_NOSHARE}")
-        r0 = ranks[0]
-        steps = T - 1
-        stats = dict(
-            layers=L, tokens_equal_on_both_ranks=same, forced_rms_vs_meshless=worst,
-            decode_tok_s=BATCH * steps / r0["decode_s"],
-            decode_ms_per_step=1e3 * r0["decode_s"] / steps,
-            collective_ms_per_step=1e3 * r0["collective_s"] / steps,
-            compute_ms_per_step=1e3 * (r0["decode_s"] - r0["collective_s"]) / steps,
-            request_s=r0["request_s"], setup_s=r0["setup_s"],
-            request_peak_GiB=[r["request_peak_GiB"] for r in ranks],
-            phase_s=time.perf_counter() - t)
-        if kind == "tp4":
-            stats.update(graph_eq_eager=[r["graph_eq_eager"] for r in ranks],
-                         graph_decode_tok_s=BATCH * steps / r0["graph_decode_s"],
-                         graph_decode_ms_per_step=1e3 * r0["graph_decode_s"] / steps,
-                         graph_first_decode_s=r0["graph_first_decode_s"])
-            where = f"four ranks on four cards over NCCL, {torch.cuda.device_count()} cards"
-        else:
-            where = "two ranks sharing one card over gloo (not a multi-card figure)"
-        print(f"[{tag}] {where}, {card}: {json.dumps(stats)}", flush=True)
-        out[kind] = ranks[0]["launches"]
-        del ranks
+    out = {kind: drive_parallel_case(args, failures, card, kind)
+           for kind in (("tp4",) if args.tp4 else ("tp2", "sp2", "tp2-int4"))}
     if args.tp4:
-        return out["tp4"]
+        return out
 
     t = time.perf_counter()
     res = launch(nccl_rank, 1, args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
@@ -2570,7 +2672,7 @@ def drive_parallel(args, failures: list, card: str) -> dict:
     if not ok:
         failures.append(f"parallel nccl: {json.dumps(res)}")
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return out["tp2"]
+    return out
 
 
 def main() -> int:
@@ -2625,7 +2727,13 @@ def main() -> int:
 
     report: dict = {}
     launches: dict = {"main": {}, "load": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {},
-                      "serving": {}, "parallel": {}}
+                      "serving": {}, "parallel": {}, "parallel int4": {}}
+
+    def parallel_phase():
+        by_kind = drive_parallel(args, failures, card)
+        launches["parallel"].update(by_kind["tp2"])
+        launches["parallel int4"].update(by_kind["tp2-int4"])
+
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
@@ -2639,7 +2747,7 @@ def main() -> int:
         ("plain path", lambda: check_plain_path(args, failures, "w8a8")),
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
-        ("parallel", lambda: launches["parallel"].update(drive_parallel(args, failures, card))),
+        ("parallel", parallel_phase),
     )
     for name, phase in phases:
         t = time.perf_counter()
@@ -2656,7 +2764,8 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t:.1f} s", flush=True)
 
     # name: (source, TPU call site, the path whose launches it reports: None
-    # for an entry neither path reaches)
+    # for an entry neither path reaches[, the launch counter where it is not
+    # the name])
     sources = {
         "w8a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222", "main"),
         "w8a8_matmul": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:118", None),
@@ -2670,20 +2779,23 @@ def main() -> int:
                                          "hydragen_tpu/ops/decode.py:616", "int4"),
         "flash_attention_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:608", "main"),
         "w4a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:495", "int4"),
+        "w4a8_matmul_cached_tp2": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:495",
+                                   "parallel int4", "w4a8_matmul_cached"),
         "write_token_int4_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:729",
                                     "int4"),
         "flash_decode_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:715", "gqa"),
     }
     kernels = []
-    for name, (src, replaces, path) in sources.items():
+    for name, (src, replaces, path, *counter) in sources.items():
         r = report.get(name)
         if r is None:
             failures.append(f"no measurement for {name}")
             continue
-        n = launches[path].get(name, 0) if path else 0
+        counter = counter[0] if counter else name
+        n = launches[path].get(counter, 0) if path else 0
         if path and n < 1:
             failures.append(f"{name} never launched on the {path} path")
-        by_path = {p: launches[p].get(name, 0) for p in launches}
+        by_path = {p: launches[p].get(counter, 0) for p in launches}
         kernels.append(dict(name=name, route="cuda", source=f"hydragen_torch/{src}",
                             replaces=replaces, launches=n, launches_by_path=by_path, **r))
     if failures:

@@ -60,7 +60,12 @@ from hydragen_torch.models.llama import (
 )
 from hydragen_torch.ops import cuda_lib
 from hydragen_torch.parallel import mesh as mesh_lib
-from hydragen_torch.parallel.sharding import INT4_WAITS, cache_pspecs, shard_cache, shard_params
+from hydragen_torch.parallel.sharding import (
+    INT4_CACHE_WAITS,
+    cache_pspecs,
+    shard_cache,
+    shard_params,
+)
 
 
 class SharedCacheOp:
@@ -211,8 +216,6 @@ class HydragenLlama:
         if mesh is not None and device is None:
             device = mesh.device
         self.device = resolve_device(device)
-        if mesh is not None and quantization in ("int4", "w4a8", "mixed"):
-            raise NotImplementedError(INT4_WAITS)
         if quantization is not None:
             from hydragen_torch.ops.quant import (
                 Quantized4Tensor,
@@ -284,8 +287,8 @@ class HydragenLlama:
         """Keep this rank's slices of the (global) parameters and of the
         cache, if allocated, and run over ``mesh`` from now on."""
         assert self.mesh is None, "the engine is sharded already"
-        if self.matmul_impl == "w4a8" or (self.cache is not None and self.cache.unique_bits == 4):
-            raise NotImplementedError(INT4_WAITS)
+        if self.cache is not None and self.cache.unique_bits == 4:
+            raise NotImplementedError(INT4_CACHE_WAITS)
         self.params = shard_params(self.params, self.config, mesh, self.device)
         if self.cache is not None:
             self.cache = shard_cache(self.cache, self.config, mesh)
@@ -405,7 +408,7 @@ class HydragenLlama:
         nkv, B, level_lens = cfg.num_key_value_heads, max_unique_batch_size, None
         if self.mesh is not None:
             if kv_quant == "int4":
-                raise NotImplementedError(INT4_WAITS)
+                raise NotImplementedError(INT4_CACHE_WAITS)
             # Local rows, heads and level slices; the layout from the global heads.
             local = cache_pspecs(cfg, self.mesh, B, list(max_shared_seq_lengths), quantized,
                                  dtype, unique_bshd)

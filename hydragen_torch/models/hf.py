@@ -35,7 +35,7 @@ import torch
 from hydragen_torch.models.config import ModelConfig
 from hydragen_torch.ops.quant import Quantized4Tensor, QuantizedTensor, pack4, pick_group4
 
-QUANTIZATIONS = (None, "int8", "w8a8", "int4", "w4a8")
+QUANTIZATIONS = (None, "int8", "w8a8", "int4", "w4a8", "mixed")
 
 # transformers.LlamaConfig's defaults, for the keys a config.json leaves out
 # (num_key_value_heads None means one kv head a query head).
@@ -84,16 +84,17 @@ def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None) -
 
     ``"int8"`` and ``"w8a8"`` (the same int8 storage; the engine picks the
     product) quantize the projections and the LM head; ``"int4"`` and
-    ``"w4a8"`` pack the projections to int4 groups and keep the LM head int8.
+    ``"w4a8"`` pack the projections to int4 groups and keep the LM head int8;
+    ``"mixed"`` is int8 with an int4 ``down`` (the engine's mode of that
+    name; the JAX loader has no such mode).
     A tied head is the embedding's transpose and is never quantized."""
     assert quantization in QUANTIZATIONS, f"unknown quantization {quantization!r}"
     dt = cfg.torch_dtype
     L = cfg.num_hidden_layers
     quant = quantization is not None
-    int4 = quantization in ("int4", "w4a8")
     get = state_dict.__getitem__
 
-    def stack(fmt, transpose=False, quantize=False):
+    def stack(fmt, transpose=False, quantize=False, int4=quantization in ("int4", "w4a8")):
         """Layer i of every stack is written in place: host memory holds one
         layer's f32 copy at a time beside the stacks."""
         first = get(fmt.format(0))
@@ -119,8 +120,8 @@ def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None) -
             out[i].copy_(w.t() if transpose else w)
         return out
 
-    def proj(fmt):
-        return stack(fmt, transpose=True, quantize=True)
+    def proj(fmt, **kw):
+        return stack(fmt, transpose=True, quantize=True, **kw)
 
     prefix = "model.layers.{}."
     params = {
@@ -135,7 +136,8 @@ def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None) -
             "wo": proj(prefix + "self_attn.o_proj.weight"),
             "gate": proj(prefix + "mlp.gate_proj.weight"),
             "up": proj(prefix + "mlp.up_proj.weight"),
-            "down": proj(prefix + "mlp.down_proj.weight"),
+            "down": proj(prefix + "mlp.down_proj.weight",
+                         **({"int4": True} if quantization == "mixed" else {})),
         },
     }
     if cfg.attention_bias:

@@ -66,7 +66,9 @@ class Quantized4Tensor(NamedTuple):
     """int4 payload ``qp [..., out, in/2]`` int8, planar-packed (byte j holds
     in-feature j in its low nibble and j + in/2 in its high nibble), and
     bf16 group scales ``gscale [..., G, out]``. Each group lies inside one
-    nibble plane (:func:`pick_group4`)."""
+    nibble plane (:func:`pick_group4`), except in a row-parallel rank's slice
+    (``parallel/sharding.py``), whose local pack may split a group between
+    its planes."""
 
     qp: torch.Tensor
     gscale: torch.Tensor
@@ -200,12 +202,13 @@ def qmatmul(x: torch.Tensor, w, subscripts: str, impl: str = "dq") -> torch.Tens
     payload cast to the activation dtype with the per-output-channel scale
     applied once on the result (weight-only int8), and a Quantized4Tensor is
     dequantized plane by plane, each plane's dot against its contiguous half
-    of the activations (weight-only int4).
+    of the activations (weight-only int4); where a group straddles the two
+    planes (a row-parallel rank's slice), over the logical in-features.
     """
     if isinstance(w, Quantized4Tensor):
         if impl == "w4a8" and w.qp.ndim == 2:
             return _s8_gemm_2d(x, w, impl)
-        if w.qp.ndim == 2:
+        if w.qp.ndim == 2 and w.qp.shape[-1] % w.group_size == 0:
             N, Kp = w.qp.shape
             G, g = w.gscale.shape[-2], w.group_size
             lo, hi = unpack4(w.qp)

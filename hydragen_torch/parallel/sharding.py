@@ -12,6 +12,19 @@ with ``NamedSharding``s, a rank here holds its slices only:
   the all-reduce).
 - A ``QuantizedTensor``'s payload ``[L, N, K]`` takes the swapped spec, and
   its per-column scale ``[L, N]`` is sliced with N or replicated over K.
+- A ``Quantized4Tensor`` (planar int4 ``qp [L, N, K/2]``, group scales
+  ``gscale [L, G, N]``) of a column family is sliced on N in both. A row
+  family deviates from JAX in layout, not in value: JAX shards the packed
+  axis, so a shard holds two strided K ranges (one of each nibble plane)
+  and its dq path works on logical arrays; a port rank gets a contiguous K
+  slice of the activation, so its payload is unpacked on the host, cut to
+  the rank's contiguous logical K range and packed again as that slice's
+  own planar pack (byte j: local feature j low, j + K/(2 tp) high). Its
+  scales are the rank's groups where tp divides G (JAX's rule); else each
+  group is split into ``gcd(group, K/tp)``-wide subgroups that repeat its
+  scale, so every local group lies in one global group. A local group may
+  straddle the two local planes; the dq product reads it over logical K
+  (``ops/quant.py:qmatmul``). K6 never reads a row-parallel weight.
 - When ``num_key_value_heads % tp != 0`` the k/v projections are replicated
   while q stays sharded, as in JAX; a rank's cache then holds the one kv
   head its query heads read (the JAX cache's replication, cut to what the
@@ -25,23 +38,28 @@ with ``NamedSharding``s, a rank here holds its slices only:
   cache stay flat on the local shard (``[L, B/dp, S*hkv/tp]``, what K3
   reads), where JAX keeps 4-D scales under a mesh.
 
-int4 weights (``Quantized4Tensor``) under a mesh wait for a later slice
-(``ROADMAP.md``).
+The int4 unique cache does not shard: the JAX reference's ``cache_pspecs``
+builds its spec cache without ``unique_bits``, so its ``shard_cache`` fails
+on one (``hydragen_tpu/parallel/sharding.py:123-127``), and the port waits
+for it (``INT4_CACHE_WAITS``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from hydragen_torch.models.config import ModelConfig
-from hydragen_torch.ops.quant import Quantized4Tensor, QuantizedTensor
+from hydragen_torch.ops.quant import Quantized4Tensor, QuantizedTensor, pack4, unpack4
 from hydragen_torch.parallel.mesh import Mesh
 
-INT4_WAITS = ("int4 weights and the int4 unique cache under a mesh wait for a later "
-              "slice (ROADMAP.md)")
+INT4_CACHE_WAITS = (
+    "the int4 unique cache under a mesh waits for the JAX reference, whose cache_pspecs "
+    "leaves unique_bits out of its spec cache, so its shard_cache cannot place one "
+    "(hydragen_tpu/parallel/sharding.py:123-127)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +146,7 @@ def shard_params(params: dict, cfg: ModelConfig, mesh: Optional[Mesh], device=No
 
     def place(x, spec):
         if isinstance(x, Quantized4Tensor):
-            raise NotImplementedError(INT4_WAITS)
+            return _place4(x, spec, n, i, device)
         if isinstance(x, QuantizedTensor):
             # Payload [.., out, in]: the logical spec's last two entries swap.
             qspec = spec[:-2] + (spec[-1], spec[-2])
@@ -149,6 +167,26 @@ def shard_params(params: dict, cfg: ModelConfig, mesh: Optional[Mesh], device=No
         return place(tree, spec)
 
     return walk(params, specs)
+
+
+def _place4(x: Quantized4Tensor, spec, n: int, i: int, device) -> Quantized4Tensor:
+    """Rank ``i`` of ``n``'s slice of a stacked int4 weight (module
+    docstring): a column family on N; a row family on a contiguous logical
+    K range, packed again locally, with its groups or their subgroups."""
+    qp, gs = x.qp, x.gscale
+    if spec[-1]:  # column-parallel: output features
+        qp, gs = _take(qp, qp.dim() - 2, n, i), _take(gs, gs.dim() - 1, n, i)
+    elif spec[-2]:  # row-parallel: input features
+        K, G = x.in_features, gs.shape[-2]
+        assert K % (2 * n) == 0, (K, n)
+        q = torch.cat(unpack4(qp), dim=-1)  # [.., N, K] logical
+        qp = pack4(_take(q, q.dim() - 1, n, i))
+        if G % n:
+            g = x.group_size
+            sub = math.gcd(g, K // n)
+            gs = gs.repeat_interleave(g // sub, dim=-2)
+        gs = _take(gs, gs.dim() - 2, n, i)
+    return Quantized4Tensor(qp=qp.contiguous().to(device), gscale=gs.contiguous().to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +245,7 @@ def shard_cache(cache, cfg: ModelConfig, mesh: Optional[Mesh]):
     from hydragen_torch.core.cache import KVCache, SharedLevel
 
     if cache.unique_bits == 4:
-        raise NotImplementedError(INT4_WAITS)
+        raise NotImplementedError(INT4_CACHE_WAITS)
     heads = kv_head_slice(cfg, mesh)
     nkv = cfg.num_key_value_heads
     dp, dpi = mesh.size("dp"), mesh.index("dp")

@@ -368,13 +368,12 @@ def test_w8a8_from_pretrained_matches_jax(w8a8_dir, monkeypatch):
     engine's on one checkpoint on disk (f32 scales, the MLP unpadded), w8a8
     + int8 KV: parameters bit-equal; then a greedy request and a forced
     stream (a prompt level, a level of 2 suffixes, 2 samples each, 6 tokens:
-    7 forward passes), each held on every forward pass before the first
-    activation code that differs between the engines, which must be a tie
-    of their float sums (``tests/test_torch_int4.py``'s spy and TIE_ULPS):
-    greedy tokens equal, logits within 1e-3 (``tests/test_torch_engine.py``'s
-    bound). At this seed the greedy request has no such tie and the forced
-    stream's first is in its last pass: 5 of its 6 logit steps are held."""
-    from tests.test_torch_int4 import _first_tie, _spy_quantize_rows
+    7 forward passes), every pass held: greedy tokens equal, logits within
+    1e-3 (``tests/test_torch_engine.py``'s bound). Each quantization of the
+    port is held to its JAX counterpart; a code that differs must be a tie
+    of the engines' float sums, and the port goes on from JAX's codes there
+    (``tests/test_torch_ties.py``)."""
+    from tests.test_torch_ties import Resolver, assert_resolved, jax_recorded, port_resolved
 
     monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
     je = JEngine.from_pretrained(str(w8a8_dir), dtype="float32", quantization="w8a8")
@@ -390,28 +389,18 @@ def test_w8a8_from_pretrained_matches_jax(w8a8_dir, monkeypatch):
         e.setup_caches(4, 16, [1, 2], [16, 8], kv_quant="int8", unique_bshd=True)
     kw = dict(input_ids=[prompt, suffix], num_return_sequences=2, max_new_tokens=6,
               temperature=0.0, return_logits=True)
-    calls = _spy_quantize_rows(monkeypatch)
-    held = {}
-    try:
-        for name, extra in (("greedy", {}), ("forced", dict(token_overrides=overrides))):
-            calls["t"].clear()
-            calls["j"].clear()
-            tt, tl = te.generate(shared_cache_op=TOp.WIPE, **kw, **extra)
-            jt, jl = je.generate(shared_cache_op=JOp.WIPE, **kw, **extra)
-            jax.effects_barrier()
-            # Two level prefills, then a pass a decode step: logit step s
-            # (and token column s) comes from pass s + 1.
-            per_pass = len(calls["t"]) // 7
-            assert len(tl) == len(jl) == 6 and len(calls["t"]) == 7 * per_pass
-            tie = _first_tie(calls)
-            n = 6 if tie is None else max(0, min(6, tie // per_pass - 1))
-            np.testing.assert_array_equal(_np(tt)[:, :n], _np(jt)[:, :n], err_msg=name)
-            for step, (t, j) in enumerate(zip(tl[:n], jl[:n])):
-                assert np.abs(_np(t) - _np(j)).max() <= 1e-3, (name, step)
-            held[name] = n
-    finally:
-        jax.clear_caches()
-    assert held["greedy"] == 6 and held["forced"] >= 5, held
+    runs = (("greedy", {}), ("forced", dict(token_overrides=overrides)))
+    records = []
+    with jax_recorded(records):
+        jax_out = [je.generate(shared_cache_op=JOp.WIPE, **kw, **extra) for _, extra in runs]
+    with port_resolved(Resolver(records)) as res:
+        port_out = [te.generate(shared_cache_op=TOp.WIPE, **kw, **extra) for _, extra in runs]
+    assert_resolved(res.report(), "w8a8 from_pretrained")
+    for (name, _), (jt, jl), (tt, tl) in zip(runs, jax_out, port_out):
+        assert len(tl) == len(jl) == 6
+        np.testing.assert_array_equal(_np(tt), _np(jt), err_msg=name)
+        for step, (t, j) in enumerate(zip(tl, jl)):
+            assert np.abs(_np(t) - _np(j)).max() <= 1e-3, (name, step)
 
 
 # --- disable_hierarchy ---------------------------------------------------------

@@ -505,17 +505,13 @@ def test_kv_cache_bytes_count_the_buffers(kv_quant):
 
 CFG = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
            num_attention_heads=2, num_key_value_heads=2, dtype="float32")
-# name: (quantization, kv_quant, unique_bshd, seed of the prompt and suffixes,
-# the requests held to JAX in full at that seed, at least)
+# name: (quantization, kv_quant, unique_bshd, seed of the prompt and suffixes)
 ENGINE_MODES = {
-    "w4a8_kv4_bshd": ("w4a8", "int4", True, 21, 1),
-    "w4a8_kv4_bhsd": ("w4a8", "int4", False, 21, 1),
-    "mixed_kv4": ("mixed", "int4", True, 21, 1),
-    "int4_kv4": ("int4", "int4", True, 21, 1),
-    # At seed 21 the w4a8 runs meet a tie in request 2's first pass; at this
-    # seed they meet none, so the w4a8 PRESERVE request (suffix prefill and
-    # decode) is held in full.
-    "w4a8_kv4_bshd_preserve": ("w4a8", "int4", True, 5, 2),
+    "w4a8_kv4_bshd": ("w4a8", "int4", True, 21),
+    "w4a8_kv4_bhsd": ("w4a8", "int4", False, 21),
+    "mixed_kv4": ("mixed", "int4", True, 21),
+    "int4_kv4": ("int4", "int4", True, 21),
+    "w4a8_kv4_bshd_preserve": ("w4a8", "int4", True, 5),
 }
 
 
@@ -525,60 +521,25 @@ def fp_params():
     return p, params_from_numpy(jax.tree.map(np.asarray, p))
 
 
-# A code that differs between the engines is a tie of their float sums when
-# the quotient x / scale of each side lies within this many ulps of a half
-# code (round half to even takes one side one way and the other the other).
-TIE_ULPS = 4
+def _requests(seed):
+    """The two requests of the engine tests: a 12-token shared prompt with 4
+    samples of 11 greedy tokens (WIPE), then 4 suffixes of 5 tokens over the
+    kept prompt (PRESERVE)."""
+    rng = np.random.RandomState(seed)
+    prompt = rng.randint(1, 256, (1, 12)).astype(np.int32)
+    suffixes = rng.randint(1, 256, (4, 5)).astype(np.int32)
+    return ((dict(input_ids=[prompt], num_return_sequences=4, max_new_tokens=11), "WIPE"),
+            (dict(input_ids=[suffixes], num_return_sequences=1, max_new_tokens=5), "PRESERVE"))
 
 
-def _spy_quantize_rows(monkeypatch):
-    """Record every per-row activation quantization of both engines, in call
-    order: (x in f32, codes, scales) each. The port's calls are recorded
-    where the model makes them; JAX's (inside jitted programs and scans)
-    through ordered host callbacks. The jit caches are cleared so that the
-    JAX programs are traced anew with the spy; the test's finalizer clears
-    them again."""
-    from hydragen_tpu.ops import gemm as jgemm_mod
-    from hydragen_torch.models import llama as tllama_mod
-
-    calls = {"t": [], "j": []}
-    tquant_rows, jquant_rows = tllama_mod.quantize_rows, jgemm_mod.quantize_rows
-
-    def t_spy(x):
-        q, sc = tquant_rows(x)
-        calls["t"].append((_np(x.float()), _np(q), _np(sc)))
-        return q, sc
-
-    def j_spy(x):
-        q, sc = jquant_rows(x)
-        jax.debug.callback(
-            lambda x, q, sc: calls["j"].append((np.asarray(x), np.asarray(q), np.asarray(sc))),
-            x.astype(jnp.float32), q, sc, ordered=True)
-        return q, sc
-
-    jax.clear_caches()
-    monkeypatch.setattr(tllama_mod, "quantize_rows", t_spy)
-    monkeypatch.setattr(jgemm_mod, "quantize_rows", j_spy)
-    return calls
-
-
-def _first_tie(calls):
-    """The index of the first quantization whose codes differ between the
-    engines (None if none does), after asserting that each code differing
-    there is a tie on both sides: x / scale within TIE_ULPS ulps of a half
-    code in each engine. Every quantization before it gave equal codes."""
-    assert len(calls["t"]) == len(calls["j"]), (len(calls["t"]), len(calls["j"]))
-    for c, ((xt, qt, st), (xj, qj, sj)) in enumerate(zip(calls["t"], calls["j"])):
-        assert qt.shape == qj.shape, (c, qt.shape, qj.shape)
-        diff = qt != qj
-        if not diff.any():
-            continue
-        for x, sc in ((xt, st), (xj, sj)):
-            v = (x / sc)[diff]
-            ulps = np.abs(v - (np.floor(v) + np.float32(0.5))) / np.spacing(np.abs(v))
-            assert ulps.max() <= TIE_ULPS, (c, v, ulps)
-        return c
-    return None
+def _run_requests(eng, op_cls, requests, snap):
+    """Both requests on one engine: (tokens, logits, cache snapshot) each."""
+    out = []
+    for kw, op in requests:
+        toks, logits = eng.generate(shared_cache_op=getattr(op_cls, op), temperature=0.0,
+                                    return_logits=True, **kw)
+        out.append((_np(toks), [_np(x) for x in logits], snap(eng.cache)))
+    return out
 
 
 @pytest.mark.parametrize("mode", sorted(ENGINE_MODES))
@@ -590,87 +551,52 @@ def test_engine_int4_matches_jax(fp_params, mode, monkeypatch):
     suffix prefill pads to the 16-token window, so the pack fills both
     planes, and decode writes slots 5-9). Greedy tokens identical, per-step
     logits within 1e-3 and the caches equal tensor by tensor after each
-    request, on every forward pass before the first tie.
+    request, every forward pass held.
 
-    Both engines quantize the w4a8 activations per row with the product by
-    the f32 reciprocal of 127, so on the same input their codes are equal;
-    but the inputs differ in the last bits of XLA's and PyTorch's float sums
-    upstream (norms, rsqrt, rope), and an activation within those bits of a
-    half code lands one code apart, after which the two runs compute on
-    different codes. A spy on both engines' quantizations finds the first
-    call whose codes differ and asserts that every differing code there is
-    such a tie (TIE_ULPS) on both sides. Forward passes up to that one are
-    held to the bounds above; from it on the runs are apart by a code, as
-    the parity tests at other keys show (ROADMAP.md). Each mode states how
-    many requests it holds in full at least, so the check cannot shrink to
-    nothing unseen."""
-    quant, kv, bshd, seed, full = ENGINE_MODES[mode]
+    Both engines quantize activations and KV with the same functions, but
+    their inputs differ in the last bits of XLA's and PyTorch's float sums
+    upstream, and a value within those bits of a half code lands one code
+    apart (``tests/test_torch_ties.py``). The JAX engine runs first with
+    every quantization recorded; the port then runs with each of its
+    quantizations held to its JAX counterpart: a differing code must be a
+    tie (the rule of ``test_torch_ties.py``), and the port goes on from
+    JAX's codes there, so no request is cut short at a tie."""
+    from tests.test_torch_ties import Resolver, assert_resolved, jax_recorded, port_resolved
+
+    quant, kv, bshd, seed = ENGINE_MODES[mode]
     monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
-    calls = _spy_quantize_rows(monkeypatch)
-    try:
-        tie, starts = _engine_int4_requests(fp_params, quant, kv, bshd, seed, calls)
-    finally:
-        jax.clear_caches()
-    # The first ``full`` requests are held in full: the tie comes after them.
-    assert tie is None or tie >= starts[full], (mode, tie, starts)
-
-
-def _engine_int4_requests(fp_params, quant, kv, bshd, seed, calls):
-    """Run both requests on both engines and hold every forward pass before
-    the first tie. Returns the tie's call index (None if none) and the call
-    index each request starts at, followed by the total."""
     jp, tp = fp_params
     je = JEngine(JConfig(**CFG), jp, quantization=quant)
     te = TEngine(TConfig(**CFG), tp, quantization=quant, device="cpu")
     for e in (je, te):
         e.setup_caches(4, 16, [1], [16], kv_quant=kv, unique_bshd=bshd)
     assert te.cache.unique_k.shape == je.cache.unique_k.shape
-    rng = np.random.RandomState(seed)
-    prompt = rng.randint(1, 256, (1, 12)).astype(np.int32)
-    suffixes = rng.randint(1, 256, (4, 5)).astype(np.int32)
-    requests = (
-        (dict(input_ids=[prompt], num_return_sequences=4, max_new_tokens=11), "WIPE"),
-        (dict(input_ids=[suffixes], num_return_sequences=1, max_new_tokens=5), "PRESERVE"),
-    )
-    results = []
-    for kw, op in requests:
-        start = len(calls["t"])
-        jt, jl = je.generate(shared_cache_op=getattr(JOp, op), temperature=0.0,
-                             return_logits=True, **kw)
-        tt, tl = te.generate(shared_cache_op=getattr(TOp, op), temperature=0.0,
-                             return_logits=True, **kw)
-        jax.effects_barrier()
-        # One forward pass a logit step: the prefill, then each decode step.
-        per_pass = (len(calls["t"]) - start) // kw["max_new_tokens"]
-        assert len(calls["t"]) - start == per_pass * kw["max_new_tokens"]
-        results.append((op, start, per_pass, jt, jl, tt, tl, _snapshot(te.cache, je.cache)))
-    tie = _first_tie(calls)
-    for op, start, per_pass, jt, jl, tt, tl, caches in results:
-        assert len(tl) == len(jl)
-        # Logit step s (and token column s) comes from this request's pass s.
-        held = len(tl) if tie is None or not per_pass else \
-            max(0, min(len(tl), (tie - start) // per_pass))
-        np.testing.assert_array_equal(_np(tt)[:, :held], _np(jt)[:, :held], err_msg=op)
-        for step, (t, j) in enumerate(zip(tl[:held], jl[:held])):
-            d = np.abs(_np(t) - _np(j)).max()
+    requests = _requests(seed)
+    records = []
+    with jax_recorded(records):
+        jax_out = _run_requests(je, JOp, requests, lambda c: _snapshot(c, np.asarray))
+    with port_resolved(Resolver(records)) as res:
+        port_out = _run_requests(te, TOp, requests, lambda c: _snapshot(
+            c, lambda x: _np(x).copy()))
+    assert_resolved(res.report(), mode)
+    for (kw, op), (jt, jl, jc), (tt, tl, tc) in zip(requests, jax_out, port_out):
+        np.testing.assert_array_equal(tt, jt, err_msg=op)
+        assert len(tl) == len(jl) == kw["max_new_tokens"]
+        for step, (t, j) in enumerate(zip(tl, jl)):
+            d = np.abs(t - j).max()
             assert d <= 1e-3, (quant, op, step, d)
-        if held == len(tl):
-            _same_engine_caches(*caches)
-    return tie, [r[1] for r in results] + [len(calls["t"])]
+        _same_engine_caches(tc, jc)
 
 
-def _snapshot(tc, jc):
-    """Copies of both engines' caches as numpy arrays (the next request
-    writes them in place)."""
-    def arrays(c, conv):
-        out = {n: conv(getattr(c, n)) for n in ("unique_k", "unique_v", "unique_k_scale",
-                                                 "unique_v_scale")}
-        out["shared"] = [(conv(lv.seq_lens), conv(lv.k)) for lv in c.shared]
-        out["bits"] = c.unique_bits
-        out["levels_quantized"] = [lv.quantized for lv in c.shared]
-        return out
-
-    return arrays(tc, lambda x: _np(x).copy()), arrays(jc, np.asarray)
+def _snapshot(c, conv):
+    """A copy of one engine's cache as numpy arrays (the next request writes
+    it in place)."""
+    out = {n: conv(getattr(c, n)) for n in ("unique_k", "unique_v", "unique_k_scale",
+                                             "unique_v_scale")}
+    out["shared"] = [(conv(lv.seq_lens), conv(lv.k)) for lv in c.shared]
+    out["bits"] = c.unique_bits
+    out["levels_quantized"] = [lv.quantized for lv in c.shared]
+    return out
 
 
 def _same_engine_caches(tc, jc):
@@ -693,118 +619,49 @@ def _same_engine_caches(tc, jc):
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-# Prompt seeds (params key 0, mode w4a8_kv4_bshd) at which the spy on the
-# activation quantizer alone finds a first differing code that is not within
-# TIE_ULPS of a half code, and the quantizer whose code differs first when
-# every quantizer is spied: an int8 KV code of the shared level (7, 39) or an
-# activation code (4, 31, 38).
-SPY_SEEDS = {4: "rows", 7: "kv", 31: "rows", 38: "rows", 39: "kv"}
+# Prompt seeds (params key 0, mode w4a8_kv4_bshd) at which, on some host, the
+# first code to differ between the engines was an int8 KV code of the shared
+# level or an activation code. Which quantizer ties first, and whether any
+# does, depends on the host's float sums; the test asserts neither.
+SPY_SEEDS = (4, 7, 31, 38, 39)
 
 
-def _spy_all_quantizers(monkeypatch):
-    """Record every quantization of both engines, activation rows
-    (``quantize_rows``) and KV (``quantize_kv``, ``quantize_kv4``), in call
-    order: (kind, x in f32, codes, scales). Each kind comes in the same order
-    and sizes in both engines (the port quantizes each layer's KV where the
-    JAX scan does)."""
-    from hydragen_tpu.ops import gemm as jgemm_mod
-
-    calls = {"t": [], "j": []}
-
-    def t_spy(kind, fn):
-        def spy(x):
-            q, sc = fn(x)
-            calls["t"].append((kind, _np(x.float()), _np(q), _np(sc)))
-            return q, sc
-        return spy
-
-    def j_spy(kind, fn):
-        def spy(x):
-            q, sc = fn(x)
-            jax.debug.callback(
-                lambda x, q, sc: calls["j"].append(
-                    (kind, np.asarray(x), np.asarray(q), np.asarray(sc))),
-                x.astype(jnp.float32), q, sc, ordered=True)
-            return q, sc
-        return spy
-
-    jax.clear_caches()
-    monkeypatch.setattr(tllama, "quantize_rows", t_spy("rows", tllama.quantize_rows))
-    monkeypatch.setattr(jgemm_mod, "quantize_rows", j_spy("rows", jgemm_mod.quantize_rows))
-    for mod in (tllama, tcache, tdecode):
-        for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
-            if hasattr(mod, name):
-                monkeypatch.setattr(mod, name, t_spy(kind, getattr(mod, name)))
-    # The JAX model imports its KV quantizers from ops.quant when it traces.
-    for mod in (jquant, jcache):
-        for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
-            monkeypatch.setattr(mod, name, j_spy(kind, getattr(mod, name)))
-    return calls
-
-
-def _quotients(x, sc, mask):
-    """x / scale of the masked codes (the scale broadcast over each row)."""
-    x2 = x.reshape(-1, x.shape[-1])
-    return (x2 / np.broadcast_to(sc.reshape(-1, 1), x2.shape)).ravel()[mask], x2, \
-        np.broadcast_to(sc.reshape(-1, 1), x2.shape)
-
-
-@pytest.mark.parametrize("seed", sorted(SPY_SEEDS))
+@pytest.mark.parametrize("seed", SPY_SEEDS)
 def test_first_differing_code_of_any_quantizer_is_a_tie(fp_params, seed, monkeypatch):
-    """Both w4a8 + int4-KV requests of ``test_engine_int4_matches_jax`` at a
-    seed where the activation spy alone finds no tie first: with every
-    quantizer spied, the first code that differs between the engines (in
-    the port's call order) is a tie of their float sums. Each engine's
-    quotient x / scale lies on the same half code's two sides (or on it),
-    within TIE_ULPS plus the ulps the engines' own x and scale at that
-    element are apart (a quotient is as far apart as its operands are).
-    At 7 and 39 it is an int8 KV code of the shared level (0 ulps in the
-    port, 1 in JAX); at 4, 31 and 38 an activation code 5-13 ulps from the
-    half code, with x and the row's scale 9-31 and 0-7 ulps apart."""
+    """Both w4a8 + int4-KV requests of ``test_engine_int4_matches_jax`` with
+    every quantizer of both engines spied (activation rows and KV), the port
+    NOT handed JAX's codes: the first call, in the port's order, whose codes
+    differ from its JAX counterpart's is a tie (``tests/test_torch_ties.py``),
+    and no call before it differs or lacks a counterpart. Where no code
+    differs at all, everything is held equal: tokens identical and every
+    step's logits within 1e-3."""
+    from tests.test_torch_ties import Resolver, jax_recorded, port_resolved
+
     monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
-    calls = _spy_all_quantizers(monkeypatch)
     jp, tp = fp_params
-    try:
-        je = JEngine(JConfig(**CFG), jp, quantization="w4a8")
-        te = TEngine(TConfig(**CFG), tp, quantization="w4a8", device="cpu")
-        for e in (je, te):
-            e.setup_caches(4, 16, [1], [16], kv_quant="int4", unique_bshd=True)
-        rng = np.random.RandomState(seed)
-        prompt = rng.randint(1, 256, (1, 12)).astype(np.int32)
-        suffixes = rng.randint(1, 256, (4, 5)).astype(np.int32)
-        for e, op in ((je, JOp), (te, TOp)):
-            e.generate(input_ids=[prompt], num_return_sequences=4, max_new_tokens=11,
-                       temperature=0.0, shared_cache_op=op.WIPE)
-            e.generate(input_ids=[suffixes], max_new_tokens=5, temperature=0.0,
-                       shared_cache_op=op.PRESERVE)
-        jax.effects_barrier()
-    finally:
-        jax.clear_caches()
-    by_kind = {"t": {}, "j": {}}
-    for side in "tj":
-        for pos, (kind, x, q, sc) in enumerate(calls[side]):
-            by_kind[side].setdefault(kind, []).append((pos, x, q, sc))
-    first = None
-    for kind, tcalls in by_kind["t"].items():
-        jcalls = by_kind["j"][kind]
-        assert len(tcalls) == len(jcalls), (kind, len(tcalls), len(jcalls))
-        for (pos, xt, qt, st), (_, xj, qj, sj) in zip(tcalls, jcalls):
-            assert qt.size == qj.size, (kind, qt.shape, qj.shape)
-            diff = qt.ravel() != qj.ravel()
-            if diff.any():
-                if first is None or pos < first[0]:
-                    first = (pos, kind, (xt, st), (xj, sj), diff)
-                break
-    assert first is not None and first[1] == SPY_SEEDS[seed], (seed, first and first[1])
-    _, _, (xt, st), (xj, sj), diff = first
-    vt, xt2, st2 = _quotients(xt, st, diff)
-    vj, xj2, sj2 = _quotients(xj, sj, diff)
-    apart = (np.abs(xt2 - xj2) / np.spacing(np.abs(xj2))
-             + np.abs(st2 - sj2) / np.spacing(np.abs(sj2))).ravel()[diff]
-    np.testing.assert_array_equal(np.round(2 * vt), np.round(2 * vj))  # the same half code
-    for v in (vt, vj):
-        ulps = np.abs(v - (np.floor(v) + np.float32(0.5))) / np.spacing(np.abs(v))
-        assert (ulps <= TIE_ULPS + apart).all(), (seed, v, ulps, apart)
+    je = JEngine(JConfig(**CFG), jp, quantization="w4a8")
+    te = TEngine(TConfig(**CFG), tp, quantization="w4a8", device="cpu")
+    for e in (je, te):
+        e.setup_caches(4, 16, [1], [16], kv_quant="int4", unique_bshd=True)
+    requests = _requests(seed)
+    records = []
+    with jax_recorded(records):
+        jax_out = _run_requests(je, JOp, requests, lambda c: None)
+    with port_resolved(Resolver(records, substitute=False)) as res:
+        port_out = _run_requests(te, TOp, requests, lambda c: None)
+    rep = res.report()
+    first = rep["first_diff"]
+    print(f"[ties] seed {seed}: first differing call {first}, noise {rep['noise_ulps']:.3f}")
+    assert rep["calls"] > 0
+    if first is None:
+        assert not rep["faults"], rep["faults"][:3]
+        for (jt, jl, _), (tt, tl, _) in zip(jax_out, port_out):
+            np.testing.assert_array_equal(tt, jt)
+            assert max(np.abs(t - j).max() for t, j in zip(tl, jl)) <= 1e-3
+        return
+    call, check = first
+    assert check["ok"], (seed, check)
+    assert all(f[0] > call for f in rep["faults"]), (call, rep["faults"][:3])
 
 
 def test_engine_int4_ragged_suffixes_raise(fp_params):

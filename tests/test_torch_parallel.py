@@ -15,7 +15,8 @@ What is held (mirroring ``test_tp.py``, ``test_comm.py`` and
   1e-4 of the JAX engine on the same mesh and of the port without a mesh;
 - int8 weights at (tp=2, dp=2);
 - w8a8 at tp=2 against the JAX sharded engine (its per-shard GEMM routes,
-  in interpret mode);
+  in interpret mode), each quantization of the ranks held to its JAX
+  counterpart by the tie rule of ``test_torch_ties.py``;
 - the parameter layout; ``from_pretrained_tp``'s slices against the host
   quantizers' output, bit for bit; the cache against the JAX cache;
 - the sp LSE merge with a fully masked shard; the row-parallel GEMM;
@@ -45,12 +46,13 @@ CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_lay
 # family, as the port does.
 CFG_W8 = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=4, dtype="float32")
-# The fixed parameter key of the w8a8 case: at other keys a last-bit
-# difference between XLA's and PyTorch's float sums can move one per-row
-# activation code across a rounding boundary (ROADMAP.md §3), which moves a
-# logit by up to ~4e-2 with no fault on either side.
+# The parameter key of the w8a8 case. A last-bit difference between XLA's and
+# PyTorch's float sums can move one activation or KV code across a rounding
+# boundary at any key; the ranks resolve such ties to JAX's codes
+# (``tests/test_torch_ties.py``), so the key pins nothing.
 W8_KEY = 0
 TIMEOUT = 240.0  # seconds a spawn may take, set-up included
+HF_QUANT = ["w8a8", "w4a8", "mixed"]  # the quantizations from_pretrained_tp is held at
 MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2)]
 # Rows 0-2 / 3-5 of 6 over dp=2, the level's 3 prefixes two rows each: each
 # rank's rows end or start inside a prefix group.
@@ -111,11 +113,11 @@ def _decode_census(cfg_kw, params_np, mesh):
     return dict(COLLECTIVES)
 
 
-def _shard_after_prefill(params_np, mesh):
+def _shard_after_prefill(params_np, mesh, quant=None):
     """A meshless engine prefills a level, then ``shard(mesh)`` slices its
     parameters and its written cache, and a second request decodes over
     the kept level (``PRESERVE``)."""
-    eng = _engine(CFG, params_np)
+    eng = _engine(CFG, params_np, quant=quant)
     shared, suffix = _prompts(STD)
     eng.setup_caches(STD["B"], 16, STD["levels"], STD["lens"])
     eng.append_shared(shared)
@@ -145,19 +147,15 @@ def _case(name, arg, params, rank, world):
     if name == "generate":
         (tp, dp, sp), quant, layout, kv_quant, *bshd = arg
         mesh = make_mesh(tp=tp, dp=dp, sp=sp, device="cpu")
-        cfg_kw = CFG_W8 if quant == "w8a8" else CFG
-        eng = _engine(cfg_kw, params[quant == "w8a8"], mesh, quant)
-        vocab = cfg_kw["vocab_size"]
-        toks, logits = run_generate(eng, layout, kv_quant, vocab, bshd=bshd[0] if bshd else None)
-        out = dict(toks=toks, logits=logits, cache=_local_cache(eng))
-        if quant == "w8a8":  # a forced stream: the logits of the same tokens
-            forced = np.random.RandomState(2).randint(1, vocab, (8, 6)).astype(np.int32)
-            out["forced"] = run_generate(eng, layout, kv_quant, vocab, overrides=forced)[1]
-        return out
+        eng = _engine(CFG, params[False], mesh, quant)
+        toks, logits = run_generate(eng, layout, kv_quant, bshd=bshd[0] if bshd else None)
+        return dict(toks=toks, logits=logits, cache=_local_cache(eng))
+    if name == "resolved":
+        return _resolved_case(arg, params)
     if name == "shard":
-        tp, dp, sp = arg
+        (tp, dp, sp), quant = arg
         mesh = make_mesh(tp=tp, dp=dp, sp=sp, device="cpu")
-        return dict(zip(("toks", "logits"), _shard_after_prefill(params[False], mesh)))
+        return dict(zip(("toks", "logits"), _shard_after_prefill(params[False], mesh, quant)))
     if name == "census":
         tp, dp, sp = arg
         return _decode_census(CFG, params[False], make_mesh(tp=tp, dp=dp, sp=sp, device="cpu"))
@@ -192,11 +190,45 @@ def _case(name, arg, params, rank, world):
         xs = torch.from_numpy(x[:, i * k:(i + 1) * k].copy())
         return dict(y=sharded_qmatmul_stacked_row(xs, w, layer, "", "w8a8", mesh))
     if name == "pretrained":
-        path = arg
+        path, quant = arg
         eng = HydragenLlama.from_pretrained_tp(path, tp=2, dp=1, dtype="float32",
-                                               quantization="w8a8", device="cpu")
+                                               quantization=quant, device="cpu")
         return dict(params=eng.params, tp_rank=eng.mesh.index("tp"))
     raise ValueError(name)
+
+
+def _resolved_case(arg, params):
+    """A quantized request (and a forced stream) on this rank with each of its
+    quantizations held to the JAX run's ``records`` by the tie rule, ties
+    resolved to JAX's codes: tokens, logits, the forced logits and the
+    resolver's report."""
+    from tests.test_torch_ties import Resolver, port_resolved
+
+    from hydragen_torch.ops import gemm
+    from tests.test_torch_ties import patched
+
+    (tp, dp, sp), quant, wide, layout, kv_quant, records, forced = arg
+    cfg_kw = CFG_W8 if wide else CFG
+    mesh = make_mesh(tp=tp, dp=dp, sp=sp, device="cpu")
+    eng = _engine(cfg_kw, params[wide], mesh, quant)
+    vocab = cfg_kw["vocab_size"]
+    routes = {"w4a8": 0, "w8a8": 0}  # K6 and K1 wrapper calls (their plain versions here)
+
+    def counted(key, fn):
+        def wrapped(*a, **kw):
+            routes[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    with port_resolved(Resolver(records)) as res, patched([
+            (gemm, f"{k}_matmul_cached", counted(k, getattr(gemm, f"{k}_matmul_cached")))
+            for k in routes]):
+        toks, logits = run_generate(eng, layout, kv_quant, vocab)
+        out = dict(toks=toks, logits=logits)
+        if forced is not None:
+            out["forced"] = run_generate(eng, layout, kv_quant, vocab, overrides=forced)[1]
+    out.update(ties=res.report(), routes=routes)
+    return out
 
 
 def _rank_cases(rank, world, cases, params):
@@ -233,6 +265,44 @@ def _jax_generate(cfg_kw, jparams, mesh_shape, quant=None, layout=STD, kv_quant=
                   **({"eos_chunk": 2} if extra else {}))
     return run_generate(eng, layout, kv_quant, cfg_kw["vocab_size"], overrides, bshd,
                         **extra), eng
+
+
+def jax_resolved_case(params, mesh_shape, quant, wide=True, layout=STD, kv_quant="int8",
+                      forced=False):
+    """The JAX engine's run of a quantized case on ``mesh_shape`` with every
+    quantization recorded (the Pallas GEMMs in interpret mode): its outputs
+    and the rank case ``("resolved", ...)`` that holds the port to them."""
+    from tests.test_torch_ties import env, jax_recorded
+
+    cfg_kw = CFG_W8 if wide else CFG
+    over = None
+    if forced:
+        over = np.random.RandomState(2).randint(1, cfg_kw["vocab_size"], (layout["B"], 6)
+                                                ).astype(np.int32)
+    records = []
+    with env(HYDRAGEN_W8A8_INTERPRET="1", HYDRAGEN_MESH_KERNELS_INTERPRET="1"), \
+            jax_recorded(records):
+        (toks, logits), _ = _jax_generate(cfg_kw, params[wide][0], mesh_shape, quant, layout,
+                                          kv_quant)
+        out = dict(toks=toks, logits=logits)
+        if forced:
+            out["forced"] = _jax_generate(cfg_kw, params[wide][0], mesh_shape, quant, layout,
+                                          kv_quant, overrides=over)[0][1]
+    return out, ("resolved", (mesh_shape, quant, wide, layout, kv_quant, records, over))
+
+
+def hold_resolved(ranks, key, jax_out, tol=1e-3):
+    """Every rank's tie report clean; tokens equal to JAX's and the same on
+    every rank; logits (and forced logits) within ``tol`` of JAX's."""
+    from tests.test_torch_ties import assert_resolved
+
+    for rank, r in enumerate(ranks):
+        assert_resolved(r[key]["ties"], f"{key} rank {rank}")
+    np.testing.assert_array_equal(_same_on_every_rank(ranks, key, "toks"), jax_out["toks"])
+    for field in ("logits", "forced"):
+        if field in jax_out:
+            np.testing.assert_allclose(_same_on_every_rank(ranks, key, field), jax_out[field],
+                                       atol=tol, rtol=0, err_msg=field)
 
 
 @pytest.fixture(scope="module")
@@ -284,7 +354,7 @@ def two_ranks(params, tmp_path_factory):
         "gen_split": ("generate", ((1, 2, 1), None, SPLIT, None)),
         "cache_kv8": ("generate", ((2, 1, 1), None, STD, "int8")),
     })
-    cases.update({f"shard{m}": ("shard", m) for m in MESHES})
+    cases.update({f"shard{m}": ("shard", (m, None)) for m in MESHES})
     return _once(tmp_path_factory, "two_ranks", lambda: dict(ranks=launch(
         _rank_cases, 2, cases, _np_params(params), timeout=TIMEOUT)))
 
@@ -299,8 +369,9 @@ def two_ranks_more(params, tmp_path_factory):
 
 def _two_ranks_more(params, tmp_path_factory):
     full, stops = _stop_requests(params)
+    jax_w8a8, case_w8a8 = jax_resolved_case(params, (2, 1, 1), "w8a8", forced=True)
     cases = {
-        "gen_w8a8": ("generate", ((2, 1, 1), "w8a8", STD, "int8")),
+        "gen_w8a8": case_w8a8,
         "stops": ("stops", (STD, stops)),
         "sample_dp": ("sample", ((1, 2, 1), STD)),
         "sample_dp_split": ("sample", ((1, 2, 1), SPLIT)),
@@ -309,7 +380,7 @@ def _two_ranks_more(params, tmp_path_factory):
     }
     cases.update({f"census{m}": ("census", m) for m in MESHES})
     res = launch(_rank_cases, 2, cases, _np_params(params), timeout=TIMEOUT)
-    return dict(ranks=res, full=full, stops=stops)
+    return dict(ranks=res, full=full, stops=stops, jax_w8a8=jax_w8a8)
 
 
 @pytest.fixture(scope="module")
@@ -318,7 +389,7 @@ def two_ranks_hf(params, tmp_path_factory):
     def compute():
         path = tmp_path_factory.mktemp("hf_tiny")
         _save_tiny_hf(path)
-        cases = {"pretrained": ("pretrained", str(path))}
+        cases = {f"pretrained_{q}": ("pretrained", (str(path), q)) for q in HF_QUANT}
         return dict(ranks=launch(_rank_cases, 2, cases, _np_params(params), timeout=TIMEOUT),
                     hf=path)
 
@@ -414,7 +485,11 @@ def test_sharded_int8_tp2_dp2(params, four_ranks):
 def test_w8a8_tp2_against_jax_sharded(params, two_ranks_more, monkeypatch):
     """The per-shard K1 routes: column-parallel on the shared row
     quantization, row-parallel on per-shard row scales with bf16 partials
-    and their sum (``shard_gemm.py:12-25``), int8 KV."""
+    and their sum (``shard_gemm.py:12-25``), int8 KV. Every quantization in
+    the ranks is held to its JAX counterpart, a differing code must be a
+    tie and takes JAX's code (``tests/test_torch_ties.py``); then tokens
+    equal JAX's, and the logits of the request and of a forced stream lie
+    within 1e-3 of JAX's."""
     monkeypatch.setenv("HYDRAGEN_W8A8_INTERPRET", "1")
     monkeypatch.setenv("HYDRAGEN_MESH_KERNELS_INTERPRET", "1")
     from hydragen_tpu.ops.quant import _w8a8_blocks
@@ -425,17 +500,7 @@ def test_w8a8_tp2_against_jax_sharded(params, two_ranks_more, monkeypatch):
     Hq = c["num_attention_heads"] * hd
     for N, K in ((Hq // tp, H), (H, Hq // tp), (I // tp, H), (H, I // tp)):
         assert _w8a8_blocks(N, K) is not None, (N, K)
-    jax_out, _ = _jax_generate(c, params[True][0], (2, 1, 1), quant="w8a8", kv_quant="int8")
-    r = two_ranks_more["ranks"]
-    toks = _same_on_every_rank(r, "gen_w8a8", "toks")
-    np.testing.assert_array_equal(toks, jax_out[0])
-    np.testing.assert_allclose(_same_on_every_rank(r, "gen_w8a8", "logits"), jax_out[1],
-                               atol=1e-3, rtol=0)
-    forced = np.random.RandomState(2).randint(1, c["vocab_size"], (8, 6)).astype(np.int32)
-    (_, jforced), _ = _jax_generate(c, params[True][0], (2, 1, 1), quant="w8a8",
-                                    kv_quant="int8", overrides=forced)
-    np.testing.assert_allclose(_same_on_every_rank(r, "gen_w8a8", "forced"), jforced,
-                               atol=1e-3, rtol=0)
+    hold_resolved(two_ranks_more["ranks"], "gen_w8a8", two_ranks_more["jax_w8a8"])
 
 
 def test_dp_split_inside_prefix_group(params, two_ranks):
@@ -655,25 +720,29 @@ def _save_tiny_hf(path):
     transformers.LlamaForCausalLM(cfg).eval().save_pretrained(path)
 
 
-def test_from_pretrained_tp_slices_bit_equal(two_ranks_hf):
+@pytest.mark.parametrize("quant", HF_QUANT)
+def test_from_pretrained_tp_slices_bit_equal(two_ranks_hf, quant):
     """``from_pretrained_tp`` on a tiny ``save_pretrained`` directory: each
-    rank's parameters equal the host quantizers' global output (f32 scales),
-    sliced, bit for bit."""
+    rank's parameters equal the host quantizers' global output (int8 with
+    f32 scales, or int4 with bf16 group scales, the row-parallel families
+    packed again for the rank's K slice), sliced by ``shard_params``, bit
+    for bit."""
     from hydragen_torch.models import hf
-    from hydragen_torch.ops.quant import QuantizedTensor
+    from hydragen_torch.ops.quant import Quantized4Tensor, QuantizedTensor
     from hydragen_torch.parallel import shard_params
 
-    cfg, glob = hf.from_pretrained(two_ranks_hf["hf"], dtype="float32", quantization="w8a8")
+    cfg, glob = hf.from_pretrained(two_ranks_hf["hf"], dtype="float32", quantization=quant)
 
     def flat(t, prefix=""):
         if isinstance(t, dict):
             return {k2: v2 for k, v in t.items() for k2, v2 in flat(v, f"{prefix}{k}.").items()}
-        if isinstance(t, QuantizedTensor) or (isinstance(t, tuple) and len(t) == 2):
-            return {f"{prefix}q": np.asarray(t[0]), f"{prefix}scale": np.asarray(t[1])}
-        return {prefix: np.asarray(t)}
+        if isinstance(t, (QuantizedTensor, Quantized4Tensor)) or (
+                isinstance(t, tuple) and len(t) == 2):
+            return {f"{prefix}q": np.asarray(t[0]), f"{prefix}scale": _np_bits(t[1])}
+        return {prefix: _np_bits(t)}
 
     for r in two_ranks_hf["ranks"]:
-        got = r["pretrained"]
+        got = r[f"pretrained_{quant}"]
         rank = got["tp_rank"]
         mesh = Mesh(tp=2, dp=1, sp=1, rank=rank, coords=dict(dp=0, sp=0, tp=rank), groups={},
                     device=torch.device("cpu"), backend="gloo")
@@ -682,7 +751,18 @@ def test_from_pretrained_tp_slices_bit_equal(two_ranks_hf):
         assert sorted(mine) == sorted(want)
         for k in want:
             assert mine[k].dtype == want[k].dtype and np.array_equal(mine[k], want[k]), k
-    assert glob["layers"]["wo"].scale.dtype == torch.float32
+    if quant == "w8a8":
+        assert glob["layers"]["wo"].scale.dtype == torch.float32
+    else:
+        assert isinstance(glob["layers"]["down"], Quantized4Tensor)
+
+
+def _np_bits(t):
+    """A tensor as numpy, bf16 widened to f32 (exactly), as ``launch`` hands
+    back a rank's tensors."""
+    if torch.is_tensor(t):
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(t)
 
 
 @pytest.mark.parametrize("backend,tp,graphs", [("nccl", 1, True), ("nccl", 2, True),
@@ -754,6 +834,40 @@ def test_k1_at_tp2_shapes(card, M, N, K):
              ).to(torch.bfloat16)
     assert torch.equal(out, exact)
     assert _rel(out, gemm.w8a8_cached_plain(1, a_q, a_s, w, ws, out_dtype=torch.float32)) < 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [256, 2048])
+@pytest.mark.parametrize("N", [2048, 5632], ids=["qkv", "gate_up"])
+def test_k6_at_tp2_shapes(card, M, N):
+    """K6 at a tp=2 rank's 7B column shapes (q/k/v N = 2,048, gate/up N =
+    5,632 of the padded MLP, K = 4,096, group 128; decode and prefill M)
+    against the f32 oracle ``w4a8_reference``: within 1e-5 of its largest
+    output (``chip_smoke.py``'s ``TOL_W4A8``)."""
+    from hydragen_torch.ops import gemm
+
+    K = 4096
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qp = torch.randint(-128, 128, (2, N, K // 2), dtype=torch.int8, device=card, generator=g)
+    gs = (torch.rand(2, K // 128, N, device=card, generator=g) * 2e-3 + 1e-4).to(torch.bfloat16)
+    a_q, a_s = gemm.quantize_rows(torch.randn(M, K, device=card, generator=g))
+    out = gemm.w4a8_matmul_cached(1, a_q, a_s, qp, gs, out_dtype=torch.float32)
+    ref = gemm.w4a8_reference(a_q, a_s, qp[1], gs[1], out_dtype=torch.float32)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_column_parallel_w4a8_raises_where_k6_does_not_take_the_shape(card):
+    """The column-parallel w4a8 route on a CUDA tensor at a group size K6
+    does not take (32): it raises, it does not fall back to weight-only dq."""
+    from hydragen_torch.ops.quant import Quantized4Tensor
+    from hydragen_torch.parallel.shard_gemm import sharded_qmatmul_stacked
+
+    w = Quantized4Tensor(qp=torch.zeros(2, 64, 64, dtype=torch.int8, device=card),
+                         gscale=torch.ones(2, 4, 64, dtype=torch.bfloat16, device=card))
+    x = torch.randn(1, 8, 128, device=card).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="group size"):
+        sharded_qmatmul_stacked(x, w, 1, "bth,hd->btd", "w4a8")
 
 
 @pytest.mark.gpu
