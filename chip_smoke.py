@@ -123,6 +123,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    sum all-reduce, no K1; the same gates against the meshless w4a8 engine.
    ``--tp4`` runs only tp=4 over NCCL on four cards
    (eager, then graphs: bit for bit), which the default run never takes.
+12. scripts: each entry point of ``hydragen_torch.scripts`` through its
+   ``main(argv)``, in this process, on the card, outputs under
+   ``build/scripts_phase/``: synth at the main path's shape (``--mode all``,
+   two iterations): the hydragen point's launches exactly 4 times request
+   1's, noattention launching no K2 or K3, the no-sharing point (142 GB of
+   unique KV) skipped by ``fits_hbm`` and never run; needles on
+   ``yi-6b-200k`` in bf16 over a 16,384-token haystack, 2 to 64 questions: a
+   YAML a count, K2 and K4 launched; the microbenchmark at its defaults,
+   Hydragen's output within ``TOL_REL`` of the baseline's, and their time
+   ratio; serving_bench at its defaults: every request back within its
+   budget; run.py over a 2-layer Llama-2-7B-width HF directory with a
+   WordLevel tokenizer (w8a8, int8 KV): a block a row, tokens in range;
+   profile_decode over 8 steps: K1, K2 and K3 in its table.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
@@ -836,8 +849,9 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
 def device_ms_by_kernel(fn, names, calls: int = 10) -> dict:
     """Device ms a ``fn()`` call spends in the kernels whose names contain
     each of ``names``, from torch.profiler over ``calls`` calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from hydragen_torch.utils.profiling import group_ms, kernel_table
 
     fn()
     torch.cuda.synchronize()
@@ -845,12 +859,7 @@ def device_ms_by_kernel(fn, names, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(names, 0.0)
-    for e in prof.events():
-        key = next((k for k in names if k in e.name), None)
-        if key and e.device_type == DeviceType.CUDA:
-            ms[key] += e.time_range.elapsed_us() / 1e3 / calls
-    return ms
+    return group_ms(kernel_table(prof), names, per=calls, other=None)
 
 
 def check_flash_shapes(report: dict, time_ms, g, record) -> None:
@@ -1252,14 +1261,15 @@ def compare_to_eager(tag: str, eager, toks, logits, failures: list) -> None:
                         f"{unequal} logit steps unequal, largest {worst:.4g})")
 
 
-def drive_path(args, failures: list, path: str) -> dict:
+def drive_path(args, failures: list, path: str, stats_out: dict | None = None) -> dict:
     """Drive one configuration's two requests at full width and depth
     through the decode graphs, with the counts set to 0 just before and read
     just after. Request 1 also runs through the eager loop first, the
     yardstick: tokens equal and logits bit-equal. Then request 2 once more
     eagerly and once more through its graph (captured by then), for the two
     decode rates; then 8 decode steps profiled eagerly (the copy gate) and
-    through the graph. Returns the launch counts of the two requests."""
+    through the graph. Returns the launch counts of the two requests; the
+    rates and times go into ``stats_out``."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
@@ -1344,6 +1354,8 @@ def drive_path(args, failures: list, path: str) -> dict:
         prof[name] = profile_decode(eng, decode_steps, profile_request, tag, groups,
                                     failures, graphs=graphs)
     print_graph_summary(tag, stats, prof)
+    if stats_out is not None:
+        stats_out.update(stats)
     return launches
 
 
@@ -1375,33 +1387,14 @@ def profile_decode(eng, decode_steps, request, tag: str, names, failures: list,
     replays ran (its table's name ends in ``_graph``). Returns wall and busy
     ms a step, idle share and kernels a step. The full table goes to
     chiprun_out/profile_decode.txt (main path) or profile_decode_<tag>.txt."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from hydragen_torch.utils.profiling import group_ms, kernel_table, trace_decode
 
     steps = PROFILE_STEPS
-    window = {}
-
-    def profiled(*a, **kw):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            t = time.perf_counter()
-            out = decode_steps(*a, **kw)
-            torch.cuda.synchronize()
-            window["wall_us"] = (time.perf_counter() - t) * 1e6
-        window["prof"] = prof
-        return out
-
     if graphs:
         request()  # captures the request's decode graph, if it is not yet
-    eng._decode_steps = profiled
-    try:
-        request()
-    finally:
-        eng._decode_steps = decode_steps
-    prof, wall = window["prof"], window["wall_us"]
+    tr = trace_decode(eng, request, decode_steps, record_shapes=True)
+    eng._decode_steps = decode_steps
+    prof, wall = tr.prof, tr.wall_ms * 1e3
     mode = "graph" if graphs else "eager"
     if not graphs:
         layer = eng.cache.unique_k[0]
@@ -1416,26 +1409,19 @@ def profile_decode(eng, decode_steps, request, tag: str, names, failures: list,
         if copies:
             failures.append(f"{tag} decode copies the unique cache: "
                             f"{[(e.name, e.input_shapes) for e in copies[:4]]}")
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
-    if not kernels:
+    by_name = kernel_table(prof)
+    busy = sum(us for us, _ in by_name.values())
+    launched = sum(n for _, n in by_name.values())
+    if not launched:
         failures.append(f"{tag} {mode} profile saw no device work")
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    groups = defaultdict(float)
-    for name, (us, _) in by_name.items():
-        key = next((k for k in names if k in name), "other")
-        groups[key] += us
+    groups = {k: v for k, v in group_ms(by_name, names, per=steps).items() if v}
     stats = dict(wall_ms_per_step=wall / steps / 1e3, busy_ms_per_step=busy / steps / 1e3,
-                 idle_share=1 - busy / wall, kernels_per_step=len(kernels) / steps,
-                 groups={k: v / steps / 1e3 for k, v in groups.items()})
+                 idle_share=1 - busy / wall, kernels_per_step=launched / steps, groups=groups)
     print(f"[profile {tag} {mode}] {steps} decode steps: wall {stats['wall_ms_per_step']:.3f} "
           f"ms/step, device busy {stats['busy_ms_per_step']:.3f} ms/step, idle share "
           f"{stats['idle_share']:.4f}, {stats['kernels_per_step']:.0f} kernels/step", flush=True)
     print(f"[profile {tag} {mode}] device ms/step by kernel: " + json.dumps(
-        {k: round(v / steps / 1e3, 4) for k, v in sorted(groups.items(), key=lambda x: -x[1])}),
+        {k: round(v, 4) for k, v in sorted(groups.items(), key=lambda x: -x[1])}),
         flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:12]:
         print(f"[profile {tag} {mode}]   {us / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  "
@@ -2675,6 +2661,259 @@ def drive_parallel(args, failures: list, card: str) -> dict:
     return out
 
 
+# Phase scripts: the port's entry points at full width, in this process.
+SYNTH_ARGV = ["--preset", "llama-2-7b", "--quantization", "w8a8", "--kv-quant", "int8",
+              "--bs", "256", "--num-shared", "2048", "--num-unique", "64", "--mode", "all",
+              "--iters", "2"]
+SYNTH_CALLS = 2 + 2  # generate calls a point: 2 warm-up and --iters 2
+NEEDLES_ARGV = ["--preset", "yi-6b-200k", "--haystack-chars", "65536",
+                "--num-questions", "2:64:x2"]
+NEEDLES_COUNTS = (2, 4, 8, 16, 32, 64)
+RUN_LAYERS = 2  # the run.py checkpoint: Llama-2-7B width, cut in depth
+RUN_PROMPTS = ["w11 w12 w13 w14 w15 w16 w17 w18", "w21 w22 w23|w31 w32 w33"]
+RUN_SAMPLES, RUN_NEW_TOKENS = 4, 16
+PROFILE_KERNELS = ("w8a8_kernel", "flash_kernel", "decode_kernel")  # K1, K2/K4, K3
+
+
+def write_wordlevel_tokenizer(directory: Path, vocab_size: int) -> None:
+    """A tokenizer that ``transformers.AutoTokenizer`` reads from
+    ``directory`` with no download: ``tokenizers``' WordLevel over <unk>,
+    <s>, </s> and the words w0 ... w{vocab_size-4}, split on whitespace,
+    with <s> put before each encoded text (Llama's BOS)."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"w{i}": i + 3 for i in range(vocab_size - 3)})
+    tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.post_processor = processors.TemplateProcessing(single="<s> $A",
+                                                      special_tokens=[("<s>", 1)])
+    directory.mkdir(parents=True, exist_ok=True)
+    tk.save(str(directory / "tokenizer.json"))
+    (directory / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 4096}, indent=1))
+
+
+def nonzero_launches() -> dict:
+    from hydragen_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    return {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+
+
+def script_synth(root: Path, failures: list, card: str, main_stats: dict) -> dict:
+    """synth at the main path's shape, ``--mode all``: launches by mode
+    (each ``bench_point`` counted alone), ``fits_hbm``'s answer by mode."""
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.scripts import synth
+    from hydragen_torch.utils import SynthBenchmarkResult, load_yaml_dataclass
+
+    by_mode, fits = {}, {}
+    bench_point, fits_hbm = synth.bench_point, synth.fits_hbm
+
+    def counted_point(engine, mode, *a, **kw):
+        cuda_lib.reset_launches()
+        out = bench_point(engine, mode, *a, **kw)
+        by_mode[mode] = nonzero_launches()
+        return out
+
+    def recorded_fits(cfg, quant, kv_quant, bs, ns, nu, mode, *a, **kw):
+        fits[mode] = fits_hbm(cfg, quant, kv_quant, bs, ns, nu, mode, *a, **kw)
+        return fits[mode]
+
+    synth.bench_point, synth.fits_hbm = counted_point, recorded_fits
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        written = synth.main([str(root / "synth")] + SYNTH_ARGV)
+    finally:
+        synth.bench_point, synth.fits_hbm = bench_point, fits_hbm
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = synth.PRESETS["llama-2-7b"]
+    noshared_bytes = synth.hbm_bytes(cfg, "w8a8", "int8", 256, 2048, 64, "hydragen_noshared", 1)
+    want = {k: SYNTH_CALLS * v for k, v in
+            expected_launches_request1(cfg.num_hidden_layers, 64).items()}
+    names = sorted(p.name for p in written)
+    print(f"[scripts synth] launches by mode {json.dumps(by_mode)}; fits_hbm {json.dumps(fits)} "
+          f"(hydragen_noshared needs {noshared_bytes / 1e9:.1f} GB of {synth.HBM_BYTES / 1e9:.0f}); "
+          f"device peak {peak:.2f} GiB; wrote {names}", flush=True)
+    if by_mode.get("hydragen") != want:
+        failures.append(f"scripts synth: hydragen launches {by_mode.get('hydragen')} != {want}")
+    att = {k: v for k, v in by_mode.get("noattention", {"missing": 1}).items()
+           if k in ("flash_attention_cached_bhsd", "decode_attention_cached", "missing")}
+    if att:
+        failures.append(f"scripts synth: noattention launched {att}")
+    if "hydragen_noshared" in by_mode or fits.get("hydragen_noshared") is not False:
+        failures.append(f"scripts synth: hydragen_noshared not skipped by fits_hbm "
+                        f"(fits {fits.get('hydragen_noshared')}, ran "
+                        f"{'hydragen_noshared' in by_mode})")
+    if names != ["hydragen_bs256_ns2048_nu64.yaml", "noattention_bs256_ns2048_nu64.yaml"]:
+        failures.append(f"scripts synth: wrote {names}")
+    rates = {}
+    for path in written:
+        r = load_yaml_dataclass(SynthBenchmarkResult, path)
+        rates[r.mode] = dict(tok_s=r.throughput, mean_s=r.mean_time, times=r.times)
+    print(f"[scripts synth] {card}: tok/s (a whole generate call: the 2,048-token prefill and "
+          f"63 decode steps, 256 rows) {json.dumps(rates)}; the main path's graph decode rate "
+          f"(decode steps alone, request 2 again) {main_stats.get('graph_decode_tok_s')}",
+          flush=True)
+    return by_mode.get("hydragen", {})
+
+
+def script_needles(root: Path, failures: list, card: str) -> dict:
+    from hydragen_torch.scripts import needles
+
+    argv = [str(root / "needles")] + NEEDLES_ARGV
+    new_tokens = needles.parse_args(argv).max_new_tokens
+    res = needles.main(argv)
+    launches = nonzero_launches()
+    yamls = sorted(int(p.stem.split("_q")[1]) for p in (root / "needles").glob("*.yaml"))
+    rates = {r.num_questions: r.num_questions * new_tokens / r.decode_times[0] for r in res}
+    print(f"[scripts needles] {card}: shared prefill of {65536 // 4} tokens "
+          f"{res[0].shared_prefill_time if res else float('nan'):.4f} s; tok/s of a whole "
+          f"generate call (the questions' prefill over the shared level and {new_tokens} new "
+          f"tokens) by question count {json.dumps(rates)}; launches {json.dumps(launches)} (K5: "
+          f"{launches.get('flash_decode_bhsd', 0)})", flush=True)
+    if yamls != list(NEEDLES_COUNTS):
+        failures.append(f"scripts needles: YAMLs for {yamls}, want {list(NEEDLES_COUNTS)}")
+    if not (launches.get("flash_attention_cached_bhsd") and launches.get("flash_attention_bhsd")):
+        failures.append(f"scripts needles: K2 or K4 not launched: {launches}")
+    return launches
+
+
+def script_microbenchmark(root: Path, failures: list, card: str, seed: int) -> dict:
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.scripts import microbenchmark as mb
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    inputs = mb.make_inputs(g, 512, 2048, 128, 8, 1, 128, torch.bfloat16, "cuda")
+    outs = {}
+    for mode in ("hydragen", "baseline"):
+        op, op_args = getattr(mb, f"go_{mode}")(*inputs, 128, 512)
+        outs[mode] = op(*op_args)
+    err, rel = rel_err(outs["hydragen"], outs["baseline"])
+    del outs, inputs
+    cuda_lib.reset_launches()  # the gate's calls above are not the script's run
+    res = mb.main([str(root / "micro")])
+    launches = nonzero_launches()
+    t = {r.mode: r.mean_time for r in res}
+    ratio = t["hydragen"] / t["baseline"] if len(t) == 2 else float("nan")
+    print(f"[scripts microbenchmark] {card}: defaults (bs 512, shared 2,048, unique 128, 8 q "
+          f"heads over 1 kv head, d 128, bf16), each call after an L2 flush: hydragen "
+          f"{t.get('hydragen', float('nan')) * 1e3:.4f} ms, baseline "
+          f"{t.get('baseline', float('nan')) * 1e3:.4f} ms, hydragen/baseline {ratio:.4f}; "
+          f"hydragen vs baseline max |err| {err:.4g} (relative {rel:.4g}, tol {TOL_REL}); "
+          f"launches {json.dumps(launches)}", flush=True)
+    if rel > TOL_REL or len(t) != 2:
+        failures.append(f"scripts microbenchmark: hydragen vs baseline relative {rel:.4g} > "
+                        f"{TOL_REL} or modes {sorted(t)}")
+    return launches
+
+
+def script_serving(failures: list, card: str) -> dict:
+    from hydragen_torch.scripts import serving_bench
+
+    res = serving_bench.main([])
+    launches = nonzero_launches()
+    print(f"[scripts serving_bench] {card}: {res['requests'] / res['continuous_s']:.2f} "
+          f"requests/s continuous, {res['requests'] / res['static_s']:.2f} static; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if res["requests"] != 96:
+        failures.append(f"scripts serving_bench: {res['requests']} requests")
+    return launches
+
+
+def script_run(root: Path, failures: list, seed: int) -> dict:
+    import io
+
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.scripts import run
+
+    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=RUN_LAYERS)
+    ckpt = root / "run_ckpt"
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    write_hf_checkpoint(ckpt, cfg, hf_state_dict(cfg, g), shards=1)
+    write_wordlevel_tokenizer(ckpt, cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = run.main([str(ckpt), "--prompts", *RUN_PROMPTS, "--num-return-sequences",
+                        str(RUN_SAMPLES), "--max-new-tokens", str(RUN_NEW_TOKENS),
+                        "--quantization", "w8a8", "--kv-quant", "int8"])
+    launches = nonzero_launches()
+    text = out.getvalue()
+    blocks = text.splitlines().count("---")
+    toks = res["tokens"]
+    rows = len(RUN_PROMPTS[-1].split("|")) * RUN_SAMPLES
+    ok = (blocks == rows == toks.shape[0] and 0 < toks.shape[1] <= RUN_NEW_TOKENS
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
+    print(f"[scripts run] {RUN_LAYERS}-layer Llama-2-7B-width checkpoint, w8a8 + int8 KV: "
+          f"{blocks} blocks for {rows} rows, tokens {tuple(toks.shape)} in range "
+          f"{ok}; launches {json.dumps(launches)}; first block: "
+          f"{text.split('---')[1].strip()[:120] if blocks else ''!r}", flush=True)
+    if not ok:
+        failures.append(f"scripts run: {blocks} blocks, {rows} rows, tokens {toks.shape}")
+    return launches
+
+
+def script_profile(failures: list) -> dict:
+    from hydragen_torch.scripts import profile_decode
+
+    res = profile_decode.main(["--steps", str(PROFILE_STEPS)])
+    launches = nonzero_launches()
+    s = res["summary"]
+    names = {op.name.split("::")[-1] for op in s.ops}
+    print(f"[scripts profile_decode] wall {res['decode_ms_per_step']:.3f} ms/step (no profiler); "
+          f"under the profiler: wall {s.wall_ms / s.steps:.3f}, busy {s.busy_ms / s.steps:.3f} "
+          f"ms/step; K1-K3 in the table: {sorted(names & set(PROFILE_KERNELS))}", flush=True)
+    if not set(PROFILE_KERNELS) <= names:
+        failures.append(f"scripts profile_decode: table lacks "
+                        f"{sorted(set(PROFILE_KERNELS) - names)}: {sorted(names)}")
+    return launches
+
+
+def drive_scripts(args, failures: list, card: str, main_stats: dict) -> dict:
+    """Phase scripts: each entry point of ``hydragen_torch.scripts`` through
+    its ``main(argv)`` in this process, outputs under
+    ``build/scripts_phase/`` (emptied first; the checkpoint deleted after).
+    A script that raises fails the phase; the others still run. Returns the
+    launches of each script by name."""
+    import shutil
+
+    from hydragen_torch.ops import cuda_lib
+
+    root = Path(__file__).resolve().parent / "build" / "scripts_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = (
+        ("synth", lambda: script_synth(root, failures, card, main_stats)),
+        ("needles", lambda: script_needles(root, failures, card)),
+        ("microbenchmark", lambda: script_microbenchmark(root, failures, card, args.seed)),
+        ("serving_bench", lambda: script_serving(failures, card)),
+        ("run", lambda: script_run(root, failures, args.seed)),
+        ("profile_decode", lambda: script_profile(failures)),
+    )
+    out, seconds = {}, {}
+    t_phase = time.perf_counter()
+    for name, step in steps:
+        t = time.perf_counter()
+        cuda_lib.reset_launches()
+        try:
+            out[name] = step()
+        except Exception:  # a failed script fails the phase; the others still run
+            traceback.print_exc()
+            failures.append(f"scripts {name} raised")
+            out[name] = {}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t, 1)
+    shutil.rmtree(root / "run_ckpt", ignore_errors=True)
+    print(f"[scripts] seconds {json.dumps(seconds)}, phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and prompts")
@@ -2728,15 +2967,21 @@ def main() -> int:
     report: dict = {}
     launches: dict = {"main": {}, "load": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {},
                       "serving": {}, "parallel": {}, "parallel int4": {}}
+    main_stats: dict = {}
 
     def parallel_phase():
         by_kind = drive_parallel(args, failures, card)
         launches["parallel"].update(by_kind["tp2"])
         launches["parallel int4"].update(by_kind["tp2-int4"])
 
+    def scripts_phase():
+        for name, counts in drive_scripts(args, failures, card, main_stats).items():
+            launches[f"scripts {name}"] = counts
+
     phases = (
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
-        ("main path", lambda: launches["main"].update(drive_path(args, failures, "main"))),
+        ("main path", lambda: launches["main"].update(
+            drive_path(args, failures, "main", stats_out=main_stats))),
         ("load", lambda: launches["load"].update(drive_load(args, failures))),
         ("int4 path", lambda: launches["int4"].update(drive_path(args, failures, "int4"))),
         ("gqa path", lambda: launches["gqa"].update(drive_path(args, failures, "gqa"))),
@@ -2748,6 +2993,7 @@ def main() -> int:
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
         ("parallel", parallel_phase),
+        ("scripts", scripts_phase),
     )
     for name, phase in phases:
         t = time.perf_counter()

@@ -1,12 +1,15 @@
 """Benchmark timing on the card.
 
 Port of ``hydragen_tpu.utils.timing``: where the TPU needed a host readback
-to fence a call, CUDA events on the current stream time the device work and
-``torch.cuda.synchronize`` fences it.
+to fence a call, ``torch.cuda.synchronize`` fences it (``fence``); CUDA
+events on the current stream time device work alone. ``timed_scanned``, a
+TPU device loop, is not ported: ``cuda_time_ms`` and ``cuda_graph_time_ms``
+take its place.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -56,26 +59,34 @@ def cuda_graph_time_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def fence(device) -> None:
+    """Wait for the work queued on ``device``: a synchronize on a CUDA
+    device, nothing on the CPU (its ops return when done)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def timed(fn: Callable, num_iters: int = 10, num_warmup: int = 3,
-          between_fn: Optional[Callable] = None) -> Tuple[List[float], List[float]]:
-    """Time ``fn`` -> (times, warmup_times) in seconds per call, each call
-    measured by CUDA events around it and fenced by a synchronize;
+          between_fn: Optional[Callable] = None,
+          device="cuda") -> Tuple[List[float], List[float]]:
+    """Time ``fn`` -> (times, warmup_times) in seconds per call: the host
+    clock around each call, which ends with a ``fence`` of ``device``, so a
+    call's time is its whole wall time, host work included (the JAX
+    package's ``timed`` fences each call by a host readback).
     ``between_fn`` runs untimed between iterations."""
 
     def once():
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        fence(device)
+        t = time.perf_counter()
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / 1e3
+        fence(device)
+        return time.perf_counter() - t
 
     warmup_times = [once() for _ in range(num_warmup)]
     times = []
     for _ in range(num_iters):
         if between_fn is not None:
             between_fn()
-            torch.cuda.synchronize()
         times.append(once())
     return times, warmup_times
