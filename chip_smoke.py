@@ -64,7 +64,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    request bit for bit; the hierarchy ablation (``disable_hierarchy``) with
    tokens equal, or forced-stream logits within ``TOL_NOSHARE``. Prints the
    load, host quantization, save and reload seconds, the bytes and both
-   decode rates. The directory is deleted at the end.
+   decode rates. Then (e) ``tp2-load``: two gloo ranks sharing the card
+   load the same directory with ``from_pretrained_tp(tp=2,
+   quantization="w8a8")``, which keeps only a rank's slices: each rank's
+   parameters bit-equal to ``shard_params`` of the meshless load's (by
+   digest), its parameter bytes the sharding rules', its host's peak
+   resident bytes over the load at most its parameter bytes + 2 x the largest
+   f32 tensor quantized whole + 1 GiB (printed beside the meshless load's),
+   and 8 decode steps of request 1 on the meshless engine's tokens with K1
+   on f32 scales at the rank's shapes: exact launches and collectives, row
+   0's logits within ``TOL_NOSHARE``. The directory is deleted at the end.
 6. int4 path: the same at full 7B width with int4 weights
    (``quantization="w4a8"``) and the token-planar int4 unique cache
    (``kv_quant="int4"``; the shared level int8). Request 1's decode writes
@@ -121,7 +130,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    int8 KV) at full width and depth: K6 on each rank's column slices, o and
    down on the weight-only product of the rank's repacked K slice and the
    sum all-reduce, no K1; the same gates against the meshless w4a8 engine.
-   ``--tp4`` runs only tp=4 over NCCL on four cards
+   (e) ``tp2-noshare``: the gqa no-sharing configuration (Llama-3-8B, w8a8
+   + int8 KV, full width, ``NOSHARE_LAYERS`` layers), Hydragen and
+   ``disable_hydragen=True`` in turn under one tp=2 gloo mesh, eagerly:
+   exact launches (K5 on a rank's 4 kv heads, no K2 in the baseline) and
+   collectives, tokens equal between the arms (or a forced stream within
+   ``TOL_NOSHARE``), the baseline's logits within ``TOL_NOSHARE`` of the
+   meshless baseline's on the same tokens; both decode rates and their
+   ratio. ``--tp4`` runs only tp=4 over NCCL on four cards
    (eager, then graphs: bit for bit), which the default run never takes.
 12. scripts: each entry point of ``hydragen_torch.scripts`` through its
    ``main(argv)``, in this process, on the card, outputs under
@@ -135,7 +151,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ratio; serving_bench at its defaults: every request back within its
    budget; run.py over a 2-layer Llama-2-7B-width HF directory with a
    WordLevel tokenizer (w8a8, int8 KV): a block a row, tokens in range;
-   profile_decode over 8 steps: K1, K2 and K3 in its table.
+   profile_decode over 8 steps: K1, K2 and K3 in its table; quality at its
+   defaults (``sheared-llama-1.3b``, 512 tokens x 4) in 7 modes, gated by
+   ``tests/test_quality.py``'s bounds where it asserts them (int8, w8a8 and
+   per-channel under outliers pass, per-tensor under outliers fails, the
+   int8 KV cache passes) with every w8a8 / w4a8 family on K1 / K6 (exact
+   launches); ubench_gemm at its defaults, K1's 2-D entry (K1') and K6's
+   within ``TOL_REL`` of their oracles; ubench_unique at its defaults, K3
+   at both widths within ``TOL_REL`` of the plain read.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result, if
@@ -151,17 +174,16 @@ import dataclasses
 import gc
 import json
 import math
+import hashlib
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
 
 import numpy as np
 import torch
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}  # dense, per second
 
 # Main-path sizes.
 SHARED_LEN = 2048
@@ -191,12 +213,6 @@ TOL_MAX = 1.25
 # the per-row int8 re-quantization; a missing or misplaced prefix copy gives
 # a distance near 1.
 TOL_NOSHARE = 0.2
-
-
-def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[kind]
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -251,6 +267,8 @@ def print_ptxas(build_log: dict) -> None:
 
 
 def check_kernels(report: dict, failures: list, time_ms) -> None:
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import decode, flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
     from hydragen_torch.utils.timing import cuda_graph_time_ms
@@ -514,6 +532,8 @@ def check_k6_tp2(report: dict, time_ms, g, record) -> None:
     layer's five column projections of a rank; each shape's own readings
     are nested under "shapes". The row-parallel o/down run the weight-only
     product, not K6."""
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
@@ -584,6 +604,8 @@ def check_k1(report: dict, time_ms, g, record, scale_dtype, shapes: dict, runs: 
     are nested under "shapes". With ``nest`` the report goes under that key of
     the kernel's entry (its sharded shapes). Returns ``{projection: (w, ws, w
     transposed)}``."""
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import cuda_lib, gemm
     from hydragen_torch.utils.timing import cuda_graph_time_ms
 
@@ -677,6 +699,8 @@ def check_decode_kernels(report: dict, time_ms, g, record) -> None:
     host-paced, ``device_ms`` from a CUDA graph of the calls, and SDPA over
     bf16 copies of the same keys (every row at the shape's length) as a
     yardstick of another function: no LSE, no own token, no merge."""
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import decode
     from hydragen_torch.ops.quant import unpack4
     from hydragen_torch.utils.timing import cuda_graph_time_ms
@@ -868,6 +892,8 @@ def check_flash_shapes(report: dict, time_ms, g, record) -> None:
     fit), beside SDPA on the same bf16 work (``enable_gqa`` where grouped):
     K2 at the 8B decode read and at the 7B request-2 read, K4 at the 8B
     prefill and at the 7B suffix prefill. Nested under the 7B entries."""
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import flash
     from hydragen_torch.ops.quant import dequantize_kv
     from hydragen_torch.utils.timing import cuda_graph_time_ms
@@ -976,6 +1002,8 @@ def check_flash_shapes(report: dict, time_ms, g, record) -> None:
 
 def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
     """K5 at the GQA phases' shapes, and K1 at Llama-3-8B's decode shapes."""
+    from hydragen_torch.utils.timing import bound_ms
+
     from hydragen_torch.ops import flash, gemm
     from hydragen_torch.ops.quant import dequantize_kv
     from hydragen_torch.utils.timing import cuda_graph_time_ms
@@ -1663,6 +1691,174 @@ def expected_launches_load(L: int, T: int) -> dict:
     }
 
 
+# Step (e) of the load phase: two gloo ranks load the written checkpoint at
+# tp=2 and decode request 1 on the meshless engine's tokens for this many.
+TP2_LOAD_TOKENS = 8
+# A rank's host peak over the load: at most its own parameter bytes, two f32
+# copies of the largest tensor the loader quantizes whole (the transient of
+# one layer: its f32 copy and its quotients) and this much more.
+TP2_LOAD_SLACK = 2**30
+
+
+def host_rss() -> int:
+    """This process's resident bytes (``VmRSS`` of ``/proc/self/status``,
+    which every kernel reports; ``RssAnon`` is not always there). The
+    loader reads its checkpoint into fresh buffers, never through a memory
+    map, so over a load this counts its heap: the kept slices and the
+    transients."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS line")
+
+
+class HostPeak:
+    """Inside the block, a thread samples ``host_rss()`` every 5 ms: ``base``
+    is its value on entry, ``peak`` the largest seen (``peak - base`` is what
+    the block added at its worst)."""
+
+    def __enter__(self):
+        self.base = self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss())
+        return False
+
+
+def param_digests(params) -> dict:
+    """``{dotted name: dtype, shape and a BLAKE2b digest of the bytes}`` of a
+    parameter dict, so that two processes compare parameters bit for bit
+    without moving them."""
+    from hydragen_torch.models.checkpoint import flatten
+
+    out = {}
+    for name, t in flatten(params).items():
+        t = t.detach().contiguous()
+        h = hashlib.blake2b(t.reshape(-1).view(torch.uint8).cpu().numpy(), digest_size=16)
+        out[name] = f"{t.dtype} {tuple(t.shape)} {h.hexdigest()}"
+    return out
+
+
+def load_rank(rank: int, world: int, path: str, prompt, forced, seed: int) -> dict:
+    """One of step (e)'s two gloo ranks on the card:
+    ``HydragenLlama.from_pretrained_tp(path, tp=2, quantization="w8a8")``
+    with its host's resident bytes sampled over the load, its parameters'
+    digests and bytes, then request 1 through the eager loop on the tokens
+    ``forced`` for ``TP2_LOAD_TOKENS`` steps: row 0's logits a step, the
+    launches and the collectives."""
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.empty(1, device="cuda")  # the CUDA context is not the load's
+    t = time.perf_counter()
+    with HostPeak() as rss:
+        eng = HydragenLlama.from_pretrained_tp(path, tp=2, quantization="w8a8",
+                                               device="cuda:0")
+        torch.cuda.synchronize()
+    out = dict(load_s=time.perf_counter() - t, host_peak_bytes=rss.peak - rss.base,
+               host_param_bytes=eng.load_stats["host_param_bytes"],
+               param_bytes=param_bytes(eng.params), digests=param_digests(eng.params))
+    T = TP2_LOAD_TOKENS
+    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant="int8")
+    cuda_lib.reset_launches()
+    mesh_lib.reset_collectives()
+    _, logits = eng.generate(return_logits=True,
+                             token_overrides=torch.as_tensor(forced).cuda(),
+                             **dict(request1(torch.as_tensor(prompt).cuda(), seed),
+                                    max_new_tokens=T))
+    out.update(launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+               collectives=dict(mesh_lib.COLLECTIVES),
+               logits0=torch.stack([x[0].float() for x in logits]))
+    return out
+
+
+def drive_tp2_load(args, failures: list, eng, hf_dir: Path, request: dict,
+                   meshless_peak: int) -> dict:
+    """Step (e) of the load phase, over the checkpoint before it is deleted:
+    the meshless engine ``eng`` (the load's, bit-equal to it) decodes
+    ``request`` for ``TP2_LOAD_TOKENS`` steps; two gloo ranks sharing the card
+    load the directory at tp=2 and decode it on those tokens. Gates on each
+    rank: its parameters' digests equal those of ``shard_params`` of the
+    meshless parameters, its parameter bytes (and what the loader allocated
+    to keep) the sharding rules' for a loaded model, its host's peak over the
+    load at most its parameter bytes + 2 x the largest f32 tensor quantized
+    whole + ``TP2_LOAD_SLACK``, exact launches (K1 on f32 scales at the
+    rank's shapes) and collectives, and row 0's logits within TOL_NOSHARE of
+    the meshless engine's at every step. Returns rank 0's launches."""
+    from hydragen_torch.parallel import launch, shard_params
+    from hydragen_torch.parallel.mesh import Mesh
+
+    tag, cfg, T = "load tp2-load", eng.config, TP2_LOAD_TOKENS
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    eng.setup_caches(BATCH, SUFFIX_LEN + T, [1], [SHARED_LEN], kv_quant="int8")
+    toks, logits = eng.generate(return_logits=True, **dict(request, max_new_tokens=T))
+    ref = [x[0].float().cpu() for x in logits]
+    del logits
+    want = []
+    for r in range(2):
+        m = Mesh(tp=2, dp=1, sp=1, rank=r, coords=dict(dp=0, sp=0, tp=r), groups={},
+                 device=torch.device("cuda"), backend="gloo")
+        sliced = shard_params(eng.params, cfg, m, "cuda")
+        want.append(param_digests(sliced))
+        del sliced
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = launch(load_rank, 2, str(hf_dir), request["input_ids"][0].cpu(), toks.cpu(),
+                   args.seed, backend="gloo", timeout=PAR_TIMEOUT)
+    ranks_s = time.perf_counter() - t1
+    want_l = expected_launches_load(L, T)
+    want_c = expected_collectives_request1("tp2", L, T)
+    want_b = expected_param_bytes(cfg, 2, loaded=True)
+    largest_f32 = 4 * cfg.hidden_size * max(cfg.vocab_size, cfg.intermediate_size,
+                                            cfg.num_attention_heads * cfg.head_dim)
+    stats = dict(meshless_host_peak_GiB=meshless_peak / 2**30, ranks_s=ranks_s)
+    for r, res in enumerate(ranks):
+        unequal = sorted(k for k in want[r] if res["digests"].get(k) != want[r][k])
+        same = not unequal and set(res["digests"]) == set(want[r])
+        limit = res["param_bytes"] + 2 * largest_f32 + TP2_LOAD_SLACK
+        worst = max(rms_rel(torch.as_tensor(a), b) for a, b in zip(res["logits0"], ref))
+        ok = (same and res["param_bytes"] == want_b == res["host_param_bytes"]
+              and res["host_peak_bytes"] <= limit and res["launches"] == want_l
+              and res["collectives"] == want_c and len(res["logits0"]) == len(ref) == T
+              and worst <= TOL_NOSHARE)
+        print(f"[{tag}] rank {r}: from_pretrained_tp(tp=2, w8a8) {res['load_s']:.2f} s; params "
+              f"bit-equal to shard_params of the meshless load's {same} ({len(want[r])} "
+              f"tensors{', differ: ' + str(unequal[:4]) if unequal else ''}); param bytes "
+              f"{res['param_bytes']}, the loader's {res['host_param_bytes']} (rules {want_b}); "
+              f"host peak over the load {res['host_peak_bytes'] / 2**30:.3f} GiB (limit "
+              f"{limit / 2**30:.3f}; the meshless load's "
+              f"{meshless_peak / 2**30:.3f}); launches {json.dumps(res['launches'])} (want "
+              f"{json.dumps(want_l)}), collectives {json.dumps(res['collectives'])} (want "
+              f"{json.dumps(want_c)}); forced-stream logits {worst:.4g} from the meshless "
+              f"engine's (tol {TOL_NOSHARE}) -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{tag} rank {r}: params equal {same}, bytes {res['param_bytes']} / "
+                            f"{res['host_param_bytes']} (want {want_b}), host peak "
+                            f"{res['host_peak_bytes']} (limit {limit}), launches "
+                            f"{res['launches']}, collectives {res['collectives']}, rms {worst:.4g}")
+        stats[f"rank{r}"] = dict(load_s=res["load_s"],
+                                 host_peak_GiB=res["host_peak_bytes"] / 2**30,
+                                 param_GiB=res["param_bytes"] / 2**30, forced_rms=worst)
+    stats["step_s"] = time.perf_counter() - t0
+    print(f"[{tag}] {json.dumps(stats)}", flush=True)
+    return ranks[0]["launches"]
+
+
 def drive_load(args, failures: list) -> dict:
     """Checkpoint loading at the main path's configuration (Llama-2-7B width,
     ``LOAD_LAYERS`` layers, w8a8 + int8 KV):
@@ -1683,9 +1879,11 @@ def drive_load(args, failures: list) -> dict:
        suffixes of 128 tokens, 16 greedy samples each: 256 rows, 32 new
        tokens), with ``disable_hierarchy`` False, then True: tokens equal,
        or, where a bf16 tie breaks them, forced-stream logits within
-       TOL_NOSHARE (RMS, relative) at every step.
+       TOL_NOSHARE (RMS, relative) at every step;
+    6. (e) ``tp2-load``: the directory over two ranks (``drive_tp2_load``).
 
-    The directory is deleted at the end. Returns request 1's launches."""
+    The directory is deleted at the end. Returns request 1's launches and
+    step (e)'s rank 0's."""
     import shutil
 
     from hydragen_torch import HydragenLlama, SharedCacheOp
@@ -1710,7 +1908,7 @@ def drive_load(args, failures: list) -> dict:
         stats["bytes_written"] = write_hf_checkpoint(root / "hf", cfg, state, LOAD_SHARDS)
         stats["write_s"] = time.perf_counter() - t
 
-        # 2. The load, its conversion (the reads of the mmap'd pages and the
+        # 2. The load, its conversion (the file reads and the
         # host quantization) timed apart.
         convert, quant_s = hf.params_from_hf_state_dict, [0.0]
 
@@ -1726,11 +1924,13 @@ def drive_load(args, failures: list) -> dict:
         torch.cuda.reset_peak_memory_stats()
         try:
             t = time.perf_counter()
-            eng = HydragenLlama.from_pretrained(root / "hf", quantization="w8a8")
-            torch.cuda.synchronize()
+            with HostPeak() as rss:
+                eng = HydragenLlama.from_pretrained(root / "hf", quantization="w8a8")
+                torch.cuda.synchronize()
             stats["load_s"] = time.perf_counter() - t
         finally:
             hf.params_from_hf_state_dict = convert
+        stats["host_peak_bytes"] = rss.peak - rss.base
         stats["read_and_convert_s"] = quant_s[0]
         stats["bytes_read"] = hf.checkpoint_bytes(root / "hf")
         loaded = flatten(eng.params)
@@ -1879,7 +2079,10 @@ def drive_load(args, failures: list) -> dict:
         if not ok:
             failures.append(f"{tag}: disable_hierarchy differs from the hierarchy run")
         print(f"[{tag}] {json.dumps(stats)}", flush=True)
-        return launches
+        # 6. (e) tp2-load, before the directory goes.
+        tp2 = drive_tp2_load(args, failures, eng, root / "hf", request1,
+                             stats["host_peak_bytes"])
+        return launches, tp2
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2345,7 +2548,7 @@ def expected_collectives_request1(kind: str, L: int, T: int) -> dict:
     return {"all_reduce_sum": 2 * L * T, "all_reduce_max": 0, "all_gather": T}
 
 
-def expected_param_bytes(cfg, tp: int, int4: bool = False) -> int:
+def expected_param_bytes(cfg, tp: int, int4: bool = False, loaded: bool = False) -> int:
     """A rank's parameter bytes under the sharding rules, from the shapes:
     ``init_params(quantized="w8a8")``'s bf16 embedding and norms, int8
     payloads with bf16 column scales, the MLP padded to 11,264; q/k/v,
@@ -2354,15 +2557,17 @@ def expected_param_bytes(cfg, tp: int, int4: bool = False) -> int:
     projections planar int4 (K/2 bytes a row) with bf16 scales a 128-wide
     group, a column family's cut on N, a row family's on K with its groups
     (or, where tp does not divide them, the subgroups of the rank's K
-    slice); the LM head int8 as above."""
+    slice); the LM head int8 as above. With ``loaded`` (the HF loader's
+    w8a8): f32 column scales and the MLP unpadded."""
     H, V, L, hd = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers, cfg.head_dim
-    I = -(-cfg.intermediate_size // 512) * 512
+    I = cfg.intermediate_size if loaded else -(-cfg.intermediate_size // 512) * 512
+    sb = 4 if loaded else 2  # bytes of a column scale
     Hq, Hkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
-    n = V * H * 2 + H * 2 + (V // tp) * (H + 2) + 2 * L * H * 2
+    n = V * H * 2 + H * 2 + (V // tp) * (H + sb) + 2 * L * H * 2
     for N, K, column in ((Hq, H, True), (Hkv, H, True), (Hkv, H, True), (H, Hq, False),
                          (I, H, True), (I, H, True), (H, I, False)):
         if not int4:
-            n += L * (N // tp) * (K + 2) if column else L * N * (K // tp + 2)
+            n += L * (N // tp) * (K + sb) if column else L * N * (K // tp + sb)
             continue
         g = math.gcd(K // 2, 128)
         if column:
@@ -2626,11 +2831,172 @@ def drive_parallel_case(args, failures: list, card: str, kind: str) -> dict:
     return ranks[0]["launches"]
 
 
+NOSHARE_LAYERS = 8  # case (e)'s depth of Llama-3-8B: cut this, never the width
+
+
+def expected_launches_gqa_request1(L: int, T: int) -> dict:
+    """Request 1 alone on Llama-3-8B (w8a8 + int8 KV): a shared prefill (7L
+    GEMMs, L causal flash), then T-1 decode steps of 7L GEMMs, L level reads
+    (K2) and L small-M unique reads (K5, the unique cache being BHSD)."""
+    return {
+        "w8a8_matmul_cached": 7 * L * T,
+        "flash_attention_cached_bhsd": L * (T - 1),
+        "flash_decode_bhsd": L * (T - 1),
+        "flash_attention_bhsd": L,
+    }
+
+
+def noshare_engine(seed: int, mesh=None):
+    """Case (e)'s engine: Llama-3-8B's width at ``NOSHARE_LAYERS`` layers,
+    w8a8, the weights drawn on the card from ``seed`` (sliced for the rank
+    under ``mesh``), and its 2,048-token prompt."""
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=NOSHARE_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    params = init_params(cfg, g, quantized="w8a8", device="cuda")
+    eng = HydragenLlama(cfg, params, quantization="w8a8", mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g, device="cuda")
+    return eng, prompt
+
+
+def noshare_arm(eng, prompt, seed: int, nohydra: bool, overrides=None) -> dict:
+    """One arm of case (e) on ``eng`` (``drive_no_sharing``'s request: the
+    prompt with 256 greedy completions of NEW_TOKENS, WIPE; the baseline's
+    unique rows hold the prompt and the decoded tokens): tokens, row 0's
+    logits a step, launches, collectives and the decode loop's seconds."""
+    from hydragen_torch import SharedCacheOp
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.parallel import mesh as mesh_lib
+
+    T = NEW_TOKENS
+    eng.cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng.setup_caches(BATCH, T + (SHARED_LEN + 8 if nohydra else 0), [1], [SHARED_LEN],
+                     kv_quant="int8")
+    steps, decode_s = eng._decode_steps, [0.0]
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return steps(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            decode_s[0] += time.perf_counter() - t
+
+    eng._decode_steps = timed
+    cuda_lib.reset_launches()
+    mesh_lib.reset_collectives()
+    try:
+        toks, logits = eng.generate(
+            input_ids=[prompt], num_return_sequences=BATCH, max_new_tokens=T, temperature=0.0,
+            shared_cache_op=SharedCacheOp.WIPE, seed=seed, return_logits=True,
+            disable_hydragen=nohydra,
+            token_overrides=None if overrides is None else torch.as_tensor(overrides).cuda())
+    finally:
+        eng._decode_steps = steps
+    return dict(toks=toks, logits0=torch.stack([x[0].float() for x in logits]),
+                launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+                collectives=dict(mesh_lib.COLLECTIVES), decode_s=decode_s[0],
+                peak_GiB=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def noshare_rank(rank: int, world: int, seed: int) -> dict:
+    """Case (e) ``tp2-noshare``, one of two gloo ranks sharing the card:
+    Hydragen, then the no-sharing baseline (``disable_hydragen``), eagerly,
+    under one tp=2 mesh; where the two arms' greedy tokens differ, the
+    baseline again on Hydragen's tokens."""
+    from hydragen_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng, prompt = noshare_engine(seed, make_mesh(tp=2, device="cuda:0"))
+    out = dict(param_bytes=param_bytes(eng.params), graphs=eng.graphs_enabled)
+    out["hydragen"] = noshare_arm(eng, prompt, seed, False)
+    torch.cuda.reset_peak_memory_stats()
+    out["no-sharing"] = noshare_arm(eng, prompt, seed, True)
+    out["unique_GB"] = (eng.cache.unique_k.numel() * 2 + eng.cache.unique_k_scale.numel() * 8
+                        ) / 1e9
+    if not torch.equal(out["hydragen"]["toks"], out["no-sharing"]["toks"]):
+        out["forced"] = noshare_arm(eng, prompt, seed, True, out["hydragen"]["toks"])["logits0"]
+    return out
+
+
+def drive_parallel_noshare(args, failures: list, card: str) -> dict:
+    """Case (e) ``tp2-noshare``: the gqa no-sharing configuration
+    (``llama-3-8b``, w8a8 + int8 KV, full width, NOSHARE_LAYERS layers) over
+    two gloo ranks on the card, Hydragen and ``disable_hydragen=True`` in
+    turn under one mesh, eagerly. Gates on each rank: exact launches (K5 a
+    layer a step on the rank's 4 kv heads in both arms, no K2 in the
+    baseline), exact collectives, the parameter bytes of the rules, tokens
+    equal between the arms (or the baseline's logits on Hydragen's tokens
+    within TOL_NOSHARE of Hydragen's); then the meshless baseline here on the
+    ranks' baseline tokens: the ranks' logits within TOL_NOSHARE of its at
+    every step. Prints both decode rates and their ratio (two ranks sharing
+    one card: not a multi-card figure). Returns rank 0's baseline
+    launches."""
+    from hydragen_torch.parallel import launch
+
+    tag, T, L = "parallel tp2-noshare", NEW_TOKENS, NOSHARE_LAYERS
+    t0 = time.perf_counter()
+    ranks = launch(noshare_rank, 2, args.seed, backend="gloo", timeout=PAR_TIMEOUT)
+    want_l = {"hydragen": expected_launches_gqa_request1(L, T),
+              "no-sharing": expected_launches_no_sharing(L, T)}
+    want_c = expected_collectives_request1("tp2", L, T)
+    eng, prompt = noshare_engine(args.seed)
+    want_b = expected_param_bytes(eng.config, 2)
+    for r, res in enumerate(ranks):
+        same = np.array_equal(res["hydragen"]["toks"], res["no-sharing"]["toks"])
+        worst_arms = 0.0 if same else max(
+            rms_rel(torch.as_tensor(a), torch.as_tensor(b))
+            for a, b in zip(res["forced"], res["hydragen"]["logits0"]))
+        ok = (res["param_bytes"] == want_b and not res["graphs"]
+              and worst_arms <= TOL_NOSHARE
+              and all(res[a]["launches"] == want_l[a] and res[a]["collectives"] == want_c
+                      for a in want_l))
+        print(f"[{tag}] rank {r}: launches hydragen {json.dumps(res['hydragen']['launches'])}, "
+              f"no-sharing {json.dumps(res['no-sharing']['launches'])} (want "
+              f"{json.dumps(want_l)}); collectives {json.dumps(res['no-sharing']['collectives'])}"
+              f" (want {json.dumps(want_c)} in each arm); param bytes {res['param_bytes']} "
+              f"(rules {want_b}); unique KV {res['unique_GB']:.2f} GB, device peak "
+              f"{res['no-sharing']['peak_GiB']:.2f} GiB; arms' tokens equal {same}"
+              f"{'' if same else f', forced-stream rms {worst_arms:.4g}'} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{tag} rank {r}: launches, collectives, bytes or arms differ "
+                            f"(rms {worst_arms:.4g})")
+    base = ranks[0]["no-sharing"]
+    ref = noshare_arm(eng, prompt, args.seed, True, base["toks"])["logits0"].cpu()
+    del eng, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(rms_rel(torch.as_tensor(a), b) for a, b in zip(base["logits0"], ref))
+    if worst > TOL_NOSHARE or len(ref) != len(base["logits0"]):
+        failures.append(f"{tag}: the baseline's forced stream {worst:.4g} from the meshless "
+                        f"baseline's > {TOL_NOSHARE}")
+    steps = BATCH * (T - 1)
+    rates = {a: steps / ranks[0][a]["decode_s"] for a in ("hydragen", "no-sharing")}
+    stats = dict(layers=L, hydragen_decode_tok_s=rates["hydragen"],
+                 no_sharing_decode_tok_s=rates["no-sharing"],
+                 hydragen_over_no_sharing=rates["hydragen"] / rates["no-sharing"],
+                 forced_rms_vs_meshless_baseline=worst, phase_s=time.perf_counter() - t0)
+    print(f"[{tag}] two ranks sharing one card over gloo (not a multi-card figure), {card}: "
+          f"{json.dumps(stats)}", flush=True)
+    return base["launches"]
+
+
 def drive_parallel(args, failures: list, card: str) -> dict:
-    """Phase parallel: (a), (b) and (d) spawn two gloo ranks on the card,
-    then run the meshless engine here on the same weights and token stream;
-    (c) spawns one NCCL rank. Returns rank 0's launches of each case by
-    kind."""
+    """Phase parallel: (a), (b), (d) and (e) spawn two gloo ranks on the
+    card, then run the meshless engine here on the same weights and token
+    stream; (c) spawns one NCCL rank. Returns rank 0's launches of each case
+    by kind."""
     from hydragen_torch.parallel import launch
 
     t_phase = time.perf_counter()
@@ -2639,6 +3005,7 @@ def drive_parallel(args, failures: list, card: str) -> dict:
            for kind in (("tp4",) if args.tp4 else ("tp2", "sp2", "tp2-int4"))}
     if args.tp4:
         return out
+    out["tp2-noshare"] = drive_parallel_noshare(args, failures, card)
 
     t = time.perf_counter()
     res = launch(nccl_rank, 1, args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
@@ -2873,6 +3240,97 @@ def script_profile(failures: list) -> dict:
     return launches
 
 
+# quality.py's modes at its defaults (sheared-llama-1.3b, 512 tokens x 4):
+# name: (argv, gate). The gates are tests/test_quality.py's bounds on the
+# modes it asserts them on ("pass": ce delta < 0.015 nats and mean KL <
+# kl_max; "fail": the per-tensor scheme under outliers must break one;
+# "kv": mean KL < 5e-3); the others print.
+QUALITY_MODES = {
+    "int8": ([], ("pass", 5e-3)),
+    "w8a8": (["--quantization", "w8a8"], ("pass", 8e-3)),
+    "w4a8": (["--quantization", "w4a8"], None),
+    "outliers per-channel": (["--outliers"], ("pass", 5e-3)),
+    "outliers per-tensor": (["--outliers", "--scheme", "per_tensor"], ("fail", 5e-3)),
+    "kv int8": (["--kv-quant", "int8"], ("kv", 5e-3)),
+    "kv int4": (["--kv-quant", "int4"], None),
+}
+QUALITY_CE = 0.015
+
+
+def script_quality(failures: list, card: str) -> dict:
+    """quality.py in each of QUALITY_MODES, counted alone: its gate, and
+    under w8a8 and w4a8 every family on K1 or K6 (7 launches a layer of the
+    quantized prefill; K4 a layer in each of the two prefills)."""
+    import io
+
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.scripts import quality
+
+    L = PRESETS["sheared-llama-1.3b"].num_hidden_layers
+    out, total = {}, {}
+    for name, (argv, gate) in QUALITY_MODES.items():
+        cuda_lib.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = quality.main(argv)
+        launches = nonzero_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        ce, kl = res["ce_delta_nats"], res["mean_kl_nats"]
+        ok = True
+        if gate is not None:
+            kind, kl_max = gate
+            passed = ce < QUALITY_CE and kl < kl_max
+            ok = {"pass": passed, "fail": ce > QUALITY_CE or kl > kl_max,
+                  "kv": kl < kl_max}[kind]
+        quant = argv[1] if argv[:1] == ["--quantization"] else None
+        if quant in ("w8a8", "w4a8"):
+            gemm = "w8a8_matmul_cached" if quant == "w8a8" else "w4a8_matmul_cached"
+            want = {gemm: 7 * L, "flash_attention_bhsd": 2 * L}
+            ok = ok and launches == want and all(res["s8_kernel_coverage"].values())
+        print(f"[scripts quality] {name}: ce delta {ce} nats, mean KL {kl} nats (ce "
+              f"{res.get('ce_bf16_nats')} -> {res.get('ce_int8_nats', res.get('ce_kvq_nats'))}"
+              f"); gate {gate}; coverage {res.get('s8_kernel_coverage')}; launches "
+              f"{json.dumps(launches)} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"scripts quality {name}: {json.dumps(res)}, launches {launches}")
+        out[name] = res
+    print(f"[scripts quality] {card}: {json.dumps(out)}", flush=True)
+    return total
+
+
+def script_ubench_gemm(failures: list, card: str) -> dict:
+    """ubench_gemm at its defaults: K1's 2-D entry (K1') and K6's within
+    TOL_REL of their f32 oracles at every shape."""
+    from hydragen_torch.scripts import ubench_gemm
+
+    rows = ubench_gemm.main([])
+    launches = nonzero_launches()
+    bad = [r for r in rows if r["arm"] in ("w8a8", "w4a8") and r["rel_err"] > TOL_REL]
+    arms = sorted({(r["shape"], r["arm"]) for r in rows})
+    print(f"[scripts ubench_gemm] {card}: {json.dumps(rows)}; launches {json.dumps(launches)}",
+          flush=True)
+    if bad or len(arms) != len(ubench_gemm.SHAPES) * len(ubench_gemm.ARMS):
+        failures.append(f"scripts ubench_gemm: {bad} beyond {TOL_REL}, arms {arms}")
+    return launches
+
+
+def script_ubench_unique(failures: list, card: str) -> dict:
+    """ubench_unique at its defaults: K3 within TOL_REL (out) and TOL_LSE
+    (lse) of the plain read at both widths."""
+    from hydragen_torch.scripts import ubench_unique
+
+    res = ubench_unique.main([])
+    launches = nonzero_launches()
+    print(f"[scripts ubench_unique] {card}: {json.dumps(res)}; launches {json.dumps(launches)}",
+          flush=True)
+    for arm in ("k3", "kv4"):
+        r = res.get(arm, {})
+        if not (r.get("rel", 1.0) <= TOL_REL and r.get("dlse", 1.0) <= TOL_LSE):
+            failures.append(f"scripts ubench_unique {arm}: {r}")
+    return launches
+
+
 def drive_scripts(args, failures: list, card: str, main_stats: dict) -> dict:
     """Phase scripts: each entry point of ``hydragen_torch.scripts`` through
     its ``main(argv)`` in this process, outputs under
@@ -2892,6 +3350,9 @@ def drive_scripts(args, failures: list, card: str, main_stats: dict) -> dict:
         ("serving_bench", lambda: script_serving(failures, card)),
         ("run", lambda: script_run(root, failures, args.seed)),
         ("profile_decode", lambda: script_profile(failures)),
+        ("quality", lambda: script_quality(failures, card)),
+        ("ubench_gemm", lambda: script_ubench_gemm(failures, card)),
+        ("ubench_unique", lambda: script_ubench_unique(failures, card)),
     )
     out, seconds = {}, {}
     t_phase = time.perf_counter()
@@ -2965,14 +3426,21 @@ def main() -> int:
         return 0
 
     report: dict = {}
-    launches: dict = {"main": {}, "load": {}, "int4": {}, "gqa": {}, "gqa no-sharing": {},
-                      "serving": {}, "parallel": {}, "parallel int4": {}}
+    launches: dict = {"main": {}, "load": {}, "load tp2": {}, "int4": {}, "gqa": {},
+                      "gqa no-sharing": {}, "serving": {}, "parallel": {}, "parallel int4": {},
+                      "parallel noshare": {}}
     main_stats: dict = {}
+
+    def load_phase():
+        meshless, tp2 = drive_load(args, failures)
+        launches["load"].update(meshless)
+        launches["load tp2"].update(tp2)
 
     def parallel_phase():
         by_kind = drive_parallel(args, failures, card)
         launches["parallel"].update(by_kind["tp2"])
         launches["parallel int4"].update(by_kind["tp2-int4"])
+        launches["parallel noshare"].update(by_kind["tp2-noshare"])
 
     def scripts_phase():
         for name, counts in drive_scripts(args, failures, card, main_stats).items():
@@ -2982,7 +3450,7 @@ def main() -> int:
         ("kernels", lambda: check_kernels(report, failures, cuda_time_ms)),
         ("main path", lambda: launches["main"].update(
             drive_path(args, failures, "main", stats_out=main_stats))),
-        ("load", lambda: launches["load"].update(drive_load(args, failures))),
+        ("load", load_phase),
         ("int4 path", lambda: launches["int4"].update(drive_path(args, failures, "int4"))),
         ("gqa path", lambda: launches["gqa"].update(drive_path(args, failures, "gqa"))),
         ("gqa no-sharing", lambda: launches["gqa no-sharing"].update(
@@ -3009,12 +3477,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"[phase] {name}: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # name: (source, TPU call site, the path whose launches it reports: None
-    # for an entry neither path reaches[, the launch counter where it is not
-    # the name])
+    # name: (source, TPU call site, the path whose launches it reports[, the
+    # launch counter where it is not the name])
     sources = {
         "w8a8_matmul_cached": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222", "main"),
-        "w8a8_matmul": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:118", None),
+        "w8a8_matmul": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:118", "scripts ubench_gemm"),
         "w8a8_matmul_cached_f32_scales": ("csrc/gemm.cu", "hydragen_tpu/ops/gemm.py:222",
                                           "load"),
         "flash_attention_cached_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:924",
@@ -3038,8 +3505,8 @@ def main() -> int:
             failures.append(f"no measurement for {name}")
             continue
         counter = counter[0] if counter else name
-        n = launches[path].get(counter, 0) if path else 0
-        if path and n < 1:
+        n = launches.get(path, {}).get(counter, 0)
+        if n < 1:
             failures.append(f"{name} never launched on the {path} path")
         by_path = {p: launches[p].get(counter, 0) for p in launches}
         kernels.append(dict(name=name, route="cuda", source=f"hydragen_torch/{src}",

@@ -27,6 +27,7 @@ import torch
 
 from hydragen_torch.ops import decode as decode_ops
 from hydragen_torch.ops.quant import nibble_merge, quantize_kv, quantize_kv4
+from hydragen_torch.parallel.shard_attn import fold_segments
 
 
 def _maybe_quantize(x: torch.Tensor, quantized: bool, bits: int = 8):
@@ -487,7 +488,8 @@ def repeat_unique_for_samples(cache: KVCache, current_size: int,
 
 
 def copy_shared_to_unique(cache: KVCache, total_num_sequences: int,
-                          sb: int | None = None) -> KVCache:
+                          sb: int | None = None, rows: tuple | None = None,
+                          level: SharedLevel | None = None) -> KVCache:
     """Write level 0 into the front of every unique row, in place, in the
     unique cache's storage format: the no-sharing (``disable_hydragen``)
     baseline, where each row holds its whole history. Prefix ``i`` of the
@@ -496,17 +498,25 @@ def copy_shared_to_unique(cache: KVCache, total_num_sequences: int,
     copied and later unique positions follow them. Layer by layer, so the
     transient is one layer's level (quantized or dequantized where the two
     formats differ). Port of ``hydragen_tpu.core.cache.copy_shared_to_unique``.
-    """
+
+    Under a mesh the cache is a rank's: ``rows`` ``(first, count)`` are the
+    global rows its unique rows ``[0, count)`` hold (a dp rank's share; all
+    rows by default), and ``level`` is level 0 with every token of the
+    rank's kv heads (the local level, or its sp slices gathered;
+    ``parallel.shard_attn.gather_level``)."""
     if cache.unique_bits != 8:
         raise ValueError("copy_shared_to_unique: int4 unique KV cannot host the copied "
                          "prefix (run the no-sharing baseline with kv_quant='int8')")
-    level = cache.shared[0]
+    level = cache.shared[0] if level is None else level
+    assert level.seq_shards == 1, "gather an sp-split level's tokens first"
     if sb is None:
         sb = level.max_batch_size
     assert total_num_sequences % sb == 0, (total_num_sequences, sb)
-    rep = total_num_sequences // sb
-    n, S = total_num_sequences, level.max_seq_len
+    row0, n = (0, total_num_sequences) if rows is None else rows
+    S = level.max_seq_len
     hkv = level.k.shape[2]
+    # Runs of rows that each take whole prefixes' groups, or part of one.
+    runs = fold_segments(row0, n, total_num_sequences, sb)
 
     def stored(payload, scale):
         """One layer's level [sb, hkv, S, hd] in the unique cache's format."""
@@ -517,8 +527,11 @@ def copy_shared_to_unique(cache: KVCache, total_num_sequences: int,
         return payload, scale
 
     def put(dst, src):
-        """src [sb, ...] repeated into dst [n, ...] (rows of one prefix together)."""
-        dst.unflatten(0, (sb, rep)).copy_(src[:, None])
+        """src [sb, ...] into dst [n, ...]: each run's rows from its prefixes."""
+        r = 0
+        for p, k, m in runs:
+            dst[r:r + m].unflatten(0, (k, m // k)).copy_(src[p:p + k, None])
+            r += m
 
     for li in range(level.k.shape[0]):
         for buf, sbuf, lp, ls in ((cache.unique_k, cache.unique_k_scale, level.k,

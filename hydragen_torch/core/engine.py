@@ -60,11 +60,14 @@ from hydragen_torch.models.llama import (
 )
 from hydragen_torch.ops import cuda_lib
 from hydragen_torch.parallel import mesh as mesh_lib
+from hydragen_torch.parallel.shard_attn import gather_level
 from hydragen_torch.parallel.sharding import (
     INT4_CACHE_WAITS,
+    RankParams,
     cache_pspecs,
     shard_cache,
     shard_params,
+    shard_plan,
 )
 
 
@@ -211,11 +214,17 @@ class HydragenLlama:
     ):
         """``mesh``: a ``parallel.Mesh``; ``params`` are then the GLOBAL
         parameters (on any device), quantized globally and sliced for this
-        rank, slice by slice onto its device. ``device`` None is the mesh's
-        device, else the card."""
+        rank, slice by slice onto its device, or the rank's slices already
+        (a ``RankParams``, as ``from_pretrained`` loads them under a mesh),
+        which are placed as they are. ``device`` None is the mesh's device,
+        else the card."""
         if mesh is not None and device is None:
             device = mesh.device
         self.device = resolve_device(device)
+        rank_params = isinstance(params, RankParams)
+        if rank_params and (mesh is None or params.plan != shard_plan(config, mesh)):
+            raise ValueError(f"params are a rank's slices for {params.plan}, not for this "
+                             f"engine's mesh {None if mesh is None else mesh.shape}")
         if quantization is not None:
             from hydragen_torch.ops.quant import (
                 Quantized4Tensor,
@@ -230,6 +239,7 @@ class HydragenLlama:
             if not isinstance(params["layers"]["wq"], want):
                 assert not is_quantized_params(params), (
                     f"params already quantized at a different width than {quantization!r}")
+                assert not rank_params, "a rank's slices are quantized by their loader"
                 # "mixed": int8 weights with an int4 ``down`` (the K-heavy
                 # projection).
                 params = quantize_params(
@@ -238,7 +248,8 @@ class HydragenLlama:
                 )
         self.config = config
         self.mesh = None
-        if mesh is not None:
+        self.load_stats: dict = {}  # from_pretrained's load seconds and host bytes
+        if mesh is not None and not rank_params:
             params = shard_params(params, config, mesh, self.device)
         self.params = _params_to(params, self.device)
         self.impl = impl
@@ -323,16 +334,24 @@ class HydragenLlama:
         conversion, which quantizes on the host, so bf16 originals never
         occupy device memory (f32 int8 scales, no MLP padding), and then to
         the engine, which finds the weights quantized. The device is checked
-        before the checkpoint is read. With ``mesh``, each rank reads and
-        quantizes the whole checkpoint on the host, so host memory holds one
-        quantized model a rank, and the constructor moves only the rank's
-        slices to its device."""
+        before the checkpoint is read. With ``mesh``, each rank reads the
+        checkpoint layer by layer, quantizes each layer whole and keeps only
+        its slice, so a rank's host holds its own slices and one layer's
+        transient, never the whole model; the engine places the slices as
+        they are. ``load_stats`` of the engine: ``load_s`` (this call) and
+        ``host_param_bytes`` (what the conversion allocated to keep)."""
         from hydragen_torch.models import hf
 
         mesh = kw.get("mesh")
         resolve_device(kw.get("device", None if mesh is None else mesh.device))
-        cfg, params = hf.from_pretrained(path, dtype=dtype, quantization=kw.get("quantization"))
-        return cls(cfg, params, **kw)
+        stats: dict = {}
+        t = time.perf_counter()
+        cfg, params = hf.from_pretrained(path, dtype=dtype, quantization=kw.get("quantization"),
+                                         mesh=mesh, stats=stats)
+        eng = cls(cfg, params, **kw)
+        stats["load_s"] = time.perf_counter() - t
+        eng.load_stats = stats
+        return eng
 
     @classmethod
     def from_pretrained_tp(cls, path, tp: int = 0, dp: int = 1, dtype: str = "bfloat16",
@@ -743,8 +762,8 @@ class HydragenLlama:
 
         Under a mesh every rank passes the same global inputs and gets the
         whole batch back; under dp it decodes its share of the rows (the
-        batch must divide over dp). ``disable_hydragen`` waits for a later
-        slice there."""
+        batch must divide over dp). ``disable_hydragen`` copies the level
+        into the rank's rows and kv heads, its sp slices gathered first."""
         assert self.cache is not None, "call setup_caches first"
         assert (input_ids is None) or (starting_logits is None)
         assert not (input_ids is None and starting_logits is None)
@@ -780,9 +799,6 @@ class HydragenLlama:
             total_batch = int(input_ids[-1].shape[0]) * num_return_sequences
         else:
             total_batch = int(starting_logits.shape[0]) * num_return_sequences
-        if disable_hydragen and self.mesh is not None:
-            raise NotImplementedError("disable_hydragen under a mesh waits for a later slice "
-                                      "(ROADMAP.md)")
         # This rank's rows of the batch (all of them without a dp split).
         r0, b_loc = self._dp_rows(total_batch)
         rows = slice(r0, r0 + b_loc)
@@ -809,7 +825,11 @@ class HydragenLlama:
                     "kv_quant='int8')")
             self._disable_hydragen = True
             if self.num_used_levels > 0:
-                copy_shared_to_unique(self.cache, total_batch, self.level_batch[0])
+                level = self.cache.shared[0]
+                if self.mesh is not None:
+                    level = gather_level(level, self.mesh)
+                copy_shared_to_unique(self.cache, total_batch, self.level_batch[0],
+                                      rows=(r0, b_loc), level=level)
 
         suffix_lens_np = None if suffix_lens is None else np.asarray(
             suffix_lens.cpu() if torch.is_tensor(suffix_lens) else suffix_lens)

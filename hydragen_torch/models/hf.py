@@ -16,19 +16,22 @@ Port of ``hydragen_tpu.models.hf``: take a transformers ``LlamaForCausalLM``
   127), int4 rounds its group scales to bf16. Neither pads the MLP.
 - ``from_pretrained`` reads a local directory only (``config.json`` and
   ``*.safetensors`` or ``pytorch_model*.bin``). It reads safetensors files
-  itself, through ``mmap``, and imports neither ``transformers`` nor
-  ``safetensors``; it never goes to a hub.
+  itself, each tensor into a fresh buffer when the conversion looks it up
+  (``LazyTensors``), so the host holds the layer being converted, not the
+  checkpoint; it imports neither ``transformers`` nor ``safetensors`` and
+  never goes to a hub.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import mmap
 import struct
 import sys
 import types
+from collections.abc import Mapping
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -78,7 +81,8 @@ def _quantize4_host(w: torch.Tensor, group: int = 128) -> Quantized4Tensor:
                             gscale=gscale.squeeze(-1).transpose(-1, -2).contiguous())
 
 
-def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None) -> dict:
+def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None, mesh=None,
+                              stats: Optional[dict] = None) -> dict:
     """A HF Llama state dict (CPU tensors) -> the stacked parameter dict, on
     the CPU.
 
@@ -87,71 +91,106 @@ def params_from_hf_state_dict(state_dict, cfg: ModelConfig, quantization=None) -
     ``"w4a8"`` pack the projections to int4 groups and keep the LM head int8;
     ``"mixed"`` is int8 with an int4 ``down`` (the engine's mode of that
     name; the JAX loader has no such mode).
-    A tied head is the embedding's transpose and is never quantized."""
+    A tied head is the embedding's transpose and is never quantized.
+
+    With ``mesh`` (a ``parallel.Mesh``) the dict holds this rank's slices
+    only, as a ``parallel.sharding.RankParams``: each layer is read, quantized
+    whole (so a row-parallel int8 family keeps its global per-channel scale)
+    and cut by ``shard_leaf``, the rule ``shard_params`` cuts by, into stacks
+    allocated at the rank's shapes. Ranks that differ only in dp or sp hold
+    the same slices. ``stats``, where given, gets ``"host_param_bytes"``: the
+    bytes of every tensor the loader allocated to keep."""
     assert quantization in QUANTIZATIONS, f"unknown quantization {quantization!r}"
+    from hydragen_torch.parallel.sharding import (
+        RankParams,
+        param_pspecs,
+        shard_leaf,
+        shard_plan,
+    )
+
     dt = cfg.torch_dtype
     L = cfg.num_hidden_layers
     quant = quantization is not None
     get = state_dict.__getitem__
+    plan = shard_plan(cfg, mesh)
+    specs = param_pspecs(cfg, mesh)
+    kept = [0]
 
-    def stack(fmt, transpose=False, quantize=False, int4=quantization in ("int4", "w4a8")):
+    def keep(t: torch.Tensor) -> torch.Tensor:
+        kept[0] += t.numel() * t.element_size()
+        return t
+
+    def stack(fmt, spec, transpose=False, quantize=False,
+              int4=quantization in ("int4", "w4a8")):
         """Layer i of every stack is written in place: host memory holds one
-        layer's f32 copy at a time beside the stacks."""
-        first = get(fmt.format(0))
-        if quantize and quant:
-            N, K = first.shape
-            if int4:
-                G = K // pick_group4(K)
-                out = Quantized4Tensor(qp=torch.empty((L, N, K // 2), dtype=torch.int8),
-                                       gscale=torch.empty((L, G, N), dtype=torch.bfloat16))
-                fn = _quantize4_host
-            else:
-                out = QuantizedTensor(q=torch.empty((L, N, K), dtype=torch.int8),
-                                      scale=torch.empty((L, N), dtype=torch.float32))
-                fn = _quantize_host
-            for i in range(L):
-                for dst, src in zip(out, fn(get(fmt.format(i)))):
-                    dst[i].copy_(src)
-            return out
-        shape = first.shape[::-1] if transpose else first.shape
-        out = torch.empty((L, *shape), dtype=dt)
+        layer's f32 copy and quantized whole layer at a time beside the
+        stacks, which have the rank's shapes."""
+        out = None
         for i in range(L):
             w = get(fmt.format(i))
-            out[i].copy_(w.t() if transpose else w)
+            if quantize and quant:
+                w = (_quantize4_host if int4 else _quantize_host)(w)
+            elif transpose:
+                w = w.t()
+            piece = shard_leaf(w, spec[1:], plan.tp, plan.rank)
+            if out is None:
+                if isinstance(piece, tuple):
+                    out = type(piece)(*(keep(torch.empty((L, *t.shape), dtype=t.dtype))
+                                        for t in piece))
+                else:
+                    out = keep(torch.empty((L, *piece.shape), dtype=dt))
+            if isinstance(piece, tuple):
+                for dst, src in zip(out, piece):
+                    dst[i].copy_(src)
+            else:
+                out[i].copy_(piece)
         return out
 
-    def proj(fmt, **kw):
-        return stack(fmt, transpose=True, quantize=True, **kw)
+    lspec = specs["layers"]
+
+    def proj(name, fmt, **kw):
+        return stack(fmt, lspec[name], transpose=True, quantize=True, **kw)
 
     prefix = "model.layers.{}."
     params = {
-        "embed_tokens": get("model.embed_tokens.weight").to(dt, copy=True),
-        "final_norm": get("model.norm.weight").to(dt, copy=True),
+        "embed_tokens": keep(get("model.embed_tokens.weight").to(dt, copy=True)),
+        "final_norm": keep(get("model.norm.weight").to(dt, copy=True)),
         "layers": {
-            "input_norm": stack(prefix + "input_layernorm.weight"),
-            "post_attn_norm": stack(prefix + "post_attention_layernorm.weight"),
-            "wq": proj(prefix + "self_attn.q_proj.weight"),
-            "wk": proj(prefix + "self_attn.k_proj.weight"),
-            "wv": proj(prefix + "self_attn.v_proj.weight"),
-            "wo": proj(prefix + "self_attn.o_proj.weight"),
-            "gate": proj(prefix + "mlp.gate_proj.weight"),
-            "up": proj(prefix + "mlp.up_proj.weight"),
-            "down": proj(prefix + "mlp.down_proj.weight",
+            "input_norm": stack(prefix + "input_layernorm.weight", lspec["input_norm"]),
+            "post_attn_norm": stack(prefix + "post_attention_layernorm.weight",
+                                    lspec["post_attn_norm"]),
+            "wq": proj("wq", prefix + "self_attn.q_proj.weight"),
+            "wk": proj("wk", prefix + "self_attn.k_proj.weight"),
+            "wv": proj("wv", prefix + "self_attn.v_proj.weight"),
+            "wo": proj("wo", prefix + "self_attn.o_proj.weight"),
+            "gate": proj("gate", prefix + "mlp.gate_proj.weight"),
+            "up": proj("up", prefix + "mlp.up_proj.weight"),
+            "down": proj("down", prefix + "mlp.down_proj.weight",
                          **({"int4": True} if quantization == "mixed" else {})),
         },
     }
     if cfg.attention_bias:
         for name, proj_name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj"),
                                 ("bo", "o_proj")):
-            params["layers"][name] = stack(prefix + f"self_attn.{proj_name}.bias")
+            params["layers"][name] = stack(prefix + f"self_attn.{proj_name}.bias",
+                                           lspec[name])
 
+    hspec = specs["lm_head"]
     if "lm_head.weight" in state_dict:
         head = get("lm_head.weight")
-        params["lm_head"] = _quantize_host(head) if quant else head.t().to(dt).contiguous()
+        head = _quantize_host(head) if quant else head.t().to(dt).contiguous()
+        # A slice is a copy; the whole head is then this call's transient.
+        head = shard_leaf(head, hspec, plan.tp, plan.rank)
+        params["lm_head"] = type(head)(*(keep(t) for t in head)) \
+            if isinstance(head, tuple) else keep(head)
     else:
         assert cfg.tie_word_embeddings
-        params["lm_head"] = params["embed_tokens"].t()
-    return params
+        params["lm_head"] = shard_leaf(params["embed_tokens"].t(), hspec, plan.tp, plan.rank)
+        if plan.vocab:
+            keep(params["lm_head"])
+    if stats is not None:
+        stats["host_param_bytes"] = kept[0]
+    return RankParams(params, plan) if mesh is not None else params
 
 
 def from_hf_model(hf_model, dtype: str = "bfloat16", quantization=None):
@@ -189,19 +228,58 @@ def config_from_json(path, dtype: str = "bfloat16") -> ModelConfig:
 _SAFETENSORS_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
 
 
-def read_safetensors(path) -> dict:
-    """``{name: tensor}`` of one ``.safetensors`` file: an 8-byte
-    little-endian header length, a JSON header, then the raw little-endian
-    tensors. The tensors are views of a copy-on-write ``mmap`` of the file,
-    read from disk as they are touched. BF16, F16 and F32 only."""
+class LazyTensors(Mapping):
+    """``{name: tensor}`` over checkpoint files: a safetensors tensor is read
+    from its file into a new CPU tensor each time it is looked up, so a
+    caller that converts one layer at a time holds one layer's tensors, not
+    the checkpoint (a memory map would keep every page it touched resident
+    in the process); other tensors are held as given."""
+
+    def __init__(self):
+        self._where: dict = {}  # name: tensor, or (path, offset, dtype, shape)
+
+    def add_file(self, path, entries: dict) -> None:
+        """``entries``: ``{name: (offset, dtype, shape)}`` of the file at
+        ``path``."""
+        for name, (offset, dt, shape) in entries.items():
+            self._where[name] = (str(path), offset, dt, tuple(shape))
+
+    def add_tensors(self, tensors: dict) -> None:
+        self._where.update(tensors)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        where = self._where[name]
+        if torch.is_tensor(where):
+            return where
+        path, offset, dt, shape = where
+        t = torch.empty(shape, dtype=dt)
+        buf = t.reshape(-1).view(torch.uint8).numpy()
+        with open(path, "rb") as f:
+            f.seek(offset)
+            got = f.readinto(buf)
+        if got != buf.nbytes:
+            raise ValueError(f"{path}: {name} ends past the file ({got} of {buf.nbytes} bytes)")
+        return t
+
+    def __iter__(self):
+        return iter(self._where)
+
+    def __len__(self) -> int:
+        return len(self._where)
+
+
+def _safetensors_entries(path) -> dict:
+    """``{name: (offset, dtype, shape)}`` of one ``.safetensors`` file (an
+    8-byte little-endian header length, a JSON header, then the raw
+    little-endian tensors), its header checked. BF16, F16 and F32 only."""
     if sys.byteorder != "little":
         raise RuntimeError("safetensors data is little-endian; this host is not")
+    size = Path(path).stat().st_size
     with open(path, "rb") as f:
-        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
-    (n,) = struct.unpack("<Q", buf[:8])
-    header = json.loads(buf[8:8 + n])
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
     base = 8 + n
-    out = {}
+    entries = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
@@ -211,12 +289,19 @@ def read_safetensors(path) -> dict:
                              f"{sorted(_SAFETENSORS_DTYPES)}")
         begin, end = info["data_offsets"]
         count = math.prod(info["shape"])
-        if end - begin != count * dt.itemsize or base + end > len(buf):
+        if end - begin != count * dt.itemsize or base + end > size:
             raise ValueError(f"{path}: {name}'s data_offsets {info['data_offsets']} do not "
                              f"hold {info['shape']} {info['dtype']}")
-        t = (torch.frombuffer(buf, dtype=dt, count=count, offset=base + begin) if count
-             else torch.empty(0, dtype=dt))
-        out[name] = t.reshape(info["shape"])
+        entries[name] = (base + begin, dt, info["shape"])
+    return entries
+
+
+def read_safetensors(path) -> LazyTensors:
+    """The tensors of one ``.safetensors`` file, each read from the file when
+    it is looked up (:class:`LazyTensors`); the header is read and checked
+    here."""
+    out = LazyTensors()
+    out.add_file(path, _safetensors_entries(path))
     return out
 
 
@@ -233,16 +318,16 @@ def _weight_files(path: Path) -> list:
                             "pytorch_model.bin or pytorch_model.bin.index.json")
 
 
-def read_state_dict(path) -> dict:
+def read_state_dict(path) -> LazyTensors:
     """The state dict of a checkpoint directory, every file's tensors in one
-    dict (safetensors through :func:`read_safetensors`, ``.bin`` through
-    ``torch.load(weights_only=True, mmap=True)``)."""
-    state = {}
+    mapping (safetensors through :func:`read_safetensors`, read when looked
+    up; ``.bin`` through ``torch.load(weights_only=True, mmap=True)``)."""
+    state = LazyTensors()
     for f in _weight_files(Path(path)):
         if f.suffix == ".safetensors":
-            state.update(read_safetensors(f))
+            state.add_file(f, _safetensors_entries(f))
         else:
-            state.update(torch.load(f, map_location="cpu", weights_only=True, mmap=True))
+            state.add_tensors(torch.load(f, map_location="cpu", weights_only=True, mmap=True))
     return state
 
 
@@ -251,13 +336,16 @@ def checkpoint_bytes(path) -> int:
     return sum(f.stat().st_size for f in _weight_files(Path(path)))
 
 
-def from_pretrained(path, dtype: str = "bfloat16", quantization=None):
+def from_pretrained(path, dtype: str = "bfloat16", quantization=None, mesh=None,
+                    stats: Optional[dict] = None):
     """(config, params) of a local HF Llama checkpoint directory, the params
-    on the CPU (quantized there when ``quantization`` is set)."""
+    on the CPU (quantized there when ``quantization`` is set; with ``mesh``,
+    this rank's slices: :func:`params_from_hf_state_dict`)."""
     path = Path(path)
     if not path.is_dir():
         raise FileNotFoundError(f"{path} is not a directory: the port loads a local "
                                 "checkpoint directory (config.json and weights), never a hub")
     cfg = config_from_json(path / "config.json", dtype=dtype)
-    params = params_from_hf_state_dict(read_state_dict(path), cfg, quantization=quantization)
+    params = params_from_hf_state_dict(read_state_dict(path), cfg, quantization=quantization,
+                                       mesh=mesh, stats=stats)
     return cfg, params

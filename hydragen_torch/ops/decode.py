@@ -4,7 +4,9 @@ in-place int4 decode write: the CUDA kernels of ``csrc/decode.cu`` and their
 plain PyTorch versions.
 
 Port of ``hydragen_tpu.ops.decode``: ``decode_attention_cached`` (kv_bits 8
-and 4) and ``gather_token_row_cached``. The cache is ``[L, B, S, hkv, d]``
+and 4), its one-layer wrapper ``decode_attention_bshd`` with the scale
+layouts ``chunk_kv_scales`` / ``unchunk_kv_scales``, and
+``gather_token_row_cached``. The cache is ``[L, B, S, hkv, d]``
 int8 with flat lane-major scales ``[L, B, S*hkv]`` (the scale of token j,
 head h at ``j*hkv + h``). At kv_bits=4 it is token-planar: S byte rows, byte
 row j holding token j in its low nibble and token j + S in its high nibble,
@@ -34,6 +36,26 @@ from hydragen_torch.ops.reference import attention_bhsd
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
+
+
+def chunk_kv_scales(scale: torch.Tensor, c: int) -> torch.Tensor:
+    """``[..., s, hkv]`` f32 -> ``[..., hkv/c, s*c]``, the lane-major chunk
+    layout: element ``(j, t*c + i)`` holds the scale of token ``t``, kv head
+    ``j*c + i``. With ``c == hkv`` this is the cache's flat-scale layout
+    (``[..., 1, s*hkv]``)."""
+    *lead, s, hkv = scale.shape
+    if hkv % c:
+        raise ValueError(f"chunk_kv_scales: {hkv} kv heads do not split into chunks of {c}")
+    x = scale.reshape(*lead, s, hkv // c, c).movedim(-2, -3)  # [..., hkv/c, s, c]
+    return x.reshape(*lead, hkv // c, s * c)
+
+
+def unchunk_kv_scales(chunked: torch.Tensor, c: int) -> torch.Tensor:
+    """Inverse of :func:`chunk_kv_scales`: ``[..., hkv/c, s*c]`` -> ``[...,
+    s, hkv]``."""
+    *lead, nc, sc = chunked.shape
+    x = chunked.reshape(*lead, nc, sc // c, c).movedim(-3, -2)  # [..., s, hkv/c, c]
+    return x.reshape(*lead, sc // c, nc * c)
 
 
 def _fn():
@@ -191,6 +213,45 @@ def decode_attention_cached(
     cuda_lib.check(status, counter)
     cuda_lib.LAUNCHES[counter] += 1
     return out, lse
+
+
+def decode_attention_bshd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_seq_lens: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    scale: float | None = None,
+    scales_chunked: bool = False,
+    own_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    shared_partial: tuple[torch.Tensor, torch.Tensor] | None = None,
+):
+    """One layer's int8 decode read: :func:`decode_attention_cached` over a
+    single-layer BSHD cache (K3 on a CUDA tensor, its plain version on a CPU
+    tensor).
+
+    q ``[b, hq, 1, d]``; k/v ``[b, s, hkv, d]`` int8; k_scale/v_scale ``[b,
+    s, hkv]`` f32, or already flat (``[b, s*hkv]`` or ``[b, 1, s*hkv]``,
+    :func:`chunk_kv_scales` with ``c = hkv``) when ``scales_chunked``;
+    ``own_kv`` and ``shared_partial`` as in :func:`decode_attention_cached`.
+    The JAX function's ``block_s`` and ``row_batch`` are TPU tilings: K3
+    has no such parameter (a warp reads a (row, kv head) pair), so they are
+    not taken."""
+    b, s, hkv, _ = k.shape
+
+    def flat(sc):
+        sc = sc.float()
+        if not scales_chunked:
+            sc = chunk_kv_scales(sc, hkv)
+        return sc.reshape(1, b, s * hkv).contiguous()
+
+    return decode_attention_cached(
+        0, q, k.contiguous()[None], v.contiguous()[None], kv_seq_lens=kv_seq_lens,
+        k_scale_all=flat(k_scale), v_scale_all=flat(v_scale), own_kv=own_kv,
+        shared_partial=shared_partial, scale=scale,
+    )
 
 
 def gather_token_row_cached(layer: int | None, row, buf: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,10 @@ is the level read:
   all-reduce over sp, the sum carrying the weighted outputs and the weights
   together; ``lse = -inf`` for a fully masked shard). The merge comes
   before the partial reaches K3's fused LSE merge.
+
+The no-sharing baseline (``disable_hydragen``) copies level 0 into every
+unique row; a unique cache is not split over sp, so an sp-split level is
+gathered first (``gather_level``: one all-gather a cached tensor).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from hydragen_torch.ops.hydragen import (
     unfold_shared_lse,
     unfold_shared_out,
 )
-from hydragen_torch.parallel.mesh import Mesh, all_reduce
+from hydragen_torch.parallel.mesh import Mesh, all_gather, all_reduce
 
 
 def sp_lse_merge(o: torch.Tensor, l: torch.Tensor, mesh: Mesh):
@@ -116,3 +120,18 @@ def sharded_level_attention(layer: int, q: torch.Tensor, level, segments, filled
     if level.seq_shards > 1:
         o, l = sp_lse_merge(o, l, mesh)
     return o, l
+
+
+def gather_level(level, mesh: Mesh):
+    """A level split over sp with every token of its sequence on each rank
+    (this rank's kv heads): one all-gather along the tokens for each cached
+    tensor (payloads, and scales when quantized). An unsplit level is
+    returned as it is."""
+    if level.seq_shards == 1:
+        return level
+
+    def whole(x):
+        return None if x is None else all_gather(x, mesh, "sp", dim=3)
+
+    return level._replace(k=whole(level.k), v=whole(level.v), k_scale=whole(level.k_scale),
+                          v_scale=whole(level.v_scale), seq_shards=1, seq_shard=0)

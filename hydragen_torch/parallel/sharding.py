@@ -137,42 +137,63 @@ def _take(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     return x.narrow(dim, i * (size // n), size // n).contiguous()
 
 
+class RankParams(dict):
+    """A rank's slices of a parameter dict, with the ``ShardPlan`` they were
+    cut for: what the HF loader returns under a mesh (``models/hf.py``), so
+    the engine places them as they are and never cuts them a second time."""
+
+    def __init__(self, tree: dict, plan: ShardPlan):
+        super().__init__(tree)
+        self.plan = plan
+
+
+def shard_leaf(x, spec, n: int, i: int):
+    """Piece ``i`` of ``n`` of one parameter (a tensor, a ``QuantizedTensor``
+    or a ``Quantized4Tensor``) under its logical ``spec``: contiguous copies
+    of the split dims, the rest as it is. ``spec`` may cover a stack
+    (``param_pspecs``'s ``[L, in, out]``) or one of its layers (the spec
+    without its first entry): the quantized layouts are addressed from their
+    last dims. The one cutting rule of ``shard_params`` and of the HF
+    loader."""
+    if isinstance(x, Quantized4Tensor):
+        return _place4(x, spec, n, i)
+    if isinstance(x, QuantizedTensor):
+        # Payload [.., out, in]: the logical spec's last two entries swap.
+        qspec = spec[:-2] + (spec[-1], spec[-2])
+        q = x.q
+        for d, s in enumerate(qspec):
+            if s:
+                q = _take(q, d, n, i)
+        scale = _take(x.scale, x.scale.dim() - 1, n, i) if spec[-1] else x.scale
+        return QuantizedTensor(q=q, scale=scale)
+    for d, s in enumerate(spec):
+        if s:
+            x = _take(x, d, n, i)
+    return x
+
+
 def shard_params(params: dict, cfg: ModelConfig, mesh: Optional[Mesh], device=None) -> dict:
     """This rank's slices of a GLOBAL parameter dict (on any device), moved
     to ``device`` slice by slice, so the global dict never goes there."""
     plan = shard_plan(cfg, mesh)
     specs = param_pspecs(cfg, mesh)
-    n, i = plan.tp, plan.rank
-
-    def place(x, spec):
-        if isinstance(x, Quantized4Tensor):
-            return _place4(x, spec, n, i, device)
-        if isinstance(x, QuantizedTensor):
-            # Payload [.., out, in]: the logical spec's last two entries swap.
-            qspec = spec[:-2] + (spec[-1], spec[-2])
-            q = x.q
-            for d, s in enumerate(qspec):
-                if s:
-                    q = _take(q, d, n, i)
-            scale = _take(x.scale, x.scale.dim() - 1, n, i) if spec[-1] else x.scale
-            return QuantizedTensor(q=q.to(device), scale=scale.to(device))
-        for d, s in enumerate(spec):
-            if s:
-                x = _take(x, d, n, i)
-        return x.to(device)
 
     def walk(tree, spec):
         if isinstance(tree, dict):
             return {k: walk(v, spec[k]) for k, v in tree.items()}
-        return place(tree, spec)
+        x = shard_leaf(tree, spec, plan.tp, plan.rank)
+        if isinstance(x, tuple):
+            return type(x)(*(t.to(device) for t in x))
+        return x.to(device)
 
     return walk(params, specs)
 
 
-def _place4(x: Quantized4Tensor, spec, n: int, i: int, device) -> Quantized4Tensor:
-    """Rank ``i`` of ``n``'s slice of a stacked int4 weight (module
-    docstring): a column family on N; a row family on a contiguous logical
-    K range, packed again locally, with its groups or their subgroups."""
+def _place4(x: Quantized4Tensor, spec, n: int, i: int) -> Quantized4Tensor:
+    """Rank ``i`` of ``n``'s slice of a stacked (or one layer's) int4 weight
+    (module docstring): a column family on N; a row family on a contiguous
+    logical K range, packed again locally, with its groups or their
+    subgroups."""
     qp, gs = x.qp, x.gscale
     if spec[-1]:  # column-parallel: output features
         qp, gs = _take(qp, qp.dim() - 2, n, i), _take(gs, gs.dim() - 1, n, i)
@@ -186,7 +207,7 @@ def _place4(x: Quantized4Tensor, spec, n: int, i: int, device) -> Quantized4Tens
             sub = math.gcd(g, K // n)
             gs = gs.repeat_interleave(g // sub, dim=-2)
         gs = _take(gs, gs.dim() - 2, n, i)
-    return Quantized4Tensor(qp=qp.contiguous().to(device), gscale=gs.contiguous().to(device))
+    return Quantized4Tensor(qp=qp.contiguous(), gscale=gs.contiguous())
 
 
 # ---------------------------------------------------------------------------

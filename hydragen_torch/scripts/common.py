@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import subprocess
 
 import torch
 
@@ -46,6 +47,18 @@ def device_of(args, prog: str) -> torch.device:
         raise SystemExit(f"{prog}: no CUDA device is available; pass --device cpu to run "
                          "on the CPU")
     return dev
+
+
+def card_name(device) -> str:
+    """The card as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives it (its power limit sets its speed), or
+    ``"cpu"``."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    index = torch.device(device).index or 0
+    return out[index] if index < len(out) else torch.cuda.get_device_name(device)
 
 
 def impl_of(name):

@@ -22,16 +22,15 @@ from __future__ import annotations
 
 import argparse
 import itertools
-import time
 from pathlib import Path
 
 import torch
 
-from hydragen_torch.ops import cuda_lib
 from hydragen_torch.ops.flash import flash_attention
 from hydragen_torch.ops.hydragen import hydragen_attention
 from hydragen_torch.scripts import common
 from hydragen_torch.utils import MicrobenchmarkResult, save_yaml_dataclass, split_range
+from hydragen_torch.utils.timing import time_flushed
 
 
 def make_inputs(generator, bs, ns, nu, hq, hkv, d, dtype, device):
@@ -76,46 +75,6 @@ def go_baseline(q, sk, sv, uk, uv, nu, bs):
     if uk is None:
         return fn, (q, sk, sv)
     return fn, (q, sk, sv, uk, uv)
-
-
-def time_flushed(op, args, iters: int, device) -> list:
-    """Seconds of each of ``iters`` calls of ``op(*args)``. On the card the
-    op is captured once as a CUDA graph (after a warm-up call) and each
-    replay follows a write of twice the L2 cache's bytes; CUDA events
-    around the replay time the op's kernels alone, with no host work
-    between them (a Hydragen call is a dozen small launches, whose host
-    pace would otherwise be timed). Each replay adds the capture's kernel
-    launches to ``cuda_lib.LAUNCHES``. On the CPU the host clock times each
-    call."""
-    device = torch.device(device)
-    op(*args)
-    if device.type != "cuda":
-        times = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            op(*args)
-            times.append(time.perf_counter() - t)
-        return times
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        op(*args)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph, launches = torch.cuda.CUDAGraph(), {}
-    with cuda_lib.captured_launches(launches), torch.cuda.graph(graph):
-        op(*args)
-    flush = torch.empty(2 * torch.cuda.get_device_properties(device).L2_cache_size,
-                        dtype=torch.uint8, device=device)
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(iters)]
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        graph.replay()
-        end.record()
-        cuda_lib.add_launches(launches)
-    torch.cuda.synchronize(device)
-    return [start.elapsed_time(end) / 1e3 for start, end in events]
 
 
 def parse_args(argv=None):

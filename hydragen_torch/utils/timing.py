@@ -3,8 +3,10 @@
 Port of ``hydragen_tpu.utils.timing``: where the TPU needed a host readback
 to fence a call, ``torch.cuda.synchronize`` fences it (``fence``); CUDA
 events on the current stream time device work alone. ``timed_scanned``, a
-TPU device loop, is not ported: ``cuda_time_ms`` and ``cuda_graph_time_ms``
-take its place.
+TPU device loop, is not ported: ``cuda_time_ms``, ``cuda_graph_time_ms`` and
+``time_flushed`` (a graph replay after an L2 flush, what the microbenchmarks
+time) take its place. ``bound_ms`` is the least time the card could take for
+a call's bytes and operations.
 """
 
 from __future__ import annotations
@@ -13,6 +15,20 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from hydragen_torch.ops import cuda_lib
+
+# One H100 SXM (NVIDIA's data sheet, dense rates): HBM bytes a second and
+# peak operations a second by operand type, at the full 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+
+
+def bound_ms(nbytes: float, ops: float, kind: str) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
+    card's memory rate and ``ops`` over its peak rate for ``kind``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def cuda_time_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
@@ -90,3 +106,43 @@ def timed(fn: Callable, num_iters: int = 10, num_warmup: int = 3,
             between_fn()
         times.append(once())
     return times, warmup_times
+
+
+def time_flushed(op, args, iters: int, device) -> list:
+    """Seconds of each of ``iters`` calls of ``op(*args)``. On the card the
+    op is captured once as a CUDA graph (after a warm-up call) and each
+    replay follows a write of twice the L2 cache's bytes; CUDA events
+    around the replay time the op's kernels alone, with no host work
+    between them (a Hydragen call is a dozen small launches, whose host
+    pace would otherwise be timed). Each replay adds the capture's kernel
+    launches to ``cuda_lib.LAUNCHES``. On the CPU the host clock times each
+    call."""
+    device = torch.device(device)
+    op(*args)
+    if device.type != "cuda":
+        times = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            op(*args)
+            times.append(time.perf_counter() - t)
+        return times
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        op(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph, launches = torch.cuda.CUDAGraph(), {}
+    with cuda_lib.captured_launches(launches), torch.cuda.graph(graph):
+        op(*args)
+    flush = torch.empty(2 * torch.cuda.get_device_properties(device).L2_cache_size,
+                        dtype=torch.uint8, device=device)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        graph.replay()
+        end.record()
+        cuda_lib.add_launches(launches)
+    torch.cuda.synchronize(device)
+    return [start.elapsed_time(end) / 1e3 for start, end in events]

@@ -13,6 +13,9 @@ shared level into every unique row) run on both engines from the same
 parameters and prompts. Inputs come from numpy seeds; every float is fp32.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 
@@ -145,14 +148,14 @@ GQA = dict(vocab_size=256, hidden_size=512, intermediate_size=512, num_hidden_la
            num_attention_heads=4, num_key_value_heads=1, rope_theta=500000.0,
            dtype="float32")
 MODES = {"fp32": (None, None), "w8a8_kv8": ("w8a8", "int8")}
-# The parameters and prompts are fixed by their seeds for a reason: under
-# w8a8 + int8 KV each per-row activation quantization rounds at half-code
-# boundaries. The KV quantizers match the jitted JAX functions bit for bit,
-# so what lands an activation one code apart is mostly a last-bit difference
-# in the float sums upstream (XLA's and PyTorch's reductions, rsqrt, exp)
-# meeting such a boundary, and a logit moves by up to ~7e-2 (parameter keys
-# 0, 2-11 and 13 do that somewhere in these tests, fp32 never does).
-PARAM_KEY = 12
+# The parameter key. Under w8a8 + int8 KV each per-row activation and KV
+# quantization rounds at half-code boundaries, and a last-bit difference in
+# the float sums upstream (XLA's and PyTorch's reductions, rsqrt, exp) can
+# land a code one apart, which moves a logit by up to ~7e-2. The quantized
+# runs hold each of the port's quantizations to JAX's by the tie rule and go
+# on with JAX's codes (``tests/test_torch_ties.py``), so the key pins
+# nothing.
+PARAM_KEY = 0
 
 
 @pytest.fixture(scope="module")
@@ -187,30 +190,64 @@ def _same_logits(tl, jl, what):
         assert d <= 1e-3, (what, step, d)
 
 
+@contextlib.contextmanager
+def _resolved(mode):
+    """``(jax, port)`` context managers for a test's JAX and port runs: under
+    a quantized mode JAX records every quantization and the port's are held
+    to them by the tie rule (``tests/test_torch_ties.py``), checked on exit;
+    fp32 quantizes nothing."""
+    from tests.test_torch_ties import Resolver, assert_resolved, jax_recorded, port_resolved
+
+    if MODES[mode][0] is None:
+        yield contextlib.nullcontext, contextlib.nullcontext
+        return
+    records = []
+    res = {}
+
+    @contextlib.contextmanager
+    def port():
+        with port_resolved(Resolver(records)) as r:
+            res["r"] = r
+            yield
+
+    yield (lambda: jax_recorded(records)), port
+    assert_resolved(res["r"].report(), mode)
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_gqa_engine_matches_jax(gqa_params, mode, monkeypatch):
     """Two requests: a 12-token prompt with 4 greedy samples (WIPE), then 4
-    suffixes over the kept prompt (PRESERVE). The unique cache is BHSD and
-    every decode step's unique read is the small-M read (M = 4). Greedy
-    tokens identical; a forced stream's logits within 1e-3 (the w8a8
-    activations quantize per row on both sides, so a last-bit difference can
-    move a code: at these inputs they agree to about 1e-5)."""
+    suffixes over the kept prompt (PRESERVE), each also on a forced stream.
+    The unique cache is BHSD and every decode step's unique read is the
+    small-M read (M = 4). Greedy tokens identical; the forced stream's
+    logits within 1e-3. Each engine runs its four calls in turn, JAX's
+    first, so that the port's quantizations are held to JAX's."""
     je, te = _engines(gqa_params, mode, monkeypatch)
     assert not te.cache.unique_bshd and not je.cache.unique_bshd
     prompt, suffixes = _prompts(7)
+    forced = np.random.RandomState(8).randint(1, 256, (4, 6)).astype(np.int32)
+    calls = []
     for ids, nrs, op in (([prompt], 4, "WIPE"), ([suffixes], 1, "PRESERVE")):
         kw = dict(input_ids=ids, num_return_sequences=nrs, max_new_tokens=6, temperature=0.0)
-        jt = je.generate(shared_cache_op=getattr(JOp, op), **kw)
-        tt = te.generate(shared_cache_op=getattr(TOp, op), **kw)
-        np.testing.assert_array_equal(_np(tt), _np(jt), err_msg=op)
-        forced = np.random.RandomState(8).randint(1, 256, (4, 6)).astype(np.int32)
-        kw.update(token_overrides=forced, return_logits=True)
-        _, jl = je.generate(shared_cache_op=getattr(JOp, op), **kw)
-        _, tl = te.generate(shared_cache_op=getattr(TOp, op), **kw)
-        _same_logits(tl, jl, (mode, op))
+        calls += [(op, kw), (op, dict(kw, token_overrides=forced, return_logits=True))]
+    with _resolved(mode) as (jax_side, port_side):
+        with jax_side():
+            jout = [je.generate(shared_cache_op=getattr(JOp, op), **kw) for op, kw in calls]
+        with port_side():
+            tout = [te.generate(shared_cache_op=getattr(TOp, op), **kw) for op, kw in calls]
+    for i in (0, 2):
+        np.testing.assert_array_equal(_np(tout[i]), _np(jout[i]), err_msg=calls[i][0])
+        _same_logits(tout[i + 1][1], jout[i + 1][1], (mode, calls[i][0]))
 
 
 # --- the no-sharing baseline ------------------------------------------------------
+
+
+def _unique_buffers(cache, copy):
+    """A copy of a cache's unique buffers, under their names."""
+    return types.SimpleNamespace(**{
+        n: None if getattr(cache, n) is None else copy(getattr(cache, n))
+        for n in ("unique_k", "unique_v", "unique_k_scale", "unique_v_scale")})
 
 
 def _compare_unique_caches(tc, jc):
@@ -242,17 +279,22 @@ def test_no_sharing_matches_jax(gqa_params, mode, pattern, monkeypatch):
     je, te = _engines(gqa_params, mode, monkeypatch, unique_len=12 + 6 + 5 + 8)
     kw = dict(input_ids=ids, num_return_sequences=nrs, max_new_tokens=6, temperature=0.0,
               shared_cache_op="wipe")
-    jt = je.generate(disable_hydragen=True, **kw)
-    tt = te.generate(disable_hydragen=True, **kw)
-    np.testing.assert_array_equal(_np(tt), _np(jt))
-    _compare_unique_caches(te.cache, je.cache)
-    assert not te._disable_hydragen
-    hydragen = te.generate(**kw)
-    np.testing.assert_array_equal(_np(tt), _np(hydragen))
     forced = np.random.RandomState(10).randint(1, 256, (4, 6)).astype(np.int32)
-    kw.update(token_overrides=forced, return_logits=True)
-    _, jl = je.generate(disable_hydragen=True, **kw)
-    _, tl = te.generate(disable_hydragen=True, **kw)
+    fkw = dict(kw, token_overrides=forced, return_logits=True)
+    with _resolved(mode) as (jax_side, port_side):
+        with jax_side():
+            jt = je.generate(disable_hydragen=True, **kw)
+            jc = _unique_buffers(je.cache, np.asarray)  # the next call donates them
+            _, jl = je.generate(disable_hydragen=True, **fkw)
+        with port_side():
+            tt = te.generate(disable_hydragen=True, **kw)
+            tc = _unique_buffers(te.cache, torch.clone)  # the next call writes them
+            assert not te._disable_hydragen
+            hydragen = te.generate(**kw)
+            _, tl = te.generate(disable_hydragen=True, **fkw)
+    np.testing.assert_array_equal(_np(tt), _np(jt))
+    _compare_unique_caches(tc, jc)
+    np.testing.assert_array_equal(_np(tt), _np(hydragen))
     _same_logits(tl, jl, (mode, pattern))
 
 

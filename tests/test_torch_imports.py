@@ -52,6 +52,7 @@ def test_import_without_jax_triton_or_nvcc(tmp_path):
         "import sys, hydragen_torch\n"
         "from hydragen_torch.ops import cuda_lib, gemm, flash, decode\n"
         "from hydragen_torch.core import engine, cache\n"
+        "from hydragen_torch.scripts import quality, ubench_gemm, ubench_unique\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'triton', 'hydragen_tpu') for m in sys.modules)\n"
         "assert not cuda_lib._LIBS\n"

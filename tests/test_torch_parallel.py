@@ -58,6 +58,10 @@ MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2)]
 # rank's rows end or start inside a prefix group.
 SPLIT = dict(levels=[1, 3], lens=[8, 4], shared=(1, 6), suffix=(3, 3), samples=2, B=6)
 STD = dict(levels=[1, 4], lens=[8, 4], shared=(1, 6), suffix=(4, 3), samples=2, B=8)
+# The no-sharing baseline (``disable_hydragen``): one 8-token prefix (split
+# 4 + 4 at sp=2) copied into 4 unique rows ahead of their 3-token suffixes.
+NOSHARE = dict(shared=(1, 8), suffix=(4, 3), B=4)
+NOSHARE_MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +89,38 @@ def run_generate(eng, layout=STD, kv_quant=None, vocab=128, overrides=None, bshd
     kw.update(extra)
     toks, logits = eng.generate(**kw)
     return np.asarray(toks), np.stack([np.asarray(x) for x in logits])
+
+
+def run_no_sharing(eng, counted=None) -> dict:
+    """The no-sharing baseline's requests on ``eng`` (either package's
+    engine), greedy, every step's logits: ``copy``, the prefix as level 0
+    copied into every unique row (``copy_shared_to_unique``) ahead of the
+    suffixes; ``samples``, the prefix prefilled into the unique rows and
+    repeated for 4 samples; ``two_prefixes``, a kept level of two prefixes
+    (``append_shared``, then ``PRESERVE``), each copied into its own two
+    rows (rows 2-3, a dp=2 rank's, read the second). ``counted()``, where
+    given, is read after each request (the port's collectives) and reset
+    before it."""
+    shared, suffix = _prompts(NOSHARE)
+    two = np.random.RandomState(4).randint(1, 128, (2, NOSHARE["shared"][1])).astype(np.int32)
+    eng.setup_caches(NOSHARE["B"], 32, [2], [NOSHARE["shared"][1]])
+    out = {}
+    for name, ids, samples in (("copy", [shared, suffix], 1), ("samples", [shared], 4),
+                               ("two_prefixes", [suffix], 1)):
+        if counted is not None:
+            reset_collectives()
+        kw = dict(shared_cache_op=SharedCacheOp.WIPE)
+        if name == "two_prefixes":
+            eng.empty_shared_cache()
+            eng.append_shared(two)
+            kw = dict(shared_cache_op=SharedCacheOp.PRESERVE)
+        toks, logits = eng.generate(input_ids=ids, num_return_sequences=samples,
+                                    max_new_tokens=6, temperature=0.0, return_logits=True,
+                                    disable_hydragen=True, **kw)
+        out[name] = (np.asarray(toks), np.stack([np.asarray(x) for x in logits]))
+        if counted is not None:
+            out[f"{name}_collectives"] = counted()
+    return out
 
 
 def _engine(cfg_kw, params_np, mesh=None, quant=None, **kw):
@@ -152,6 +188,10 @@ def _case(name, arg, params, rank, world):
         return dict(toks=toks, logits=logits, cache=_local_cache(eng))
     if name == "resolved":
         return _resolved_case(arg, params)
+    if name == "noshare":
+        tp, dp, sp = arg
+        eng = _engine(CFG, params[False], make_mesh(tp=tp, dp=dp, sp=sp, device="cpu"))
+        return run_no_sharing(eng, lambda: dict(COLLECTIVES))
     if name == "shard":
         (tp, dp, sp), quant = arg
         mesh = make_mesh(tp=tp, dp=dp, sp=sp, device="cpu")
@@ -193,7 +233,10 @@ def _case(name, arg, params, rank, world):
         path, quant = arg
         eng = HydragenLlama.from_pretrained_tp(path, tp=2, dp=1, dtype="float32",
                                                quantization=quant, device="cpu")
-        return dict(params=eng.params, tp_rank=eng.mesh.index("tp"))
+        return dict(params=eng.params, tp_rank=eng.mesh.index("tp"), load_stats=eng.load_stats,
+                    param_bytes=_tree_bytes(eng.params), replicated_bytes=_tree_bytes(
+                        [eng.params[k] for k in ("embed_tokens", "final_norm")]
+                        + [eng.params["layers"][k] for k in ("input_norm", "post_attn_norm")]))
     raise ValueError(name)
 
 
@@ -355,6 +398,7 @@ def two_ranks(params, tmp_path_factory):
         "cache_kv8": ("generate", ((2, 1, 1), None, STD, "int8")),
     })
     cases.update({f"shard{m}": ("shard", (m, None)) for m in MESHES})
+    cases.update({f"noshare{m}": ("noshare", m) for m in MESHES})
     return _once(tmp_path_factory, "two_ranks", lambda: dict(ranks=launch(
         _rank_cases, 2, cases, _np_params(params), timeout=TIMEOUT)))
 
@@ -409,7 +453,8 @@ def eight_ranks(params, tmp_path_factory):
 def four_ranks(params, tmp_path_factory):
     cases = {"int8": ("generate", ((2, 2, 1), "int8", STD, None)),
              "gen411": ("generate", ((4, 1, 1), None, STD, None)),
-             "cache_kv8_bshd": ("generate", ((2, 2, 1), None, STD, "int8", True))}
+             "cache_kv8_bshd": ("generate", ((2, 2, 1), None, STD, "int8", True)),
+             "noshare(2, 2, 1)": ("noshare", (2, 2, 1))}
     return _once(tmp_path_factory, "four_ranks", lambda: launch(
         _rank_cases, 4, cases, _np_params(params), timeout=TIMEOUT))
 
@@ -457,6 +502,58 @@ def test_tp2_dp2_sp2_matches_jax_and_unsharded(params, eight_ranks):
     jax_out, _ = _jax_generate(CFG, params[False][0], (2, 2, 2))
     port = run_generate(_engine(CFG, params[False][1]))
     _hold_generate(eight_ranks, "gen222", jax_out, port)
+
+
+def _jax_engine(cfg_kw, jparams, mesh_shape):
+    import tests.conftest  # noqa: F401
+    from hydragen_tpu.core.engine import HydragenLlama as JEngine
+    from hydragen_tpu.models.config import ModelConfig as JConfig
+    from hydragen_tpu.parallel import make_mesh as jmesh
+
+    tp, dp, sp = mesh_shape
+    return JEngine(JConfig(**cfg_kw), jparams,
+                   mesh=jmesh(tp=tp, dp=dp, sp=sp) if tp * dp * sp > 1 else None)
+
+
+def no_sharing_collectives(mesh, request: str) -> dict:
+    """The counted collectives of one ``run_no_sharing`` request on a rank:
+    at tp, two sum all-reduces a layer and a logits all-gather a forward
+    (the copy request runs 7 forwards: the level, the suffixes and 5 decode
+    steps; the samples request 6); at dp, the gathers of the prefill's
+    logits, of the tokens and of the step logits; at sp, the copy's
+    all-gathers of the level's k and v, and nothing else (the unique cache
+    is not split over sp, so no read merges). ``two_prefixes`` counts as
+    ``copy`` (its level's prefill, the copy, the suffixes, 5 steps)."""
+    tp, dp, sp = mesh
+    copies = request != "samples"
+    forwards = 7 if copies else 6
+    L = CFG["num_hidden_layers"]
+    return dict(all_reduce_sum=2 * L * forwards if tp > 1 else 0, all_reduce_max=0,
+                all_gather=(forwards if tp > 1 else 0) + (3 if dp > 1 else 0)
+                + (2 if sp > 1 and copies else 0))
+
+
+@pytest.mark.parametrize("mesh", NOSHARE_MESHES, ids=["tp2", "dp2", "sp2", "tp2dp2"])
+def test_no_sharing_under_a_mesh_matches_jax_and_meshless(params, two_ranks, four_ranks, mesh):
+    """``disable_hydragen`` on a mesh, the requests of ``run_no_sharing``:
+    each rank's copy writes its unique rows (dp) and kv heads (tp), an
+    sp-split level gathered first; tokens equal on every rank, to the JAX
+    engine's on the same mesh and to the meshless port's, logits within
+    1e-4 of both (fp32), and the exact collectives."""
+    ranks = four_ranks if mesh == (2, 2, 1) else two_ranks["ranks"]
+    key = f"noshare{mesh}"
+    jax_out = run_no_sharing(_jax_engine(CFG, params[False][0], mesh))
+    port = run_no_sharing(_engine(CFG, params[False][1]))
+    for req in ("copy", "samples", "two_prefixes"):
+        toks, logits = ranks[0][key][req]
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[key][req][0], toks)
+            np.testing.assert_array_equal(r[key][req][1], logits)
+        for name, (t, lg) in (("jax", jax_out[req]), ("port without a mesh", port[req])):
+            np.testing.assert_array_equal(toks, t, err_msg=f"{req} {name}")
+            np.testing.assert_allclose(logits, lg, atol=1e-4, rtol=1e-4, err_msg=f"{req} {name}")
+        for r in ranks:
+            assert r[key][f"{req}_collectives"] == no_sharing_collectives(mesh, req), req
 
 
 def test_tp_exceeding_kv_heads_replicates(params, eight_ranks):
@@ -755,6 +852,56 @@ def test_from_pretrained_tp_slices_bit_equal(two_ranks_hf, quant):
         assert glob["layers"]["wo"].scale.dtype == torch.float32
     else:
         assert isinstance(glob["layers"]["down"], Quantized4Tensor)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def loaded_rank_bytes(cfg, tp: int) -> int:
+    """A rank's parameter bytes from the shapes under the sharding rules, for
+    the loader's w8a8 output (``chip_smoke.py``'s ``expected_param_bytes``
+    for a loaded model): fp32 embedding and norms of this model, int8
+    payloads with f32 column scales, the MLP unpadded; q/k/v, gate/up and
+    the LM head split on their columns, o and down on their rows, their
+    scales whole."""
+    H, V, L, I = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers, cfg.intermediate_size
+    hd = cfg.head_dim
+    Hq, Hkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    n = V * H * 4 + H * 4 + (V // tp) * (H + 4) + 2 * L * H * 4
+    for N, K, column in ((Hq, H, True), (Hkv, H, True), (Hkv, H, True), (H, Hq, False),
+                         (I, H, True), (I, H, True), (H, I, False)):
+        n += L * (N // tp) * (K + 4) if column else L * N * (K // tp + 4)
+    return n
+
+
+@pytest.mark.parametrize("quant", HF_QUANT)
+def test_from_pretrained_tp_allocates_only_the_ranks_slices(two_ranks_hf, quant):
+    """Under a mesh the loader allocates each stack at the rank's shape: the
+    bytes it allocated to keep (``load_stats["host_param_bytes"]``) are the
+    rank's parameters' bytes, about half the meshless load's at tp=2, and
+    for w8a8 exactly what the sharding rules give from the shapes. A loader
+    that allocated a global stack and cut it afterwards would count the
+    global bytes."""
+    from hydragen_torch import HydragenLlama
+
+    glob = HydragenLlama.from_pretrained(two_ranks_hf["hf"], dtype="float32",
+                                         quantization=quant, device="cpu")
+    whole = glob.load_stats["host_param_bytes"]
+    assert whole == _tree_bytes(glob.params)
+    for r in two_ranks_hf["ranks"]:
+        got = r[f"pretrained_{quant}"]
+        mine = got["load_stats"]["host_param_bytes"]
+        assert mine == got["param_bytes"], (mine, got["param_bytes"])
+        rep = got["replicated_bytes"]
+        assert mine - rep < 0.6 * (whole - rep), (mine, whole, rep)
+        assert got["load_stats"]["load_s"] > 0
+        if quant == "w8a8":
+            assert mine == loaded_rank_bytes(glob.config, 2)
 
 
 def _np_bits(t):

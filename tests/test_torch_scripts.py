@@ -13,8 +13,8 @@ is recorded on both sides.
   exceeds ``HBM_BYTES``, True on the CPU, and the byte count equal to the
   JAX formula's (found as the JAX function's threshold of ``HBM_BYTES``);
   synth at tp=2 over two gloo ranks against the JAX synth on a 2-device
-  mesh: hydragen and noattention equal, the no-sharing point raising
-  ``NotImplementedError`` as the port's engine does under a mesh;
+  mesh: every mode, the no-sharing baseline included, with the same YAMLs
+  and ``generate`` calls;
 - microbenchmark: ``go_hydragen`` and ``go_baseline`` within 2e-5 max abs
   of their JAX counterparts and of each other, fp32, the same numpy inputs;
 - needles: the same YAML fields and ``generate`` calls;
@@ -304,27 +304,22 @@ def test_synth_over_two_ranks_matches_jax_mesh(tmp_path, monkeypatch, port_tiny)
     args = SYNTH_ARGS + ["--iters", "1", "--tp", "2"]
     jrec = Recorder(JEngine, setattr_=monkeypatch.setattr)
     run_jax_script(monkeypatch, "synth", [tmp_path / "jax", "--mode", "all"] + args)
-    jcalls = {m: [c for c in jrec.calls
-                  if (m == "noattention") == bool(c[0]["disable_attention"])
-                  and not c[0]["disable_hydragen"]]
-              for m in ("hydragen", "noattention")}
-    recs = [tmp_path / "rec_all", tmp_path / "rec_noatt"]
-    for d in recs:
-        d.mkdir()
-    patch_ranks(monkeypatch, port_tiny[1], recs)
+    rec = tmp_path / "rec"
+    rec.mkdir()
+    patch_ranks(monkeypatch, port_tiny[1], [rec])
     out = tmp_path / "port"
-    # --mode all: hydragen runs, then the no-sharing point raises on the mesh.
-    with pytest.raises(RuntimeError, match="NotImplementedError"):
-        synth.main([str(out), "--mode", "all", "--device", "cpu"] + args)
-    written = synth.main([str(out), "--mode", "noattention", "--device", "cpu"] + args)
-    assert [p.name for p in written] == ["noattention_bs2_ns16_nu4.yaml"]
-    names = ["hydragen_bs2_ns16_nu4.yaml", "noattention_bs2_ns16_nu4.yaml"]
+    # --mode all: hydragen, then the no-sharing baseline over the ranks, then
+    # noattention, each point's YAML as the JAX mesh writes it.
+    written = synth.main([str(out), "--mode", "all", "--device", "cpu"] + args)
+    names = ["hydragen_bs2_ns16_nu4.yaml", "hydragen_noshared_bs2_ns16_nu4.yaml",
+             "noattention_bs2_ns16_nu4.yaml"]
+    assert sorted(p.name for p in written) == names
     assert sorted(p.name for p in out.glob("*.yaml")) == names
-    _same_yamls(tmp_path / "jax", out, names)
-    for mode, rec in zip(("hydragen", "noattention"), recs):
-        calls = rank_calls(rec, 0)
-        _same_calls(jcalls[mode], [c for c in calls if not c[0]["disable_hydragen"]])
-        _same_calls(calls, rank_calls(rec, 1))  # every rank gets the whole batch
+    _same_yamls(tmp_path / "jax", out)
+    calls = rank_calls(rec, 0)
+    assert sum(bool(c[0]["disable_hydragen"]) for c in calls) == 3  # 2 warm-up, 1 timed
+    _same_calls(jrec.calls, calls)
+    _same_calls(calls, rank_calls(rec, 1))  # every rank gets the whole batch
 
 
 @pytest.mark.parametrize("script,argv,points", [
