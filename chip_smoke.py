@@ -116,8 +116,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 11. parallel: ``hydragen_torch.parallel`` at the main path's configuration
    (w8a8, int8 KV, random weights from ``--seed``, each rank's global draw
    sliced and freed before its request), request 1 alone: (a) tp=2, two
-   ranks sharing the one card over gloo, 32 layers, eager; (b) sp=2, the
-   same at ``PAR_SP_LAYERS`` layers, the level split 1,024 + 1,024; gates on
+   ranks sharing the one card over gloo, ``PAR_TP2_LAYERS`` layers, eager;
+   (b) sp=2, the same at ``PAR_SP_LAYERS`` layers, the level split 1,024 +
+   1,024; gates on
    each rank: exact launches at the sharded shapes, exact collectives, the
    parameter bytes the sharding rules give, both ranks' tokens equal, and
    the logits of the ranks' token stream within ``TOL_NOSHARE`` of the
@@ -127,7 +128,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    meshless bit for bit, the captured step's 64 all-reduces and one
    all-gather counted. (d) ``tp2-int4``: (a) with int4 weights
    (``init_params(quantized="w4a8")``, group 128, ``quantization="w4a8"``,
-   int8 KV) at full width and depth: K6 on each rank's column slices, o and
+   int8 KV) at full width, ``PAR_TP2_LAYERS`` layers: K6 on each rank's
+   column slices, o and
    down on the weight-only product of the rank's repacked K slice and the
    sum all-reduce, no K1; the same gates against the meshless w4a8 engine.
    (e) ``tp2-noshare``: the gqa no-sharing configuration (Llama-3-8B, w8a8
@@ -139,7 +141,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    meshless baseline's on the same tokens; both decode rates and their
    ratio. ``--tp4`` runs only tp=4 over NCCL on four cards
    (eager, then graphs: bit for bit), which the default run never takes.
-12. scripts: each entry point of ``hydragen_torch.scripts`` through its
+12. serving mesh: ``ContinuousBatcher`` over a mesh, one stream of 128
+   requests (suffixes 16-128, budgets 8-64 from ``--seed``, longest budget
+   first, chunk 8, bucket 32, lookahead 1, greedy) over a pool of 64 rows x
+   200 ring slots at full Llama-2-7B width, w8a8 + int8 KV, one 2,048-token
+   level: (a) tp=2 and (b) dp=2 (32 rows a rank) as two gloo ranks sharing
+   the card at ``SERVE_MESH_LAYERS`` layers, eagerly, then the meshless
+   batcher on the same weights, stream and depth; (c) a one-rank NCCL mesh
+   (``keep_trivial``) at full depth through the decode graphs, then eagerly,
+   then the meshless batcher through its graphs. Gates on every rank: the
+   ranks' tokens and stats equal, the stats the meshless batcher's; exact
+   launches from the rank's own dispatches (per admission prefill 7L K1, L
+   K2, L K4; per step 7L K1, L K2; no K3 or K5) and exact collectives; every
+   request within its budget, tokens in range; (a), (b): 8 finished
+   requests' tokens forced through the meshless engine, each token within
+   ``SERVE_MESH_MARGIN`` logit RMS of its step's top logit; (c): graph =
+   eager = meshless bit for bit, one capture a key. Prints requests/s, new
+   tokens/s, ms a step split into the collectives' host time and the rest,
+   admission seconds and each rank's device peak.
+13. scripts: each entry point of ``hydragen_torch.scripts`` through its
    ``main(argv)``, in this process, on the card, outputs under
    ``build/scripts_phase/``: synth at the main path's shape (``--mode all``,
    two iterations): the hydragen point's launches exactly 4 times request
@@ -2515,10 +2535,12 @@ def check_plain_path(args, failures: list, path: str) -> None:
                                 f"{p_max:.4g}")
 
 
-# Phase parallel: two ranks sharing the card over gloo, (a) tp=2 at full
-# depth, (b) sp=2 at PAR_SP_LAYERS layers (full width; cut from 32 so the
-# phase stays near two minutes), and (c) one rank of an NCCL mesh through the
-# decode graphs.
+# Phase parallel: two ranks sharing the card over gloo, (a) tp=2 and (d)
+# tp=2 with int4 weights at PAR_TP2_LAYERS layers, (b) sp=2 at PAR_SP_LAYERS
+# layers (full width; each cut from 32 so that the whole run stays near 900
+# s), and (c) one rank of an NCCL mesh at full depth through the decode
+# graphs.
+PAR_TP2_LAYERS = 16
 PAR_SP_LAYERS = 8
 PAR_TIMEOUT = 600.0  # seconds a spawn may take, its set-up included
 
@@ -2588,10 +2610,13 @@ def param_bytes(tree) -> int:
 
 
 def parallel_config(kind: str):
+    """Llama-2-7B at the depth of case ``kind``: the gloo cases cut (the
+    full depth for ``"nccl"`` and ``--tp4``'s ``"tp4"``)."""
     from hydragen_torch.models.config import PRESETS
 
     cfg = PRESETS["llama-2-7b"]
-    return dataclasses.replace(cfg, num_hidden_layers=PAR_SP_LAYERS) if kind == "sp2" else cfg
+    L = {"sp2": PAR_SP_LAYERS, "tp2": PAR_TP2_LAYERS, "tp2-int4": PAR_TP2_LAYERS}.get(kind)
+    return cfg if L is None else dataclasses.replace(cfg, num_hidden_layers=L)
 
 
 def parallel_engine(kind: str, seed: int, mesh=None):
@@ -2721,7 +2746,7 @@ def nccl_rank(rank: int, world: int, seed: int) -> dict:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(tp=1, device="cuda:0", keep_trivial=True)
-    eng, prompt = parallel_engine("tp2", seed, mesh)
+    eng, prompt = parallel_engine("nccl", seed, mesh)
     req = request1(prompt, seed)
     runs = {}
     for name, graphs in (("eager", False), ("graph", True)):
@@ -2738,7 +2763,7 @@ def nccl_rank(rank: int, world: int, seed: int) -> dict:
     del eng, prompt
     gc.collect()
     torch.cuda.empty_cache()
-    eng, prompt = parallel_engine("tp2", seed)
+    eng, prompt = parallel_engine("nccl", seed)
     toks, logits = eng.generate(return_logits=True, **request1(prompt, seed))
     runs["meshless"] = (toks.cpu(), [x.cpu() for x in logits], {}, {})
 
@@ -3009,7 +3034,7 @@ def drive_parallel(args, failures: list, card: str) -> dict:
 
     t = time.perf_counter()
     res = launch(nccl_rank, 1, args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
-    L = parallel_config("tp2").num_hidden_layers
+    L = parallel_config("nccl").num_hidden_layers
     want_l = expected_launches_request1(L, T)
     want_c = expected_collectives_request1("tp2", L, T)
     step_c = {"all_reduce_sum": 2 * L, "all_gather": 1}
@@ -3025,6 +3050,304 @@ def drive_parallel(args, failures: list, card: str) -> dict:
     if not ok:
         failures.append(f"parallel nccl: {json.dumps(res)}")
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# Phase serving mesh: the serving stream through ContinuousBatcher over a
+# mesh. (a) tp=2 and (b) dp=2 as two gloo ranks sharing the card at
+# SERVE_MESH_LAYERS layers of full width (cut from 32 for time; never the
+# width), eagerly; (c) a one-rank NCCL mesh at full depth through the graphs.
+SERVE_MESH_LAYERS = 8
+SERVE_MESH_POOL = 64
+SERVE_MESH_REQUESTS = 128
+SERVE_MESH_FORCED = 8  # finished requests forced through the meshless engine
+# The values gate of (a) and (b): each emitted token of a forced request lies
+# within this margin of the top logit of its step on the meshless engine (the
+# margin in units of that step's logit RMS). A greedy pick under tp parts from
+# the meshless argmax only where the per-shard row quantization's drift
+# (parallel (a) reads 0.0758 RMS relative) covers the gap between the two top
+# logits; a token read off another row's KV, or off a misplaced prompt, lies
+# several RMS below the top.
+SERVE_MESH_MARGIN = 0.5
+
+
+def serve_mesh_engine(L: int, seed: int, mesh=None):
+    """The serving configuration at ``L`` layers of Llama-2-7B width, w8a8 +
+    int8 KV, its weights drawn on the card from ``seed`` (sliced for the rank
+    under ``mesh``, the global draw freed), a pool of SERVE_MESH_POOL rows
+    and one level holding a 2,048-token prompt."""
+    from hydragen_torch import HydragenLlama
+    from hydragen_torch.models.config import PRESETS
+    from hydragen_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=L)
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    params = init_params(cfg, g, quantized="w8a8", device="cuda")
+    eng = HydragenLlama(cfg, params, quantization="w8a8", mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng.setup_caches(SERVE_MESH_POOL, SERVE_SUFFIX[1] + SERVE_BUDGET[1] + 8, [1], [SHARED_LEN],
+                     kv_quant="int8")
+    eng.append_shared(torch.randint(1, cfg.vocab_size, (1, SHARED_LEN), generator=g,
+                                    device="cuda"))
+    return eng
+
+
+def serve_mesh_requests(seed: int, vocab: int) -> list:
+    """The stream: SERVE_MESH_REQUESTS requests, suffixes and budgets
+    uniform from ``seed``, no stops (with budgets alone and no EOS the
+    schedule does not depend on the tokens)."""
+    rng = np.random.RandomState(seed + 5)
+    return [(rng.randint(1, vocab, (rng.randint(SERVE_SUFFIX[0], SERVE_SUFFIX[1] + 1),)),
+             int(rng.randint(SERVE_BUDGET[0], SERVE_BUDGET[1] + 1)), 0, None)
+            for _ in range(SERVE_MESH_REQUESTS)]
+
+
+def serve_mesh_stream(eng, requests, seed: int, graphs: bool) -> dict:
+    """The stream through a new batcher over ``eng`` (chunk 8, bucket 32,
+    longest budget first, lookahead 1, greedy), every admission and chunk
+    fenced by synchronizes and timed, the collectives' host seconds read
+    (``mesh.timed_collectives``); the launch and collective counts set to 0
+    just before and read just after."""
+    from hydragen_torch import ContinuousBatcher
+    from hydragen_torch.ops import cuda_lib
+    from hydragen_torch.parallel import mesh as mesh_lib
+
+    if eng.mesh is None or eng.mesh.graphs_ok:
+        eng.graph(graphs)
+    cb = ContinuousBatcher(eng, chunk=SERVE_CHUNK, bucket=SERVE_BUCKET, admit_policy="lpt",
+                           lookahead=1, temperature=0.0, seed=seed)
+    rids = [cb.submit(ids, max_new_tokens=n) for ids, n, _, _ in requests]
+    spent = {"admit": [0.0, 0.0], "decode": [0.0, 0.0]}  # (wall s, collectives' host s)
+
+    def fenced(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t, c = time.perf_counter(), mesh_lib.COLLECTIVE_SECONDS[0]
+            with mesh_lib.timed_collectives():
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    spent[name][0] += time.perf_counter() - t
+                    spent[name][1] += mesh_lib.COLLECTIVE_SECONDS[0] - c
+        return run
+
+    cb._admit_batch = fenced("admit", cb._admit_batch)
+    cb._decode_chunk = fenced("decode", cb._decode_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    mesh_lib.reset_collectives()
+    t = time.perf_counter()
+    out = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    toks = [out.get(r) for r in rids]
+    return dict(toks=toks, stats=dict(cb.stats), admit_forwards=cb.admit_forwards,
+                launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+                collectives=dict(mesh_lib.COLLECTIVES), wall_s=wall,
+                admit_s=spent["admit"][0], admit_collective_s=spent["admit"][1],
+                decode_s=spent["decode"][0], decode_collective_s=spent["decode"][1],
+                new_tokens=sum(len(x) for x in toks if x is not None),
+                peak_GiB=torch.cuda.max_memory_allocated() / 2**30,
+                graph=cb._chunk.graph is not None, key=cb._key)
+
+
+def serve_mesh_rank(rank: int, world: int, kind: str, seed: int) -> dict:
+    """One rank of phase serving mesh: (a) ``"tp2"`` or (b) ``"dp2"``, two
+    gloo ranks on the one card, the stream eagerly at SERVE_MESH_LAYERS
+    layers; or (c) ``"nccl1"``, a one-rank NCCL mesh (``keep_trivial``: its
+    tp collectives run over the one rank) at full depth: the stream through
+    the decode graphs (captures counted), eagerly, then the meshless engine's
+    stream through its graphs on the same weights."""
+    from hydragen_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "nccl1":
+        mesh = make_mesh(tp=1, device="cuda:0", keep_trivial=True)
+    else:
+        mesh = make_mesh(**{kind[:2]: 2}, device="cuda:0")
+    L = 32 if kind == "nccl1" else SERVE_MESH_LAYERS
+    eng = serve_mesh_engine(L, seed, mesh)
+    requests = serve_mesh_requests(seed, eng.config.vocab_size)
+    captures = count_captures(eng)
+    out = dict(graphs_enabled=eng.graphs_enabled)
+    out["stream"] = serve_mesh_stream(eng, requests, seed, graphs=True)
+    key = out["stream"].pop("key")
+    if kind != "nccl1":
+        return out
+    out["captures"] = dict(of_key=captures.get(key, 0), all=sorted(captures.values()))
+    out["eager"] = serve_mesh_stream(eng, requests, seed, graphs=False)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["meshless"] = serve_mesh_stream(serve_mesh_engine(L, seed), requests, seed, graphs=True)
+    for run in (out["eager"], out["meshless"]):
+        run.pop("key")
+    return out
+
+
+def serve_mesh_collectives(kind: str, L: int, run: dict) -> dict:
+    """The counted collectives of a rank's stream, from its dispatch log.
+    tp (and the one-rank NCCL mesh's trivial tp): each forward, this rank's
+    admission prefills and every decode step, makes two sum all-reduces a
+    layer and one all-gather of the logits. dp: every admission dispatch
+    gathers its members' logits and every chunk its tokens."""
+    st = run["stats"]
+    if kind == "dp2":
+        return {"all_reduce_sum": 0, "all_reduce_max": 0,
+                "all_gather": st["admit_dispatches"] + st["chunks"]}
+    forwards = run["admit_forwards"] + st["decode_steps"]
+    return {"all_reduce_sum": 2 * L * forwards, "all_reduce_max": 0, "all_gather": forwards}
+
+
+def forced_margins(eng, requests, toks, picks, seed: int) -> float:
+    """The largest margin of a forced token: requests ``picks``' suffixes
+    through ``eng.generate`` over the kept prompt (``PRESERVE``), each
+    request's tokens ``toks`` forced (``token_overrides``); at each step, the
+    top logit less the logit of the token emitted there, in units of that
+    step's logit RMS, over every token of every picked request."""
+    from hydragen_torch import SharedCacheOp
+
+    lens = np.array([len(requests[i][0]) for i in picks], dtype=np.int32)
+    ids = np.zeros((len(picks), int(lens.max())), dtype=np.int32)
+    T = max(len(toks[i]) for i in picks)
+    over = np.zeros((len(picks), T), dtype=np.int32)
+    for j, i in enumerate(picks):
+        ids[j, :lens[j]] = requests[i][0]
+        over[j, :len(toks[i])] = toks[i]
+        over[j, len(toks[i]):] = toks[i][-1]
+    eng.graph(True)
+    _, logits = eng.generate(input_ids=[ids], seq_lens=[lens], max_new_tokens=T,
+                             temperature=0.0, return_logits=True, token_overrides=over,
+                             shared_cache_op=SharedCacheOp.PRESERVE, seed=seed)
+    worst = 0.0
+    for j, i in enumerate(picks):
+        for k, tok in enumerate(toks[i]):
+            row = logits[k][j].float()
+            margin = float(row.max() - row[tok]) / float(row.pow(2).mean().sqrt().clamp_min(1e-6))
+            worst = max(worst, margin)
+    return worst
+
+
+def drive_serving_mesh(args, failures: list, card: str) -> dict:
+    """Phase serving mesh: the serving stream (SERVE_MESH_REQUESTS requests
+    over a pool of SERVE_MESH_POOL rows x 200 ring slots, suffixes 16-128,
+    budgets 8-64, longest budget first, chunk 8, bucket 32, lookahead 1,
+    greedy, no EOS) at full Llama-2-7B width, w8a8 + int8 KV, one 2,048-token
+    level: (a) tp=2 and (b) dp=2 as two gloo ranks sharing the card at
+    SERVE_MESH_LAYERS layers, eagerly, then the meshless batcher here on the
+    same weights, stream and depth; (c) a one-rank NCCL mesh at full depth
+    through the graphs. Gates on every rank: tokens and stats equal between
+    the ranks and the stats the meshless batcher's; exact launches (the
+    rank's own admission prefills and every step) and collectives; every
+    request back within its budget, tokens in range; (a), (b): SERVE_MESH_
+    FORCED finished requests' tokens forced through the meshless engine, each
+    within SERVE_MESH_MARGIN of its step's top logit; (c): the graph stream
+    equal to its eager run and to the meshless graph stream bit for bit, one
+    capture a key. Returns rank 0's launches by case."""
+    from hydragen_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    L = SERVE_MESH_LAYERS
+    out, ranks_of = {}, {}
+    for kind in ("tp2", "dp2"):
+        t = time.perf_counter()
+        ranks_of[kind] = launch(serve_mesh_rank, 2, kind, args.seed, backend="gloo",
+                                timeout=PAR_TIMEOUT)
+        ranks_of[kind].append(time.perf_counter() - t)
+    # The meshless batcher on the same weights, stream and depth.
+    eng = serve_mesh_engine(L, args.seed)
+    V = eng.config.vocab_size
+    requests = serve_mesh_requests(args.seed, V)
+    base = serve_mesh_stream(eng, requests, args.seed, graphs=False)
+    new = check_stream("serving mesh meshless", requests, base["toks"], V, failures)
+    picks = list(range(0, SERVE_MESH_REQUESTS, SERVE_MESH_REQUESTS // SERVE_MESH_FORCED))
+    control = forced_margins(eng, requests, base["toks"], picks, args.seed)
+    print(f"[serving mesh meshless] {card}; {L} layers, pool {SERVE_MESH_POOL}: "
+          f"{SERVE_MESH_REQUESTS} requests in {base['wall_s']:.3f} s (fenced, eager), "
+          f"{new} new tokens; dispatches {json.dumps(base['stats'])}; decode "
+          f"{1e3 * base['decode_s'] / base['stats']['decode_steps']:.3f} ms/step; its own "
+          f"tokens forced: largest margin {control:.4g} logit RMS", flush=True)
+    for kind in ("tp2", "dp2"):
+        *ranks, secs = ranks_of[kind]
+        tag = f"serving mesh {kind}"
+        runs = [r["stream"] for r in ranks]
+        for r, run in enumerate(runs):
+            want_l = expected_launches_serving(L, run["admit_forwards"],
+                                               run["stats"]["decode_steps"])
+            want_c = serve_mesh_collectives(kind, L, run)
+            ok = (run["launches"] == want_l and run["collectives"] == want_c
+                  and run["stats"] == base["stats"] and not ranks[r]["graphs_enabled"])
+            print(f"[{tag}] rank {r}: dispatches {json.dumps(run['stats'])}, admission "
+                  f"forwards {run['admit_forwards']}; launches {json.dumps(run['launches'])} "
+                  f"(want {json.dumps(want_l)}); collectives {json.dumps(run['collectives'])} "
+                  f"(want {json.dumps(want_c)}); device peak {run['peak_GiB']:.2f} GiB -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{tag} rank {r}: launches, collectives or stats differ "
+                                f"(meshless stats {base['stats']})")
+        same = all(run["toks"] == runs[0]["toks"] and run["stats"] == runs[0]["stats"]
+                   for run in runs)
+        if not same:
+            failures.append(f"{tag}: the ranks' tokens or stats differ")
+        toks = runs[0]["toks"]
+        new = check_stream(tag, requests, toks, V, failures)
+        worst = forced_margins(eng, requests, toks, picks, args.seed)
+        if worst > SERVE_MESH_MARGIN:
+            failures.append(f"{tag}: a forced token {worst:.4g} logit RMS below its step's "
+                            f"top on the meshless engine > {SERVE_MESH_MARGIN}")
+        agree = sum(a == b for a, b in zip(toks, base["toks"]))
+        r0 = runs[0]
+        steps = r0["stats"]["decode_steps"]
+        stats = dict(
+            layers=L, ranks_agree=same, requests_equal_to_meshless=agree,
+            forced_margin=worst, requests_s=SERVE_MESH_REQUESTS / r0["wall_s"],
+            new_tokens_s=new / r0["wall_s"], wall_s=r0["wall_s"],
+            ms_per_step=1e3 * r0["decode_s"] / steps,
+            collective_ms_per_step=1e3 * r0["decode_collective_s"] / steps,
+            other_ms_per_step=1e3 * (r0["decode_s"] - r0["decode_collective_s"]) / steps,
+            admit_s=r0["admit_s"], admit_collective_s=r0["admit_collective_s"],
+            peak_GiB=[run["peak_GiB"] for run in runs], case_s=secs)
+        print(f"[{tag}] two ranks sharing one card over gloo (not a multi-card figure), "
+              f"{card}: {json.dumps(stats)}", flush=True)
+        out[kind] = r0["launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    res = launch(serve_mesh_rank, 1, "nccl1", args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
+    g, e, m = res["stream"], res["eager"], res["meshless"]
+    L32 = 32
+    want_l = expected_launches_serving(L32, g["admit_forwards"], g["stats"]["decode_steps"])
+    want_c = serve_mesh_collectives("nccl1", L32, g)
+    bit = g["toks"] == e["toks"] == m["toks"]
+    ok = (bit and g["stats"] == e["stats"] == m["stats"] and res["graphs_enabled"]
+          and g["graph"] and not e["graph"] and g["launches"] == want_l == e["launches"]
+          and m["launches"] == want_l and g["collectives"] == want_c == e["collectives"]
+          and res["captures"] == dict(of_key=1, all=[1]))
+    new = check_stream("serving mesh nccl1", requests, g["toks"], V, failures)
+    steps = g["stats"]["decode_steps"]
+    print(f"[serving mesh nccl1] one-rank NCCL mesh, 32 layers, {card}: graph = eager = meshless "
+          f"graph stream bit for bit {bit}; dispatches {json.dumps(g['stats'])}; launches "
+          f"{json.dumps(g['launches'])} (want {json.dumps(want_l)}); collectives "
+          f"{json.dumps(g['collectives'])} (want {json.dumps(want_c)}); captures "
+          f"{json.dumps(res['captures'])}; graph stream {SERVE_MESH_REQUESTS / g['wall_s']:.2f} "
+          f"requests/s, {new / g['wall_s']:.1f} new tokens/s, {1e3 * g['decode_s'] / steps:.3f} "
+          f"ms/step, admissions {g['admit_s']:.3f} s, peak {g['peak_GiB']:.2f} GiB; eager "
+          f"{1e3 * e['decode_s'] / steps:.3f} ms/step; meshless graph "
+          f"{1e3 * m['decode_s'] / steps:.3f} ms/step, {SERVE_MESH_REQUESTS / m['wall_s']:.2f} "
+          f"requests/s; {time.perf_counter() - t:.1f} s -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"serving mesh nccl1: bit for bit {bit}, stats {g['stats']} / "
+                        f"{e['stats']} / {m['stats']}, launches {g['launches']}, collectives "
+                        f"{g['collectives']}, captures {res['captures']}")
+    out["nccl1"] = g["launches"]
+    print(f"[serving mesh] {card}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -3428,7 +3751,8 @@ def main() -> int:
     report: dict = {}
     launches: dict = {"main": {}, "load": {}, "load tp2": {}, "int4": {}, "gqa": {},
                       "gqa no-sharing": {}, "serving": {}, "parallel": {}, "parallel int4": {},
-                      "parallel noshare": {}}
+                      "parallel noshare": {}, "serving mesh tp2": {}, "serving mesh dp2": {},
+                      "serving mesh nccl1": {}}
     main_stats: dict = {}
 
     def load_phase():
@@ -3441,6 +3765,10 @@ def main() -> int:
         launches["parallel"].update(by_kind["tp2"])
         launches["parallel int4"].update(by_kind["tp2-int4"])
         launches["parallel noshare"].update(by_kind["tp2-noshare"])
+
+    def serving_mesh_phase():
+        for kind, counts in drive_serving_mesh(args, failures, card).items():
+            launches[f"serving mesh {kind}"].update(counts)
 
     def scripts_phase():
         for name, counts in drive_scripts(args, failures, card, main_stats).items():
@@ -3461,6 +3789,7 @@ def main() -> int:
         ("plain path int4", lambda: check_plain_path(args, failures, "int4")),
         ("plain path gqa", lambda: check_plain_path(args, failures, "gqa")),
         ("parallel", parallel_phase),
+        ("serving mesh", serving_mesh_phase),
         ("scripts", scripts_phase),
     )
     for name, phase in phases:

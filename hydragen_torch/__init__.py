@@ -6,8 +6,9 @@ the reference): exact shared-prefix attention decomposition with
 inter-sequence batching over multi-level prefix hierarchies, the Llama stack,
 int8 / w8a8 / int4 / w4a8 weights, an int8 or token-planar int4 KV cache and
 continuous batching over a ring-slot pool, and tensor, data and sequence
-parallelism over ``torch.distributed`` (``hydragen_torch.parallel``). The kernels live in ``csrc/`` and
-are built with ``nvcc`` at first use; importing this package builds nothing.
+parallelism over ``torch.distributed`` (``hydragen_torch.parallel``), the
+continuous batcher included. The kernels live in ``csrc/`` and are built
+with ``nvcc`` at first use; importing this package builds nothing.
 """
 
 from hydragen_torch.ops.combine import combine_lse

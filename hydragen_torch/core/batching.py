@@ -1,8 +1,8 @@
 """Continuous batching over a shared-prefix cache, in PyTorch.
 
-Port of ``hydragen_tpu.core.batching`` (one device). Requests arrive and
-finish at different times while all share the same prefix stack: admission
-prefills only each request's suffix, and the prefix KV is never touched.
+Port of ``hydragen_tpu.core.batching``. Requests arrive and finish at
+different times while all share the same prefix stack: admission prefills
+only each request's suffix, and the prefix KV is never touched.
 
 - **Ring-slot KV pool.** The unique cache's ``U`` positions are a ring
   addressed by one global cursor shared by every row: at global step ``g``
@@ -38,6 +38,25 @@ overwritten at step ``g`` (absolute ``g - U``) is in no active row's window.
 Under a ``kv_mask`` the unique read is the plain path, as in the JAX
 package (``hydragen_tpu/ops/hydragen.py:_attention``): no Pallas kernel
 computes it.
+
+**Under a mesh** (an engine with a ``parallel.Mesh``; the JAX batcher runs
+on a mesh engine through GSPMD) every rank is one process running the same
+batcher over the same submitted requests. The host side stays global and
+identical on every rank: the queue, the row table, the admission order,
+the tail shrink and the readback parse, so every rank makes the same
+decisions. The device side holds the rank's rows ``[i B/dp, (i+1) B/dp)``
+of the pool, the rows its unique cache holds (all of them without a dp
+split): the batch state, the ring scatter and the deactivations take the
+rank's own rows at local indices. An admission dispatch's members may span
+dp ranks: each rank prefills its own (a rank with none skips the forward,
+and its tp and sp group with it), and the members' last-token logits are
+gathered over dp in the dispatch's order and sampled on every rank, as the
+meshless batcher samples them. A chunk's tokens (and the fresh rows' first
+tokens) are gathered over dp before the parse. Sampling steps gather the
+logits over dp and draw for every row (``HydragenLlama._sample_rows``), so
+the generator state stays equal on every rank and to the meshless
+batcher's. Under NCCL each decode step is a captured graph holding its
+collectives; under gloo the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -57,6 +76,7 @@ from hydragen_torch.models.llama import (
     logits_from_hidden,
     model_forward,
 )
+from hydragen_torch.parallel import mesh as mesh_lib
 
 # Each batcher's graph key is its own: its graph reads its own buffers.
 _SERIAL = itertools.count()
@@ -98,8 +118,9 @@ class ChunkKey(NamedTuple):
 
 class ChunkStep:
     """A batcher's static buffers (the batch state, the chunk's token output
-    ``out [B, chunk]`` and its column counter ``i``) and, on the card, the
-    graph of one decode step over them (the engine's graph holder)."""
+    ``out [B, chunk]`` and its column counter ``i``; ``B`` the rank's rows
+    under a mesh) and, on the card, the graph of one decode step over them
+    (the engine's graph holder)."""
 
     def __init__(self, key: ChunkKey, U: int, chunk: int, device):
         i32 = dict(dtype=torch.int32, device=device)
@@ -163,7 +184,12 @@ class ContinuousBatcher:
     dispatches: admission prefills, chunks and decode steps. A batcher's
     decode-step graph lives in the engine's graph table as long as the
     engine's cache and parameters do. Sampling draws from the engine's
-    generator, seeded here."""
+    generator, seeded here.
+
+    Under a mesh every rank constructs the batcher, submits the same
+    requests and calls ``run``; each gets every request's tokens and equal
+    ``stats``. ``admit_forwards`` counts the admission dispatches this rank
+    prefilled (those with a member in its dp rows)."""
 
     def __init__(
         self,
@@ -180,15 +206,16 @@ class ContinuousBatcher:
         assert admit_policy in ("fifo", "lpt")
         assert lookahead >= 1
         assert engine.cache is not None, "call setup_caches first"
-        if engine.mesh is not None:
-            raise NotImplementedError("ContinuousBatcher over a mesh waits for a later slice "
-                                      "(ROADMAP.md)")
         assert engine.cache.unique_bits == 8, (
             "ContinuousBatcher needs kv_quant in (None, 'int8'): the ring "
             "pool's wrapped windows and per-row admissions would need "
             "sub-byte scatters under the int4 token-planar pack"
         )
-        B_pool = engine.cache.max_unique_batch_size
+        # The pool's global rows; dp rank i holds [i * nrows, (i + 1) * nrows).
+        dp, self._dpi = engine._dp()
+        B_pool = engine.cache.max_unique_batch_size * dp
+        self._dp = dp
+        self._row0, self._nrows = engine._dp_rows(B_pool)
         # sb > 1 levels: the pool's rows are grouped by position (row r
         # attends level i's prefix r // (B // sb_i)); requests target a group
         # of the FINEST level, and an admission dispatch reads one prefix row
@@ -220,9 +247,10 @@ class ContinuousBatcher:
         self.B = B_pool
         self.U = engine.cache.max_unique_seq_len
         self._key = ChunkKey(
-            engine._spec("decode", unique_history=True), B_pool, self.temperature, top_p,
-            self.eos, "inplace" if is_quantized_params(engine.params) else "uniform",
-            next(_SERIAL),
+            engine._spec("decode", unique_history=True,
+                         rows=(self._row0, B_pool) if dp > 1 else ()),
+            self._nrows, self.temperature, top_p, self.eos,
+            "inplace" if is_quantized_params(engine.params) else "uniform", next(_SERIAL),
         )
         self._chunk = ChunkStep(self._key, self.U, chunk, engine.device)
         self.state = self._chunk.state
@@ -234,12 +262,14 @@ class ContinuousBatcher:
         # token is read back with that chunk's tokens; admission never
         # syncs with the host.
         self._fresh_rows: List[int] = []
-        # Records of the dispatched chunks not yet parsed: (tokens, the fresh
-        # rows' first tokens, the fresh rows, row -> request at dispatch).
-        # They are parsed once MORE than ``lookahead`` chunks are in flight.
+        # Records of the dispatched chunks not yet parsed: (tokens, with the
+        # fresh rows' first tokens as a last column where there are fresh
+        # rows; the fresh rows; row -> request at dispatch). They are parsed
+        # once MORE than ``lookahead`` chunks are in flight.
         self.lookahead = lookahead
         self._pending: List[tuple] = []
         self.stats = {"admit_dispatches": 0, "admitted": 0, "chunks": 0, "decode_steps": 0}
+        self.admit_forwards = 0
 
     # -- submission ----------------------------------------------------------
 
@@ -273,6 +303,11 @@ class ContinuousBatcher:
     def _free_rows(self) -> List[int]:
         return [r for r, req in self._rows.items() if req is None]
 
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (this rank's rows first on dim 0),
+        gathered over dp in rank order: the pool's global rows."""
+        return mesh_lib.all_gather(x, self.engine.mesh, "dp", dim=0) if self._dp > 1 else x
+
     def _admit_batch(self, pairs: List) -> None:
         """Admit [(row, req), ...]: one dispatch a (prompt bucket, group).
         No host readback: first tokens are collected at the next chunk's
@@ -293,7 +328,47 @@ class ContinuousBatcher:
         rows' ring slots, sample their first tokens and write their rows'
         state, in place (``hydragen_tpu/core/batching.py:_admit_step``).
         ``level_rows``: the prefix row of each active level that every
-        member attends."""
+        member attends. Under dp this rank prefills the members in its rows
+        (none: no forward), and the first tokens are sampled on every rank
+        from every member's logits, gathered over dp in the members' order."""
+        eng = self.engine
+        ranks = [row // self._nrows for row, _ in members]  # each member's dp rank
+        here = [j for j, i in enumerate(ranks) if i == self._dpi]
+        written = None
+        if here:
+            own = [(members[j][0] - self._row0, members[j][1]) for j in here]
+            logits, written = self._admit_forward(own, tb, level_rows)
+        if self._dp > 1:
+            # Every rank's members' logits, padded to the largest count, then
+            # put in the members' order.
+            width = max(ranks.count(i) for i in range(self._dp))
+            pad = torch.zeros((width, eng.config.vocab_size), dtype=torch.float32,
+                              device=eng.device)
+            if here:
+                pad[: len(here)] = logits
+            order = [i * width + ranks[:j].count(i) for j, i in enumerate(ranks)]
+            logits = self._all_rows(pad).index_select(0, self._on_device(order, torch.long))
+        first = sample_from_logits(logits, eng._generator, self.temperature, self.top_p, 1)
+        self.stats["admit_dispatches"] += 1
+        self.stats["admitted"] += len(members)
+        if written is None:
+            return
+        self.admit_forwards += 1
+        if self._dp > 1:
+            first = first.index_select(0, self._on_device(here, torch.long))
+        rows, seq_lens, max_news, shared_len = written
+        st = self.state
+        st.cur_token.index_copy_(0, rows, first)
+        st.pos.index_copy_(0, rows, shared_len + seq_lens)
+        st.start.index_copy_(0, rows, st.cursor - seq_lens)
+        st.remaining.index_copy_(0, rows, max_news - 1)
+        st.active.index_copy_(0, rows, max_news > 1)
+
+    def _admit_forward(self, members: List, tb: int, level_rows: tuple):
+        """The prefill of ``members`` [(local row, request)] and their ring
+        scatter; returns their last-token logits ``[K, V]`` and what the
+        state writes need: (local rows, suffix lengths, budgets, the
+        prefix length)."""
         eng, cache = self.engine, self.engine.cache
         dev, U, K = eng.device, self.U, len(members)
         ids = np.zeros((K, tb), dtype=np.int32)
@@ -317,10 +392,10 @@ class ContinuousBatcher:
         if cache.quantized:
             hidden, (kq, ks), (vq, vs) = model_forward(
                 eng.params, eng.config, cache, input_ids, pos, local_pos, spec,
-                quantize_new_kv=8)
+                quantize_new_kv=8, mesh=eng.mesh)
         else:
             hidden, kq, vq = model_forward(
-                eng.params, eng.config, cache, input_ids, pos, local_pos, spec)
+                eng.params, eng.config, cache, input_ids, pos, local_pos, spec, mesh=eng.mesh)
             ks = vs = None
 
         # Right-aligned ring scatter: request i's token j < p_i lands in slot
@@ -328,10 +403,9 @@ class ContinuousBatcher:
         # (the JAX batcher sends the padding out of bounds and drops it).
         ki, ji = np.nonzero(np.arange(tb)[None, :] < lens[:, None])
         ki, ji = self._on_device(ki, torch.long), self._on_device(ji, torch.long)
-        cursor = self.state.cursor
-        slots = torch.remainder(cursor - seq_lens[ki] + ji, U).long()
+        slots = torch.remainder(self.state.cursor - seq_lens[ki] + ji, U).long()
         r = rows[ki]
-        hkv = kq.shape[2]
+        hkv = kq.shape[2]  # this rank's kv heads
         for buf, sbuf, q, s in ((cache.unique_k, cache.unique_k_scale, kq, ks),
                                 (cache.unique_v, cache.unique_v_scale, vq, vs)):
             if cache.unique_bshd:
@@ -353,17 +427,8 @@ class ContinuousBatcher:
                 if sbuf is not None:
                     sbuf[:, r, :, slots] = s[:, ki, :, ji]
 
-        logits = logits_from_hidden(eng.params, eng.config, hidden, seq_lens)
-        first = sample_from_logits(logits[:, -1], eng._generator, self.temperature,
-                                   self.top_p, 1)
-        st = self.state
-        st.cur_token.index_copy_(0, rows, first)
-        st.pos.index_copy_(0, rows, shared_len + seq_lens)
-        st.start.index_copy_(0, rows, cursor - seq_lens)
-        st.remaining.index_copy_(0, rows, max_news - 1)
-        st.active.index_copy_(0, rows, max_news > 1)
-        self.stats["admit_dispatches"] += 1
-        self.stats["admitted"] += K
+        logits = logits_from_hidden(eng.params, eng.config, hidden, seq_lens, mesh=eng.mesh)
+        return logits[:, -1], (rows, seq_lens, max_news, shared_len)
 
     def _on_device(self, x, dtype) -> torch.Tensor:
         """Host values on the engine's device; to a card through pinned
@@ -374,28 +439,28 @@ class ContinuousBatcher:
         return t.pin_memory().to(self.engine.device, non_blocking=True)
 
     def _step_body(self) -> None:
-        """One decode step over the static buffers, every row at slot
-        ``cursor % U`` (``hydragen_tpu/core/batching.py:_decode_chunk``'s
-        scan body): no host value, no host sync."""
+        """One decode step over the static buffers (this rank's rows), every
+        row at slot ``cursor % U`` (``hydragen_tpu/core/batching.py:
+        _decode_chunk``'s scan body): no host value, no host sync."""
         eng, key, st = self.engine, self._key, self.state
-        U, cache = self.U, eng.cache
+        U, cache, mesh = self.U, eng.cache, eng.mesh
         mask = ring_mask(st.start, st.cursor, U)
         slot = torch.remainder(st.cursor, U)
         upos = slot.expand(st.pos.shape)
         if key.write == "inplace":
             hidden, _ = model_forward(
                 eng.params, eng.config, cache, st.cur_token, st.pos[:, None], upos[:, None],
-                key.spec, history_mask=mask, inplace_slot=slot,
+                key.spec, history_mask=mask, inplace_slot=slot, mesh=mesh,
             )
         else:
             hidden, nk, nv = model_forward(
                 eng.params, eng.config, cache, st.cur_token, st.pos[:, None], upos[:, None],
-                key.spec, history_mask=mask,
+                key.spec, history_mask=mask, mesh=mesh,
             )
             update_unique_decode(cache, upos, nk, nv, uniform=slot,
                                  plain=key.spec.impl == "torch")
-        logits = logits_from_hidden(eng.params, eng.config, hidden)[:, 0]
-        nxt = sample_from_logits(logits, eng._generator, key.temperature, key.top_p, 1)[:, 0]
+        logits = logits_from_hidden(eng.params, eng.config, hidden, mesh=mesh)[:, 0]
+        nxt = eng._sample_rows(logits, key.spec, key.temperature, key.top_p)[:, 0]
         active = st.active
         emitted = torch.where(active, nxt, -1)
         new_active = active & (st.remaining > 1)
@@ -421,16 +486,21 @@ class ContinuousBatcher:
         return self.engine._graph_state(self._key, self._chunk.reset_graph)
 
     @torch.no_grad()
-    def _decode_chunk(self, steps: int) -> torch.Tensor:
+    def _decode_chunk(self, steps: int, firsts: bool = False) -> torch.Tensor:
         """Enqueue ``steps`` decode steps (graph replays, or the eager body);
-        returns a device copy of their ``[B, steps]`` tokens (-1 where a row
-        was inactive), enqueued before the next chunk's replays."""
+        returns a device copy of the pool's ``[B, steps]`` tokens (-1 where a
+        row was inactive), enqueued before the next chunk's replays, with
+        ``firsts`` each row's input token before the chunk (a fresh row's
+        first token) as one more column. Under dp the rows are gathered."""
         ch = self._graph_holder()
+        before = self.state.cur_token.clone() if firsts else None
         ch.i.zero_()
         self.engine._decode_steps(ch, steps, body=self._step_body)
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += steps
-        return ch.out[:, :steps].clone()
+        toks = ch.out[:, :steps]
+        toks = toks.clone() if before is None else torch.cat([toks, before], dim=1)
+        return self._all_rows(toks)
 
     def _retire(self, row: int) -> None:
         req = self._rows[row]
@@ -441,20 +511,20 @@ class ContinuousBatcher:
 
     def _deactivate(self, rows: List[int]) -> None:
         """Rows the device must stop decoding from the next chunk on, in
-        place (enqueued after the chunks already dispatched)."""
-        self.state.active.index_fill_(0, self._on_device(rows, torch.long), False)
+        place (enqueued after the chunks already dispatched); this rank's
+        own among them."""
+        local = [r - self._row0 for r in rows if r // self._nrows == self._dpi]
+        if local:
+            self.state.active.index_fill_(0, self._on_device(local, torch.long), False)
 
     # -- main loop -------------------------------------------------------------
 
-    def _collect_fresh(self, firsts_dev, fresh_rows, snapshot) -> List[int]:
-        """The newly admitted rows' first tokens (one readback for all);
-        returns the rows that finished on their first token (eos, budget 1
-        or a stop). ``snapshot`` maps row -> request as of the chunk's
-        dispatch."""
-        if not fresh_rows:
-            return []
+    def _collect_fresh(self, firsts, fresh_rows, snapshot) -> List[int]:
+        """The newly admitted rows' first tokens; returns the rows that
+        finished on their first token (eos, budget 1 or a stop).
+        ``snapshot`` maps row -> request as of the chunk's dispatch."""
         finished = []
-        for row, tok in zip(fresh_rows, firsts_dev.cpu().tolist()):
+        for row, tok in zip(fresh_rows, firsts):
             req = snapshot[row]
             req.tokens.append(int(tok))
             if ((self.eos >= 0 and tok == self.eos) or req.max_new_tokens <= 1
@@ -462,12 +532,17 @@ class ContinuousBatcher:
                 finished.append(row)
         return finished
 
-    def _process_readback(self, toks_dev, firsts_dev, fresh_rows, snapshot):
+    def _process_readback(self, toks_dev, fresh_rows, snapshot):
         """Parse one dispatched chunk's results (the host waits for the
-        device only here). ``snapshot`` maps row -> request AS OF that
-        chunk's dispatch: a row retired and re-admitted since must not leak
-        this chunk's tokens into the new request."""
-        first_finished = self._collect_fresh(firsts_dev, fresh_rows, snapshot)
+        device only here: one readback). ``snapshot`` maps row -> request AS
+        OF that chunk's dispatch: a row retired and re-admitted since must
+        not leak this chunk's tokens into the new request."""
+        toks = toks_dev.cpu().numpy()
+        if fresh_rows:
+            firsts, toks = toks[fresh_rows, -1].tolist(), toks[:, :-1]
+            first_finished = self._collect_fresh(firsts, fresh_rows, snapshot)
+        else:
+            first_finished = []
         if first_finished:
             # The rows stay active for the chunks already dispatched (their
             # garbage is masked by req.done below, their windows are their
@@ -475,7 +550,6 @@ class ContinuousBatcher:
             self._deactivate(first_finished)
             for row in first_finished:
                 self._retire(row)
-        toks = toks_dev.cpu().numpy()
         stopped_rows = []
         for row, req in snapshot.items():
             if req is None or req.done:
@@ -543,13 +617,10 @@ class ContinuousBatcher:
                 steps //= 2
 
         fresh, self._fresh_rows = self._fresh_rows, []
-        # The fresh rows' first tokens, copied before this chunk overwrites
-        # cur_token.
-        firsts = None
-        if fresh:
-            firsts = self.state.cur_token[self._on_device(fresh, torch.long), 0]
-        toks = self._decode_chunk(steps)
-        self._pending.append((toks, firsts, fresh, dict(self._rows)))
+        # The fresh rows' first tokens come back with the chunk's tokens,
+        # copied before this chunk overwrites cur_token.
+        toks = self._decode_chunk(steps, firsts=bool(fresh))
+        self._pending.append((toks, fresh, dict(self._rows)))
         self._drain_pending(to_depth=self.lookahead)
 
         def live():

@@ -645,21 +645,27 @@ class HydragenLlama:
                                  uniform=upos[0] if key.write == "uniform" else None,
                                  plain=spec.impl == "torch")
         logits = logits_from_hidden(self.params, self.config, hidden, mesh=self.mesh)[:, 0]
-        if key.temperature > 0 and spec.rows:
-            # A draw per row of the whole batch from one generator state, as
-            # without a mesh: every dp rank samples all rows and keeps its own.
-            r0, b = spec.rows[0], logits.shape[0]
-            logits_all = mesh_lib.all_gather(logits, self.mesh, "dp", dim=0)
-            nxt = sample_from_logits(logits_all, self._generator, key.temperature, key.top_p,
-                                     1)[r0:r0 + b]
-        else:
-            nxt = sample_from_logits(logits, self._generator, key.temperature, key.top_p, 1)
+        nxt = self._sample_rows(logits, spec, key.temperature, key.top_p)
         col = st.i.long().reshape(1)
         st.out.index_copy_(1, col, nxt)
         if st.logits is not None:
             st.logits.copy_(logits)
         st.tok.copy_(nxt if st.overrides is None else st.overrides.index_select(0, col).T)
         st.i.add_(1)
+
+    def _sample_rows(self, logits: torch.Tensor, spec: ForwardSpec, temperature: float,
+                     top_p: Optional[float]) -> torch.Tensor:
+        """``[b, 1]`` tokens of this rank's rows from their ``logits [b, V]``.
+        Where a dp split samples (``spec.rows``, temperature above 0), every
+        rank draws for every row of the batch from the one generator state,
+        the logits gathered over dp, and keeps its own rows: the draws of the
+        meshless engine."""
+        if temperature > 0 and spec.rows:
+            r0, b = spec.rows[0], logits.shape[0]
+            logits = mesh_lib.all_gather(logits, self.mesh, "dp", dim=0)
+            return sample_from_logits(logits, self._generator, temperature, top_p,
+                                      1)[r0:r0 + b]
+        return sample_from_logits(logits, self._generator, temperature, top_p, 1)
 
     def _capture(self, st, body) -> None:
         """Capture ``body()``, ``st``'s step, into a CUDA graph (its first

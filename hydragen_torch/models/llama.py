@@ -324,7 +324,7 @@ def model_forward(
 
     if mesh is not None:  # this rank's rows against each level's prefixes
         row0, total = spec.rows or (0, b)
-        segments = [fold_segments(row0, b, total, sb) for sb in level_sb]
+        segments = [fold_segments(row0, b, total, sb, r) for sb, r in zip(level_sb, level_row)]
 
     use_dec_kernel = (
         t == 1

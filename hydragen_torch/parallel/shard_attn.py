@@ -60,10 +60,11 @@ def sp_lse_merge(o: torch.Tensor, l: torch.Tensor, mesh: Mesh):
     return out, lse
 
 
-def fold_segments(row0: int, rows: int, total: int, sb: int) -> list:
+def fold_segments(row0: int, rows: int, total: int, sb: int, first: int = 0) -> list:
     """Rows ``[row0, row0 + rows)`` of a ``total``-row batch over ``sb``
-    prefixes (row ``i`` reads prefix ``i // (total // sb)``) as runs that
-    each fold cleanly: ``[(first prefix, prefixes, rows), ...]``."""
+    prefixes (row ``i`` reads prefix ``first + i // (total // sb)``; ``first``
+    is the level's first prefix row read, ``ForwardSpec.level_row``) as runs
+    that each fold cleanly: ``[(first prefix, prefixes, rows), ...]``."""
     assert total % sb == 0, (total, sb)
     sps = total // sb
     segs, r, end = [], row0, row0 + rows
@@ -71,11 +72,11 @@ def fold_segments(row0: int, rows: int, total: int, sb: int) -> list:
         p = r // sps
         if r % sps == 0 and end - r >= sps:
             k = (end - r) // sps
-            segs.append((p, k, k * sps))
+            segs.append((first + p, k, k * sps))
             r += k * sps
         else:
             n = min((p + 1) * sps, end) - r
-            segs.append((p, 1, n))
+            segs.append((first + p, 1, n))
             r += n
     return segs
 
