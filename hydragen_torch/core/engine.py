@@ -69,6 +69,7 @@ from hydragen_torch.parallel.sharding import (
     shard_params,
     shard_plan,
 )
+from hydragen_torch.utils.profiling import span
 
 
 class SharedCacheOp:
@@ -249,6 +250,10 @@ class HydragenLlama:
         self.config = config
         self.mesh = None
         self.load_stats: dict = {}  # from_pretrained's load seconds and host bytes
+        # Tokens each prefill was given (rows x width) and computed (rows x the
+        # width after bucket padding; this rank's rows under dp), summed.
+        self.stats = dict.fromkeys(
+            ("shared_tokens", "shared_tokens_run", "unique_tokens", "unique_tokens_run"), 0)
         if mesh is not None and not rank_params:
             params = shard_params(params, config, mesh, self.device)
         self.params = _params_to(params, self.device)
@@ -489,46 +494,49 @@ class HydragenLlama:
     @torch.no_grad()
     def append_shared(self, input_ids, seq_lens=None, full_logits: bool = False):
         """Prefill a new shared level; returns its last-token logits."""
-        assert self.cache is not None, "call setup_caches first"
-        assert self.num_used_levels < len(self.cache.shared), "no free shared level"
-        input_ids = self._ids(input_ids)
-        level = self.cache.shared[self.num_used_levels]
-        b, t = input_ids.shape
-        assert b <= level.max_batch_size, (
-            f"level {self.num_used_levels} allocated for {level.max_batch_size} "
-            f"prefixes, got {b}")
-        assert t <= level.global_seq_len, (
-            f"level {self.num_used_levels} holds {level.global_seq_len} tokens, got {t}")
-        if seq_lens is not None:
-            seq_lens = self._ids(seq_lens)
-        input_ids, seq_lens, padded = _pad_to_bucket(
-            input_ids, seq_lens, self.prefill_bucket, level.global_seq_len)
-        has_pad = seq_lens is not None
-        orig_t, t = t, int(input_ids.shape[1])
-        spec = self._spec("shared_prefill", unique_history=False)
-        shared_lens = shared_len_for_batch(self.cache, spec.num_used_levels, b,
-                                           spec.level_batch or None)
-        ar = torch.arange(t, device=self.device, dtype=torch.int32)[None, :]
-        if has_pad:
-            local_pos = torch.minimum(ar, seq_lens[:, None] - 1)
-        else:
-            seq_lens = torch.full((b,), t, dtype=torch.int32, device=self.device)
-            local_pos = ar.expand(b, t)
-        pos = shared_lens[:, None] + local_pos
-        # The layer loop writes each layer's KV straight into the level.
-        hidden, self.cache = model_forward(
-            self.params, self.config, self.cache, input_ids, pos, local_pos, spec,
-            fill_level=self.num_used_levels, mesh=self.mesh,
-        )
-        set_shared_level_buffers(self.cache, self.num_used_levels, seq_lens)
-        logits = logits_from_hidden(self.params, self.config, hidden,
-                                    seq_lens if has_pad else None, full_logits, mesh=self.mesh)
-        self.num_used_levels += 1
-        self.level_filled.append(t)
-        self.level_batch.append(b)
-        if full_logits and padded:
-            logits = logits[:, :orig_t]
-        return logits
+        with span("shared_prefill"):
+            assert self.cache is not None, "call setup_caches first"
+            assert self.num_used_levels < len(self.cache.shared), "no free shared level"
+            input_ids = self._ids(input_ids)
+            level = self.cache.shared[self.num_used_levels]
+            b, t = input_ids.shape
+            assert b <= level.max_batch_size, (
+                f"level {self.num_used_levels} allocated for {level.max_batch_size} "
+                f"prefixes, got {b}")
+            assert t <= level.global_seq_len, (
+                f"level {self.num_used_levels} holds {level.global_seq_len} tokens, got {t}")
+            if seq_lens is not None:
+                seq_lens = self._ids(seq_lens)
+            input_ids, seq_lens, padded = _pad_to_bucket(
+                input_ids, seq_lens, self.prefill_bucket, level.global_seq_len)
+            has_pad = seq_lens is not None
+            orig_t, t = t, int(input_ids.shape[1])
+            self.stats["shared_tokens"] += b * orig_t
+            self.stats["shared_tokens_run"] += b * t
+            spec = self._spec("shared_prefill", unique_history=False)
+            shared_lens = shared_len_for_batch(self.cache, spec.num_used_levels, b,
+                                               spec.level_batch or None)
+            ar = torch.arange(t, device=self.device, dtype=torch.int32)[None, :]
+            if has_pad:
+                local_pos = torch.minimum(ar, seq_lens[:, None] - 1)
+            else:
+                seq_lens = torch.full((b,), t, dtype=torch.int32, device=self.device)
+                local_pos = ar.expand(b, t)
+            pos = shared_lens[:, None] + local_pos
+            # The layer loop writes each layer's KV straight into the level.
+            hidden, self.cache = model_forward(
+                self.params, self.config, self.cache, input_ids, pos, local_pos, spec,
+                fill_level=self.num_used_levels, mesh=self.mesh,
+            )
+            set_shared_level_buffers(self.cache, self.num_used_levels, seq_lens)
+            logits = logits_from_hidden(self.params, self.config, hidden,
+                                        seq_lens if has_pad else None, full_logits, mesh=self.mesh)
+            self.num_used_levels += 1
+            self.level_filled.append(t)
+            self.level_batch.append(b)
+            if full_logits and padded:
+                logits = logits[:, :orig_t]
+            return logits
 
     @torch.no_grad()
     def process_unique(self, input_ids, seq_lens=None):
@@ -539,31 +547,40 @@ class HydragenLlama:
         return self._prefill_unique(self._ids(input_ids),
                                     None if seq_lens is None else self._ids(seq_lens), 1)
 
-    def _prefill_unique(self, input_ids, seq_lens, samples: int):
+    def _prefill_unique(self, input_ids, seq_lens, samples: int, width: Optional[int] = None):
         """Prefill the suffixes ``input_ids`` into unique rows ``[0, b *
         samples)`` of the global batch, suffix ``i`` into rows ``[i * samples,
         (i + 1) * samples)``; returns the suffixes' last-token logits ``[b,
         1, V]``. Under dp this rank prefills the suffixes its rows read,
-        places its rows, and gathers every row's logits over dp."""
-        b = int(input_ids.shape[0])
-        dp, _ = self._dp()
-        if dp == 1:
-            # Not expand_unique_rows: this copy's transient is one layer's
-            # source rows, not one layer's repeated rows.
-            logits = self._unique_forward(input_ids, seq_lens)
-            if samples > 1:
-                repeat_unique_for_samples(self.cache, b, samples)
-            return logits
-        r0, n = self._dp_rows(b * samples)
-        s0, s1 = r0 // samples, -(-(r0 + n) // samples)
-        logits = self._unique_forward(input_ids[s0:s1],
-                                      None if seq_lens is None else seq_lens[s0:s1],
-                                      rows=(s0, b))
-        index = (r0 + torch.arange(n, device=self.device)) // samples - s0
-        if samples > 1 or s1 - s0 != n:
-            expand_unique_rows(self.cache, s1 - s0, index)
-        rows = mesh_lib.all_gather(logits.index_select(0, index), self.mesh, "dp", dim=0)
-        return rows[::samples]
+        places its rows, and gathers every row's logits over dp. ``width``:
+        the suffixes' width as given, before bucket padding (default the
+        width of ``input_ids``)."""
+        with span("unique_prefill"):
+            b, t = input_ids.shape
+            dp, _ = self._dp()
+            if dp == 1:
+                self._count_unique(b, width or t, t)
+                # Not expand_unique_rows: this copy's transient is one layer's
+                # source rows, not one layer's repeated rows.
+                logits = self._unique_forward(input_ids, seq_lens)
+                if samples > 1:
+                    repeat_unique_for_samples(self.cache, b, samples)
+                return logits
+            r0, n = self._dp_rows(b * samples)
+            s0, s1 = r0 // samples, -(-(r0 + n) // samples)
+            self._count_unique(s1 - s0, width or t, t)
+            logits = self._unique_forward(input_ids[s0:s1],
+                                          None if seq_lens is None else seq_lens[s0:s1],
+                                          rows=(s0, b))
+            index = (r0 + torch.arange(n, device=self.device)) // samples - s0
+            if samples > 1 or s1 - s0 != n:
+                expand_unique_rows(self.cache, s1 - s0, index)
+            rows = mesh_lib.all_gather(logits.index_select(0, index), self.mesh, "dp", dim=0)
+            return rows[::samples]
+
+    def _count_unique(self, rows: int, given: int, run: int) -> None:
+        self.stats["unique_tokens"] += rows * given
+        self.stats["unique_tokens_run"] += rows * run
 
     def _unique_forward(self, input_ids, seq_lens, rows=()):
         """The unique prefill of ``input_ids`` (this rank's suffixes, rows
@@ -591,8 +608,9 @@ class HydragenLlama:
         )
         # All rows share one prefix length (generate allows one prefix), so
         # the suffixes are one block after the copied prefix.
-        update_unique_prefill(self.cache, nk, nv,
-                              start=int(shared_lens[0]) if nohydra and b else 0)
+        with span("kv_write"):
+            update_unique_prefill(self.cache, nk, nv,
+                                  start=int(shared_lens[0]) if nohydra and b else 0)
         return logits_from_hidden(self.params, self.config, hidden,
                                   seq_lens if has_pad else None, mesh=self.mesh)
 
@@ -641,9 +659,10 @@ class HydragenLlama:
                 self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
                 spec, history_lens=upos, mesh=self.mesh,
             )
-            update_unique_decode(self.cache, upos, nk, nv,
-                                 uniform=upos[0] if key.write == "uniform" else None,
-                                 plain=spec.impl == "torch")
+            with span("kv_write"):
+                update_unique_decode(self.cache, upos, nk, nv,
+                                     uniform=upos[0] if key.write == "uniform" else None,
+                                     plain=spec.impl == "torch")
         logits = logits_from_hidden(self.params, self.config, hidden, mesh=self.mesh)[:, 0]
         nxt = self._sample_rows(logits, spec, key.temperature, key.top_p)
         col = st.i.long().reshape(1)
@@ -685,7 +704,7 @@ class HydragenLlama:
         # lets it (the default, "global", would invalidate the capture).
         mode = "global" if self.mesh is None else "thread_local"
         try:
-            with cuda_lib.captured_launches(launches), \
+            with span("capture"), cuda_lib.captured_launches(launches), \
                     mesh_lib.captured_collectives(collectives), torch.cuda.graph(
                         graph, pool=self._graph_pool, stream=self._graph_stream,
                         capture_error_mode=mode):
@@ -705,25 +724,26 @@ class HydragenLlama:
             body = lambda: self._step_body(st)  # noqa: E731
         logits = []
         for _ in range(steps):
-            if not self._use_graphs:
-                body()
-            elif st.graph is None and not st.warm:
-                if self._graph_stream is None:
-                    self._graph_stream = torch.cuda.Stream(self.device)
-                side = self._graph_stream
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
+            with span("decode_step"):
+                if not self._use_graphs:
                     body()
-                torch.cuda.current_stream(self.device).wait_stream(side)
-                st.warm = True
-            else:
-                if st.graph is None:
-                    self._capture(st, body)
-                st.graph.replay()
-                cuda_lib.add_launches(st.launches)
-                mesh_lib.add_collectives(st.collectives)
-            if st.logits is not None:
-                logits.append(st.logits.clone())
+                elif st.graph is None and not st.warm:
+                    if self._graph_stream is None:
+                        self._graph_stream = torch.cuda.Stream(self.device)
+                    side = self._graph_stream
+                    side.wait_stream(torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(side):
+                        body()
+                    torch.cuda.current_stream(self.device).wait_stream(side)
+                    st.warm = True
+                else:
+                    if st.graph is None:
+                        self._capture(st, body)
+                    st.graph.replay()
+                    cuda_lib.add_launches(st.launches)
+                    mesh_lib.add_collectives(st.collectives)
+                if st.logits is not None:
+                    logits.append(st.logits.clone())
         return logits
 
     @torch.no_grad()
@@ -770,207 +790,214 @@ class HydragenLlama:
         whole batch back; under dp it decodes its share of the rows (the
         batch must divide over dp). ``disable_hydragen`` copies the level
         into the rank's rows and kv heads, its sp slices gathered first."""
-        assert self.cache is not None, "call setup_caches first"
-        assert (input_ids is None) or (starting_logits is None)
-        assert not (input_ids is None and starting_logits is None)
-        if temperature < 0:
-            raise ValueError(f"temperature must be non-negative, got {temperature}")
-        stop_sequences = tuple(
-            tuple(int(t) for t in s) for s in stop_sequences
-        ) if stop_sequences is not None else ()
-        if input_ids is None:
-            input_ids = []
-        if isinstance(input_ids, (np.ndarray, torch.Tensor)):
-            input_ids = [input_ids]
-        input_ids = [self._ids(x) for x in input_ids]
-        if disable_attention:
-            self._disable_attention = True
-        if shared_cache_op == SharedCacheOp.WIPE:
-            self.empty_shared_cache()
-        og_levels = self.num_used_levels
-        total_levels = og_levels + len(input_ids) + (1 if num_return_sequences > 1 else 0)
-        if disable_hydragen:
-            assert total_levels == 2, "disable_hydragen supports exactly 2 levels"
-            if input_ids and (num_return_sequences > 1 or len(input_ids) == 2):
-                assert input_ids[0].shape[0] == 1
-        if disable_hierarchy:
-            assert total_levels == 3 and num_return_sequences > 1, (
-                "disable_hierarchy needs exactly 3 levels and num_return_sequences > 1")
+        with span("generate"):
+            assert self.cache is not None, "call setup_caches first"
+            assert (input_ids is None) or (starting_logits is None)
+            assert not (input_ids is None and starting_logits is None)
+            if temperature < 0:
+                raise ValueError(f"temperature must be non-negative, got {temperature}")
+            stop_sequences = tuple(
+                tuple(int(t) for t in s) for s in stop_sequences
+            ) if stop_sequences is not None else ()
+            if input_ids is None:
+                input_ids = []
+            if isinstance(input_ids, (np.ndarray, torch.Tensor)):
+                input_ids = [input_ids]
+            input_ids = [self._ids(x) for x in input_ids]
+            if disable_attention:
+                self._disable_attention = True
+            if shared_cache_op == SharedCacheOp.WIPE:
+                self.empty_shared_cache()
+            og_levels = self.num_used_levels
+            total_levels = og_levels + len(input_ids) + (1 if num_return_sequences > 1 else 0)
+            if disable_hydragen:
+                assert total_levels == 2, "disable_hydragen supports exactly 2 levels"
+                if input_ids and (num_return_sequences > 1 or len(input_ids) == 2):
+                    assert input_ids[0].shape[0] == 1
+            if disable_hierarchy:
+                assert total_levels == 3 and num_return_sequences > 1, (
+                    "disable_hierarchy needs exactly 3 levels and num_return_sequences > 1")
 
-        if seq_lens is None:
-            seq_lens = [None] * len(input_ids)
-        elif isinstance(seq_lens, (np.ndarray, torch.Tensor)):
-            seq_lens = [seq_lens]
-        if input_ids:
-            total_batch = int(input_ids[-1].shape[0]) * num_return_sequences
-        else:
-            total_batch = int(starting_logits.shape[0]) * num_return_sequences
-        # This rank's rows of the batch (all of them without a dp split).
-        r0, b_loc = self._dp_rows(total_batch)
-        rows = slice(r0, r0 + b_loc)
-
-        if num_return_sequences > 1 and not (disable_hierarchy or disable_hydragen):
-            shared_ids, shared_lens_in = input_ids, seq_lens
-            suffix_ids, suffix_lens = None, None
-        elif input_ids:
-            shared_ids, shared_lens_in = input_ids[:-1], seq_lens[:-1]
-            suffix_ids, suffix_lens = input_ids[-1], seq_lens[-1]
-        else:
-            shared_ids, shared_lens_in, suffix_ids, suffix_lens = [], [], None, None
-
-        if starting_logits is not None:
-            starting_logits = torch.as_tensor(starting_logits).to(self.device)[:, None, :]
-        for sid, slen in zip(shared_ids, shared_lens_in):
-            starting_logits = self.append_shared(sid, slen)
-
-        if disable_hydragen:
-            if self.cache.unique_bits == 4:
-                raise ValueError(
-                    "disable_hydragen is unsupported with kv_quant='int4': the copied "
-                    "prefix would need nibble packs at an offset (run the baseline with "
-                    "kv_quant='int8')")
-            self._disable_hydragen = True
-            if self.num_used_levels > 0:
-                level = self.cache.shared[0]
-                if self.mesh is not None:
-                    level = gather_level(level, self.mesh)
-                copy_shared_to_unique(self.cache, total_batch, self.level_batch[0],
-                                      rows=(r0, b_loc), level=level)
-
-        suffix_lens_np = None if suffix_lens is None else np.asarray(
-            suffix_lens.cpu() if torch.is_tensor(suffix_lens) else suffix_lens)
-        suffix_uniform = suffix_lens_np is None or bool(
-            np.all(suffix_lens_np == suffix_lens_np.flat[0]))
-        if suffix_ids is not None:
-            # No bucketing under no sharing: the suffix block lands after the
-            # copied prefix, and a padded width could overflow the row.
-            suffix_ids, suffix_lens, _ = _pad_to_bucket(
-                suffix_ids, None if suffix_lens is None else self._ids(suffix_lens),
-                0 if disable_hydragen else self.prefill_bucket,
-                self.cache.max_unique_seq_len,
-            )
-            starting_logits = self._prefill_unique(suffix_ids, suffix_lens,
-                                                   num_return_sequences)
-
-        self._generator.manual_seed(seed)
-        prefill_logits = starting_logits[:, -1]
-        first_token = sample_from_logits(
-            prefill_logits, self._generator, temperature, top_p, num_return_sequences
-        ).reshape(-1, 1)
-        logits_out = None
-        if return_logits:
-            logits_out = [prefill_logits.repeat_interleave(num_return_sequences, dim=0)]
-
-        start_pos = self.get_shared_cache_len(total_batch)[rows]
-        # Every row decodes at one unique slot (a step writes it once, the
-        # JAX engine's uniform_pos) unless the suffixes are ragged.
-        uniform = suffix_uniform
-        if suffix_ids is not None:
-            if suffix_lens is not None:
-                sl = suffix_lens.to(self.device, torch.int32)
+            if seq_lens is None:
+                seq_lens = [None] * len(input_ids)
+            elif isinstance(seq_lens, (np.ndarray, torch.Tensor)):
+                seq_lens = [seq_lens]
+            if input_ids:
+                total_batch = int(input_ids[-1].shape[0]) * num_return_sequences
             else:
-                sl = torch.full((suffix_ids.shape[0],), int(suffix_ids.shape[1]),
-                                dtype=torch.int32, device=self.device)
-            sl = sl.repeat_interleave(num_return_sequences)[rows]
-            start_pos = start_pos + sl
-            start_unique_pos = sl
-        else:
-            start_unique_pos = torch.zeros((b_loc,), dtype=torch.int32, device=self.device)
-        if disable_hydragen:
-            # Unique positions are global; the slot is uniform when every
-            # row's history has one length (checked on the host, once).
-            start_unique_pos = start_pos.to(torch.int32)
-            sp = start_unique_pos.cpu()
-            uniform = bool(len(sp) and suffix_uniform and bool((sp == sp[0]).all()))
+                total_batch = int(starting_logits.shape[0]) * num_return_sequences
+            # This rank's rows of the batch (all of them without a dp split).
+            r0, b_loc = self._dp_rows(total_batch)
+            rows = slice(r0, r0 + b_loc)
 
-        use_overrides = token_overrides is not None
-        if use_overrides:
-            token_overrides = self._ids(token_overrides)[rows]
-        first_token = first_token[rows]
-        dp, _ = self._dp()
+            if num_return_sequences > 1 and not (disable_hierarchy or disable_hydragen):
+                shared_ids, shared_lens_in = input_ids, seq_lens
+                suffix_ids, suffix_lens = None, None
+            elif input_ids:
+                shared_ids, shared_lens_in = input_ids[:-1], seq_lens[:-1]
+                suffix_ids, suffix_lens = input_ids[-1], seq_lens[-1]
+            else:
+                shared_ids, shared_lens_in, suffix_ids, suffix_lens = [], [], None, None
 
-        steps = max_new_tokens - 1
-        tokens = first_token
-        if steps > 0:
-            # Every step's slot is checked here, once: the steps compute
-            # theirs on the device.
-            top = int(start_unique_pos.max()) + steps
-            if top > self.cache.max_unique_seq_len:
-                raise ValueError(
-                    f"{steps} decode steps reach unique position {top}, past the unique "
-                    f"cache's {self.cache.max_unique_seq_len} (setup_caches)")
-            spec = self._spec("decode", unique_history=True,
-                              rows=(r0, total_batch) if dp > 1 else ())
-            # No sharing writes through the batched update, as the JAX engine does.
-            if not uniform:
-                write = "rows"
-            elif is_quantized_params(self.params) and not spec.disable_hydragen:
-                write = "inplace"
-            else:
-                write = "uniform"
-            st = self._decode_state(DecodeKey(
-                spec, b_loc, float(temperature), top_p, use_overrides, return_logits, write))
-            st.tok.copy_(token_overrides[:, 0:1] if use_overrides else first_token)
-            st.start_pos.copy_(start_pos)
-            st.start_upos.copy_(start_unique_pos)
-            st.i.zero_()
-            if use_overrides:
-                st.overrides[:steps].copy_(token_overrides[:, 1:max_new_tokens].T)
-            # With stops active, decode in chunks with a host check between,
-            # so a batch that finishes early skips the rest of the budget.
-            stops_active = (eos_token_id is not None or stop_sequences) and not use_overrides
-            chunk = self.eos_chunk if stops_active else 0
-            if not chunk or chunk >= steps:
-                plan = [steps]
-            else:
-                plan = [chunk] * (steps // chunk) + ([steps % chunk] if steps % chunk else [])
-            tok_chunks = [first_token]
-            done = 0
-            fin_rows = None
-            max_l = max((len(s) for s in stop_sequences), default=1)
-            tail = first_token.cpu().numpy()
-            for c in plan:
-                step_logits = self._decode_steps(st, c)
-                toks = st.out[:, done:done + c].clone()
-                done += c
-                tok_chunks.append(toks)
+            if starting_logits is not None:
+                starting_logits = torch.as_tensor(starting_logits).to(self.device)[:, None, :]
+            for sid, slen in zip(shared_ids, shared_lens_in):
+                starting_logits = self.append_shared(sid, slen)
+
+            if disable_hydragen:
+                if self.cache.unique_bits == 4:
+                    raise ValueError(
+                        "disable_hydragen is unsupported with kv_quant='int4': the copied "
+                        "prefix would need nibble packs at an offset (run the baseline with "
+                        "kv_quant='int8')")
+                self._disable_hydragen = True
+                if self.num_used_levels > 0:
+                    level = self.cache.shared[0]
+                    if self.mesh is not None:
+                        level = gather_level(level, self.mesh)
+                    copy_shared_to_unique(self.cache, total_batch, self.level_batch[0],
+                                          rows=(r0, b_loc), level=level)
+
+            suffix_lens_np = None if suffix_lens is None else np.asarray(
+                suffix_lens.cpu() if torch.is_tensor(suffix_lens) else suffix_lens)
+            suffix_uniform = suffix_lens_np is None or bool(
+                np.all(suffix_lens_np == suffix_lens_np.flat[0]))
+            if suffix_ids is not None:
+                # No bucketing under no sharing: the suffix block lands after the
+                # copied prefix, and a padded width could overflow the row.
+                width = int(suffix_ids.shape[1])
+                suffix_ids, suffix_lens, _ = _pad_to_bucket(
+                    suffix_ids, None if suffix_lens is None else self._ids(suffix_lens),
+                    0 if disable_hydragen else self.prefill_bucket,
+                    self.cache.max_unique_seq_len,
+                )
+                starting_logits = self._prefill_unique(suffix_ids, suffix_lens,
+                                                       num_return_sequences, width)
+
+            with span("first_token"):
+                self._generator.manual_seed(seed)
+                prefill_logits = starting_logits[:, -1]
+                first_token = sample_from_logits(
+                    prefill_logits, self._generator, temperature, top_p, num_return_sequences
+                ).reshape(-1, 1)
+                logits_out = None
                 if return_logits:
-                    logits_out.extend(step_logits)
-                if stops_active and len(plan) > 1:
-                    window = np.concatenate([tail, toks.cpu().numpy()], axis=1)
-                    hit = _finished_mask(window, eos_token_id, stop_sequences)[:, -1]
-                    fin_rows = hit if fin_rows is None else (fin_rows | hit)
-                    if self._all_finished(bool(fin_rows.all())):
-                        break
-                    tail = window[:, window.shape[1] - (max_l - 1):] if max_l > 1 \
-                        else window[:, :0]
-            tokens = torch.cat(tok_chunks, dim=1)
-        if dp > 1:
-            tokens = mesh_lib.all_gather(tokens, self.mesh, "dp", dim=0)
-            if return_logits and len(logits_out) > 1:
-                steps_all = mesh_lib.all_gather(torch.stack(logits_out[1:]), self.mesh, "dp",
-                                                dim=1)
-                logits_out = logits_out[:1] + list(steps_all.unbind(0))
+                    logits_out = [prefill_logits.repeat_interleave(num_return_sequences, dim=0)]
 
-        # Truncate at the first column where every row has finished.
-        if (eos_token_id is not None or stop_sequences) and tokens.shape[1] > 1:
-            fin = _finished_mask(tokens.cpu().numpy(), eos_token_id, stop_sequences)
-            all_done = fin.all(axis=0)
-            if all_done.any():
-                keep = max(1, int(np.argmax(all_done)))
-                tokens = tokens[:, :keep]
-                if return_logits:
-                    logits_out = logits_out[:keep]
+                start_pos = self.get_shared_cache_len(total_batch)[rows]
+                # Every row decodes at one unique slot (a step writes it once, the
+                # JAX engine's uniform_pos) unless the suffixes are ragged.
+                uniform = suffix_uniform
+                if suffix_ids is not None:
+                    if suffix_lens is not None:
+                        sl = suffix_lens.to(self.device, torch.int32)
+                    else:
+                        sl = torch.full((suffix_ids.shape[0],), int(suffix_ids.shape[1]),
+                                        dtype=torch.int32, device=self.device)
+                    sl = sl.repeat_interleave(num_return_sequences)[rows]
+                    start_pos = start_pos + sl
+                    start_unique_pos = sl
+                else:
+                    start_unique_pos = torch.zeros((b_loc,), dtype=torch.int32, device=self.device)
+                if disable_hydragen:
+                    # Unique positions are global; the slot is uniform when every
+                    # row's history has one length (checked on the host, once).
+                    start_unique_pos = start_pos.to(torch.int32)
+                    sp = start_unique_pos.cpu()
+                    uniform = bool(len(sp) and suffix_uniform and bool((sp == sp[0]).all()))
 
-        if shared_cache_op == SharedCacheOp.PRESERVE:
-            self.truncate_shared_caches(og_levels)
-        if disable_hydragen:
-            self._disable_hydragen = False
-        if disable_attention:
-            self._disable_attention = False
-        if return_logits:
-            return tokens, logits_out
-        return tokens
+                use_overrides = token_overrides is not None
+                if use_overrides:
+                    token_overrides = self._ids(token_overrides)[rows]
+                first_token = first_token[rows]
+                dp, _ = self._dp()
+
+                steps = max_new_tokens - 1
+                tokens = first_token
+                if steps > 0:
+                    # Every step's slot is checked here, once: the steps compute
+                    # theirs on the device.
+                    top = int(start_unique_pos.max()) + steps
+                    if top > self.cache.max_unique_seq_len:
+                        raise ValueError(
+                            f"{steps} decode steps reach unique position {top}, past the unique "
+                            f"cache's {self.cache.max_unique_seq_len} (setup_caches)")
+                    spec = self._spec("decode", unique_history=True,
+                                      rows=(r0, total_batch) if dp > 1 else ())
+                    # No sharing writes through the batched update, as the JAX engine does.
+                    if not uniform:
+                        write = "rows"
+                    elif is_quantized_params(self.params) and not spec.disable_hydragen:
+                        write = "inplace"
+                    else:
+                        write = "uniform"
+                    st = self._decode_state(DecodeKey(spec, b_loc, float(temperature), top_p,
+                                                      use_overrides, return_logits, write))
+                    st.tok.copy_(token_overrides[:, 0:1] if use_overrides else first_token)
+                    st.start_pos.copy_(start_pos)
+                    st.start_upos.copy_(start_unique_pos)
+                    st.i.zero_()
+                    if use_overrides:
+                        st.overrides[:steps].copy_(token_overrides[:, 1:max_new_tokens].T)
+                    # With stops active, decode in chunks with a host check between,
+                    # so a batch that finishes early skips the rest of the budget.
+                    stops_active = ((eos_token_id is not None or stop_sequences)
+                                    and not use_overrides)
+                    chunk = self.eos_chunk if stops_active else 0
+                    if not chunk or chunk >= steps:
+                        plan = [steps]
+                    else:
+                        plan = ([chunk] * (steps // chunk)
+                                + ([steps % chunk] if steps % chunk else []))
+                    tok_chunks = [first_token]
+                    done = 0
+                    fin_rows = None
+                    max_l = max((len(s) for s in stop_sequences), default=1)
+                    tail = first_token.cpu().numpy()
+            if steps > 0:
+                with span("decode"):
+                    for c in plan:
+                        step_logits = self._decode_steps(st, c)
+                        toks = st.out[:, done:done + c].clone()
+                        done += c
+                        tok_chunks.append(toks)
+                        if return_logits:
+                            logits_out.extend(step_logits)
+                        if stops_active and len(plan) > 1:
+                            window = np.concatenate([tail, toks.cpu().numpy()], axis=1)
+                            hit = _finished_mask(window, eos_token_id, stop_sequences)[:, -1]
+                            fin_rows = hit if fin_rows is None else (fin_rows | hit)
+                            if self._all_finished(bool(fin_rows.all())):
+                                break
+                            tail = window[:, window.shape[1] - (max_l - 1):] if max_l > 1 \
+                                else window[:, :0]
+                    tokens = torch.cat(tok_chunks, dim=1)
+            if dp > 1:
+                tokens = mesh_lib.all_gather(tokens, self.mesh, "dp", dim=0)
+                if return_logits and len(logits_out) > 1:
+                    steps_all = mesh_lib.all_gather(torch.stack(logits_out[1:]), self.mesh, "dp",
+                                                    dim=1)
+                    logits_out = logits_out[:1] + list(steps_all.unbind(0))
+
+            # Truncate at the first column where every row has finished.
+            if (eos_token_id is not None or stop_sequences) and tokens.shape[1] > 1:
+                fin = _finished_mask(tokens.cpu().numpy(), eos_token_id, stop_sequences)
+                all_done = fin.all(axis=0)
+                if all_done.any():
+                    keep = max(1, int(np.argmax(all_done)))
+                    tokens = tokens[:, :keep]
+                    if return_logits:
+                        logits_out = logits_out[:keep]
+
+            if shared_cache_op == SharedCacheOp.PRESERVE:
+                self.truncate_shared_caches(og_levels)
+            if disable_hydragen:
+                self._disable_hydragen = False
+            if disable_attention:
+                self._disable_attention = False
+            if return_logits:
+                return tokens, logits_out
+            return tokens
 
     def _all_finished(self, local: bool) -> bool:
         """Whether every row of the batch has finished: this rank's rows'

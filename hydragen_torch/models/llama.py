@@ -64,6 +64,7 @@ from hydragen_torch.parallel.shard_gemm import (
     sharded_qmatmul_stacked_row,
 )
 from hydragen_torch.parallel.sharding import shard_plan
+from hydragen_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -283,8 +284,9 @@ def model_forward(
     dt = cfg.torch_dtype
 
     h = params["embed_tokens"][input_ids.long()].to(dt)
-    cos, sin = rope_cos_sin(cfg, position_ids)
-    cos, sin = cos.to(dt), sin.to(dt)
+    with span("rope"):
+        cos, sin = rope_cos_sin(cfg, position_ids)
+        cos, sin = cos.to(dt), sin.to(dt)
 
     active_levels = cache.shared[: spec.num_used_levels]
     level_sb = spec.level_batch or tuple(lv.max_batch_size for lv in active_levels)
@@ -360,106 +362,122 @@ def model_forward(
                 one(cache.unique_v, cache.unique_v_scale))
 
     def layer(h, li):
+        """One decoder layer, each stage in its span (``hg.norm``, ``hg.qkv``,
+        ``hg.rope``, ``hg.attn``, ``hg.o_proj``, ``hg.mlp``)."""
         memo = {}
         resid = h
-        x = rms_norm(h, lp["input_norm"][li], cfg.rms_norm_eps)
-        q = qmm(x, "wq", li, memo)
-        k = qmm(x, "wk", li, memo)
-        v = qmm(x, "wv", li, memo)
-        if has_bias:
-            q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
-        if plan.kv_head0 is not None:  # replicated k/v: the one head this rank reads
-            heads = slice(plan.kv_head0 * hd, (plan.kv_head0 + 1) * hd)
-            k, v = k[..., heads], v[..., heads]
-        q = apply_rope(q.reshape(b, t, nh, hd).transpose(1, 2), cos, sin)
-        k = apply_rope(k.reshape(b, t, nkv, hd).transpose(1, 2), cos, sin)
-        v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+        with span("norm"):
+            x = rms_norm(h, lp["input_norm"][li], cfg.rms_norm_eps)
+        with span("qkv"):
+            q = qmm(x, "wq", li, memo)
+            k = qmm(x, "wk", li, memo)
+            v = qmm(x, "wv", li, memo)
+            if has_bias:
+                q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
+            if plan.kv_head0 is not None:  # replicated k/v: the one head this rank reads
+                heads = slice(plan.kv_head0 * hd, (plan.kv_head0 + 1) * hd)
+                k, v = k[..., heads], v[..., heads]
+        with span("rope"):
+            q = apply_rope(q.reshape(b, t, nh, hd).transpose(1, 2), cos, sin)
+            k = apply_rope(k.reshape(b, t, nkv, hd).transpose(1, 2), cos, sin)
+            v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+        with span("attn"):
+            attn = attention(li, q, k, v)
+        with span("o_proj"):
+            attn = attn.transpose(1, 2).reshape(b, t, nh * hd)
+            attn = qmm(attn, "wo", li, memo)
+            if has_bias:
+                attn = attn + lp["bo"][li]
+            h = resid + attn
+        resid = h
+        with span("norm"):
+            x = rms_norm(h, lp["post_attn_norm"][li], cfg.rms_norm_eps)
+        with span("mlp"):
+            g = qmm(x, "gate", li, memo)
+            u = qmm(x, "up", li, memo)
+            m = qmm(torch.nn.functional.silu(g.float()).to(u.dtype) * u, "down", li, memo)
+            h = resid + m
+        return h, k, v
 
+    def final_norm(h):
+        with span("head"):
+            return rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+
+    def attention(li, q, k, v):
+        """Layer li's attention output ``[b, nh, t, hd]``: the level reads,
+        the unique read and the causal read of the new tokens, merged."""
         if spec.disable_attention:
-            attn = q
-        else:
-            attn = None
-            outs, lses = [], []
-            if not spec.disable_hydragen:
-                for j, lvl in enumerate(active_levels):
-                    sb, fl, r = level_sb[j], spec.level_filled[j], level_row[j]
-                    if mesh is not None:
-                        o, l = sharded_level_attention(li, q, lvl, segments[j], fl, impl,
-                                                       mesh)
-                        outs.append(o)
-                        lses.append(l)
-                        continue
-                    qf = fold_queries_for_shared(q, sb)
-                    if impl == "kernel":
-                        # The stacked level read in place, layer and row by index.
-                        o, l = flash.flash_attention_cached_bhsd(
-                            li, qf, lvl.k, lvl.v, kv_seq_lens=level_lens[j],
-                            k_scale_all=lvl.k_scale, v_scale_all=lvl.v_scale, row_start=r,
-                        )
-                    else:
-                        def view(p, s):
-                            pv = p[li, r:r + sb, :, :fl]
-                            return pv if s is None else (pv, s[li, r:r + sb, :, :fl])
-
-                        o, l = _attention(
-                            qf, view(lvl.k, lvl.k_scale), view(lvl.v, lvl.v_scale),
-                            causal=False, kv_seq_lens=level_lens[j], impl=impl,
-                        )
-                    outs.append(unfold_shared_out(o, b, t))
-                    lses.append(unfold_shared_lse(l, b, t))
-            if spec.unique_history:
-                if use_dec_kernel:
-                    # The unique read with the own token and the shared
-                    # partial merged in: the result is the final attention.
-                    if len(outs) > 1:
-                        sh = combine_lse_with_stats(outs, lses)
-                    else:
-                        sh = (outs[0], lses[0]) if outs else None
-                    attn, _ = decode_ops.decode_attention_cached(
-                        li, q, cache.unique_k, cache.unique_v,
-                        kv_seq_lens=history_lens, k_scale_all=cache.unique_k_scale,
-                        v_scale_all=cache.unique_v_scale, own_kv=(k, v),
-                        shared_partial=sh, kv_bits=kv_bits,
-                    )
-                else:
-                    uk, uv = unique_view(li)
-                    o, l = _attention(
-                        q, uk, uv, causal=False,
-                        kv_seq_lens=None if history_mask is not None else history_lens,
-                        kv_mask=history_mask, impl=impl, kv_bshd=cache.unique_bshd,
-                        kv_bits=kv_bits,
-                    )
+            return q
+        attn = None
+        outs, lses = [], []
+        if not spec.disable_hydragen:
+            for j, lvl in enumerate(active_levels):
+                sb, fl, r = level_sb[j], spec.level_filled[j], level_row[j]
+                if mesh is not None:
+                    o, l = sharded_level_attention(li, q, lvl, segments[j], fl, impl, mesh)
                     outs.append(o)
                     lses.append(l)
-            if attn is None:
-                if t == 1:
-                    # Softmax over the single own token is the identity:
-                    # out = v, lse = scale * q.k.
-                    group = nh // nkv
-                    qg = q.float().reshape(b, nkv, group, 1, hd)
-                    # Times the scale, as the JAX model computes it (a
-                    # division by sqrt(hd) rounds differently).
-                    l = (torch.einsum("bkgmd,bkmd->bkgm", qg, k.float())
-                         * (1.0 / math.sqrt(hd))).reshape(b, nh, 1)
-                    o = v[:, :, None].expand(b, nkv, group, 1, hd).reshape(b, nh, 1, hd)
-                    o = o.to(q.dtype)
+                    continue
+                qf = fold_queries_for_shared(q, sb)
+                if impl == "kernel":
+                    # The stacked level read in place, layer and row by index.
+                    o, l = flash.flash_attention_cached_bhsd(
+                        li, qf, lvl.k, lvl.v, kv_seq_lens=level_lens[j],
+                        k_scale_all=lvl.k_scale, v_scale_all=lvl.v_scale, row_start=r,
+                    )
                 else:
-                    o, l = _attention(q, k, v, causal=True, kv_seq_lens=None, impl=impl)
+                    def view(p, s):
+                        pv = p[li, r:r + sb, :, :fl]
+                        return pv if s is None else (pv, s[li, r:r + sb, :, :fl])
+
+                    o, l = _attention(
+                        qf, view(lvl.k, lvl.k_scale), view(lvl.v, lvl.v_scale),
+                        causal=False, kv_seq_lens=level_lens[j], impl=impl,
+                    )
+                outs.append(unfold_shared_out(o, b, t))
+                lses.append(unfold_shared_lse(l, b, t))
+        if spec.unique_history:
+            if use_dec_kernel:
+                # The unique read with the own token and the shared
+                # partial merged in: the result is the final attention.
+                if len(outs) > 1:
+                    sh = combine_lse_with_stats(outs, lses)
+                else:
+                    sh = (outs[0], lses[0]) if outs else None
+                attn, _ = decode_ops.decode_attention_cached(
+                    li, q, cache.unique_k, cache.unique_v,
+                    kv_seq_lens=history_lens, k_scale_all=cache.unique_k_scale,
+                    v_scale_all=cache.unique_v_scale, own_kv=(k, v),
+                    shared_partial=sh, kv_bits=kv_bits,
+                )
+            else:
+                uk, uv = unique_view(li)
+                o, l = _attention(
+                    q, uk, uv, causal=False,
+                    kv_seq_lens=None if history_mask is not None else history_lens,
+                    kv_mask=history_mask, impl=impl, kv_bshd=cache.unique_bshd,
+                    kv_bits=kv_bits,
+                )
                 outs.append(o)
                 lses.append(l)
-                attn = combine_lse(outs, lses)
-
-        attn = attn.transpose(1, 2).reshape(b, t, nh * hd)
-        attn = qmm(attn, "wo", li, memo)
-        if has_bias:
-            attn = attn + lp["bo"][li]
-        h = resid + attn
-        resid = h
-        x = rms_norm(h, lp["post_attn_norm"][li], cfg.rms_norm_eps)
-        g = qmm(x, "gate", li, memo)
-        u = qmm(x, "up", li, memo)
-        m = qmm(torch.nn.functional.silu(g.float()).to(u.dtype) * u, "down", li, memo)
-        return resid + m, k, v
+        if attn is None:
+            if t == 1:
+                # Softmax over the single own token is the identity:
+                # out = v, lse = scale * q.k.
+                group = nh // nkv
+                qg = q.float().reshape(b, nkv, group, 1, hd)
+                # Times the scale, as the JAX model computes it (a
+                # division by sqrt(hd) rounds differently).
+                l = (torch.einsum("bkgmd,bkmd->bkgm", qg, k.float())
+                     * (1.0 / math.sqrt(hd))).reshape(b, nh, 1)
+                o = v[:, :, None].expand(b, nkv, group, 1, hd).reshape(b, nh, 1, hd)
+                o = o.to(q.dtype)
+            else:
+                o, l = _attention(q, k, v, causal=True, kv_seq_lens=None, impl=impl)
+            outs.append(o)
+            lses.append(l)
+            attn = combine_lse(outs, lses)
+        return attn
 
     if fill_level is not None:
         assert inplace_slot is None
@@ -470,14 +488,15 @@ def model_forward(
         n = max(0, min(t, off + lvl.max_seq_len) - off)
         for li in range(L):
             h, k, v = layer(h, li)
-            k, v = k[:, :, off:off + n], v[:, :, off:off + n]
-            if lvl.quantized:
-                (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-                lvl.k_scale[li, :b, :, :n] = ks
-                lvl.v_scale[li, :b, :, :n] = vs
-            lvl.k[li, :b, :, :n] = k.to(lvl.k.dtype)
-            lvl.v[li, :b, :, :n] = v.to(lvl.v.dtype)
-        return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
+            with span("kv_write"):
+                k, v = k[:, :, off:off + n], v[:, :, off:off + n]
+                if lvl.quantized:
+                    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+                    lvl.k_scale[li, :b, :, :n] = ks
+                    lvl.v_scale[li, :b, :, :n] = vs
+                lvl.k[li, :b, :, :n] = k.to(lvl.k.dtype)
+                lvl.v[li, :b, :, :n] = v.to(lvl.v.dtype)
+        return final_norm(h), cache
 
     if inplace_slot is not None:
         assert t == 1, "inplace_slot is a single-token decode path"
@@ -486,8 +505,9 @@ def model_forward(
             h, k, v = layer(h, li)
             # This step's token is never in its own history (lens mask it),
             # so writing it right after its layer's read is safe.
-            write_decode_token_layer(cache, li, k, v, slot, plain=impl == "torch")
-        return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
+            with span("kv_write"):
+                write_decode_token_layer(cache, li, k, v, slot, plain=impl == "torch")
+        return final_norm(h), cache
 
     new_k, new_v = [], []
     for li in range(L):
@@ -497,16 +517,18 @@ def model_forward(
             # quantizes inside its layer scan), so no stack of every layer's
             # compute-dtype KV is ever held.
             qkv = quantize_kv4 if quantize_new_kv == 4 else quantize_kv
-            k, v = qkv(k), qkv(v)
+            with span("kv_write"):
+                k, v = qkv(k), qkv(v)
         new_k.append(k)
         new_v.append(v)
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    if quantize_new_kv:
-        def stack(pairs):
-            return torch.stack([p for p, _ in pairs]), torch.stack([s for _, s in pairs])
+    h = final_norm(h)
+    with span("kv_write"):
+        if quantize_new_kv:
+            def stack(pairs):
+                return torch.stack([p for p, _ in pairs]), torch.stack([s for _, s in pairs])
 
-        return h, stack(new_k), stack(new_v)
-    return h, torch.stack(new_k), torch.stack(new_v)
+            return h, stack(new_k), stack(new_v)
+        return h, torch.stack(new_k), torch.stack(new_v)
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
@@ -516,17 +538,18 @@ def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     weight-only path, even under w8a8: logits feed sampling directly. Under
     a mesh whose tp splits the vocab, the ranks' slices are all-gathered, so
     every rank holds the whole logits."""
-    if full_logits:
-        to_head = hidden
-    elif seq_lens is not None:
-        idx = (seq_lens.long() - 1).to(hidden.device)
-        to_head = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
-    else:
-        to_head = hidden[:, -1:]
-    logits = qmatmul(to_head, params["lm_head"], "bth,hv->btv").float()
-    if shard_plan(cfg, mesh).vocab:
-        logits = all_gather(logits, mesh, "tp", dim=-1)
-    return logits
+    with span("head"):
+        if full_logits:
+            to_head = hidden
+        elif seq_lens is not None:
+            idx = (seq_lens.long() - 1).to(hidden.device)
+            to_head = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
+        else:
+            to_head = hidden[:, -1:]
+        logits = qmatmul(to_head, params["lm_head"], "bth,hv->btv").float()
+        if shard_plan(cfg, mesh).vocab:
+            logits = all_gather(logits, mesh, "tp", dim=-1)
+        return logits
 
 
 def is_quantized_params(params: dict) -> bool:

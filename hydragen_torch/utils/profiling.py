@@ -17,7 +17,9 @@ xplane protobuf, this reads the profiler's events:
 - ``trace_decode()`` traces the decode loop of one request, its prefill
   outside the profile;
 - ``kernel_table()`` and ``group_ms()`` are the sums the above are built
-  on, for callers that group kernels by name themselves.
+  on, for callers that group kernels by name themselves;
+- ``span()`` marks a stretch of the program's own code (``hg.<name>``) in
+  whatever profile is being recorded, and costs one check when none is.
 
 On a CPU device the "kernels" are the aten ops, each by its own (self) CPU
 time, so that the scripts that profile also run in the CPU tests.
@@ -33,6 +35,26 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 import torch
 
 from hydragen_torch.utils.timing import fence
+
+
+SPAN_PREFIX = "hg."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``hg.<name>`` around a ``with`` block while a
+    profiler records, else one shared context that does nothing (the check
+    costs well under a microsecond; a range, some microseconds).
+
+    The range is recorded as the profiler records an operator: a host range
+    on the host's clock, which the kernels launched inside it are linked to
+    by the profiler's correlation ids. ``torch.profiler.record_function``
+    would also draw a device-side copy of each range (a "GPU user
+    annotation" over its kernels), which readers that take every CUDA-side
+    event for a kernel would count as one, as long as the range."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
 
 class OpStat(NamedTuple):
