@@ -34,7 +34,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    on the device's clock alone (``device_ms``: a CUDA graph of the calls, no
    host work between them), with SDPA's likewise, K2 on bf16 k/v and K4 at
    head_dim 64; where K5 splits the keys, torch.profiler times its kernel
-   and ``split_combine`` apart.
+   and ``split_combine`` apart. K8's three entries at M = 256, 32,768 and
+   65,536 by K = 4,096 and 11,008 (``check_k8``): ``quantize_rows`` and
+   ``silu_mul_quant`` equal their plain chains bit for bit,
+   ``rms_norm_quant`` (with its residual add and without) equals its plain
+   chain at a mean of squares a few f32 steps from ``torch.mean``'s
+   (``k8_norm_match``); device ms of each beside the plain chain's and the
+   bytes bound. Every launch gate below counts K8 too (``expected_k8``).
 4. main path: ``HydragenLlama`` at ``PRESETS["llama-2-7b"]`` full width,
    random weights from a seeded ``torch.Generator``, ``quantization="w8a8"``,
    ``kv_quant="int8"``; one request with a 2,048-token shared prompt and 256
@@ -540,6 +546,131 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_decode_kernels(report, time_ms, g, record)
     check_gqa_kernels(report, failures, time_ms, g, record)
     check_flash_shapes(report, time_ms, g, record)
+    check_k8(report, g, record)
+
+
+# K8's shapes in the kernel phase: M of a decode step, of request 2's unique
+# prefill and of the docs cell's (128 documents of 512 tokens); K of the
+# hidden width (both norms, o's input) and of the MLP (the SiLU product).
+K8_ROWS = (BATCH, BATCH * SUFFIX_LEN, 65536)
+K8_WIDTHS = (4096, 11008)
+# The most f32 steps by which K8's mean of squares may lie from torch.mean's
+# (the two sum the squares in other orders): the tie rule's cap on float
+# noise (tests/test_torch_ties.py, NOISE_CAP_ULPS).
+K8_MEAN_ULPS = 64
+
+
+def k8_norm_match(x, weight, eps: float, delta, pair, h) -> dict:
+    """Hold ``rms_norm_quant``'s result (``pair``, ``h``) to its plain chain.
+    ``h`` must equal ``x + delta`` (``x`` with no ``delta``) bit for bit. A
+    row's codes and scale must equal the plain chain's, or the plain chain's
+    at a mean of squares at most ``K8_MEAN_ULPS`` f32 steps from
+    ``torch.mean``'s: the kernel sums the squares in another order, and
+    where that moves the row's factor by a step, rounding the normed row to
+    bf16 can move an element by a bf16 step, which no rule on the f32
+    quotients alone can tell from a fault. Returns ``ok``, the rows, the rows
+    that needed a step, the rows no step reproduced, the widest step, and
+    the codes apart from the plain chain's at its own mean (and their
+    widest gap)."""
+    from hydragen_torch.ops import gemm
+
+    hp = x if delta is None else x + delta
+    K = x.shape[-1]
+    hf = hp.reshape(-1, K).float()
+    wf = weight.float()
+    var = (hf * hf).mean(dim=-1, keepdim=True)
+
+    def chain(rows, v):
+        return gemm.quantize_rows_plain((hf[rows] * torch.rsqrt(v + eps) * wf).to(x.dtype))
+
+    q, s = pair
+    qp, sp = chain(slice(None), var)
+    apart = qp != q
+    codes_apart = int(apart.sum())
+    gap = int((qp.int() - q.int()).abs().max()) if codes_apart else 0
+    left = (apart.any(-1) | (sp != s).squeeze(-1)).nonzero().squeeze(-1)
+    moved, widest = int(left.numel()), 0
+    bits = var.view(torch.int32)
+    for step in range(1, K8_MEAN_ULPS + 1):
+        for sign in (1, -1):
+            if not left.numel():
+                break
+            qs, ss = chain(left, (bits[left] + sign * step).view(torch.float32))
+            hit = (qs == q[left]).all(-1) & (ss == s[left]).squeeze(-1)
+            if bool(hit.any()):
+                widest = step
+            left = left[~hit]
+    return dict(ok=torch.equal(h, hp) and not left.numel(), rows=hf.shape[0],
+                rows_moved=moved, rows_unmatched=int(left.numel()), widest_ulps=widest,
+                codes_apart=codes_apart, code_gap=gap)
+
+
+def check_k8(report: dict, g, record) -> None:
+    """K8 (``csrc/act.cu``) at each M x K of ``K8_ROWS`` x ``K8_WIDTHS``,
+    each entry held to its plain version: ``quantize_rows`` and
+    ``silu_mul_quant`` bit for bit, ``rms_norm_quant`` (with its residual
+    add and without) by ``k8_norm_match``; one launch a call under its
+    count. device_ms: a CUDA graph of the calls; plain_ms the same of the
+    plain chain; beside the bytes bound (each input read once, each output
+    written once). The report's figures are at M = 65,536 (the docs cell's
+    unique prefill), at the width the model gives each entry; every shape's
+    are under "shapes"."""
+    from hydragen_torch.ops import act, cuda_lib, gemm
+    from hydragen_torch.utils.timing import bound_ms, cuda_graph_time_ms
+
+    dev = torch.device("cuda")
+    bf16, eps = torch.bfloat16, 1e-5
+    shapes = {"rms_norm_quant": {}, "silu_mul_quant": {}, "quantize_rows": {}}
+    for K in K8_WIDTHS:
+        w = (1 + 0.1 * torch.randn(K, device=dev, generator=g)).to(bf16)
+        for M in K8_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(bf16)
+            d = (0.5 * torch.randn(M, K, device=dev, generator=g)).to(bf16)
+            gate = (3 * torch.randn(M, K, device=dev, generator=g)).to(bf16)
+            cases = {  # label: (counter, kernel, plain, delta, bytes)
+                "rms_norm_quant": ("rms_norm_quant", lambda: act.rms_norm_quant(x, w, eps, d),
+                                   lambda: act.rms_norm_quant_plain(x, w, eps, d), d,
+                                   7 * M * K + 2 * K + 4 * M),
+                "rms_norm_quant no residual": (
+                    "rms_norm_quant", lambda: act.rms_norm_quant(x, w, eps),
+                    lambda: act.rms_norm_quant_plain(x, w, eps), None, 3 * M * K + 2 * K + 4 * M),
+                "silu_mul_quant": ("silu_mul_quant", lambda: act.silu_mul_quant(gate, d),
+                                   lambda: act.silu_mul_quant_plain(gate, d), None,
+                                   5 * M * K + 4 * M),
+                "quantize_rows": ("quantize_rows", lambda: gemm.quantize_rows(x),
+                                  lambda: gemm.quantize_rows_plain(x), None, 3 * M * K + 4 * M),
+            }
+            for label, (counter, kernel, plain, delta, nbytes) in cases.items():
+                before = cuda_lib.LAUNCHES[counter]
+                res = kernel()
+                launched = cuda_lib.LAUNCHES[counter] - before
+                if counter == "rms_norm_quant":
+                    m = k8_norm_match(x, w, eps, delta, *res)
+                    ok, detail = m.pop("ok"), json.dumps(m)
+                else:
+                    pq, ps = plain()
+                    ok = torch.equal(res[0], pq) and torch.equal(res[1], ps)
+                    detail = f"bit-equal {ok}"
+                    del pq, ps
+                del res
+                r = dict(
+                    device_ms=cuda_graph_time_ms(kernel, iters=10),
+                    plain_ms=cuda_graph_time_ms(plain, iters=3 if M > BATCH else 10, warmup=1))
+                r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0, "bf16")
+                r["bound_share"] = r["bound_ms"] / r["device_ms"]
+                record(f"{label} M={M} K={K}", ok and launched == 1,
+                       f"launches {launched} {detail} device_ms {r['device_ms']:.4f} plain_ms "
+                       f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
+                       f"{nbytes / 1e9:.3f} GB) share of the bound {100 * r['bound_share']:.1f} %")
+                shapes[counter][f"{label} M={M} K={K}"] = r
+            del x, d, gate
+    at = {"rms_norm_quant": "rms_norm_quant M=65536 K=4096",
+          "silu_mul_quant": "silu_mul_quant M=65536 K=11008",
+          "quantize_rows": "quantize_rows M=65536 K=4096"}
+    for name, key in at.items():
+        report[name] = dict(**shapes[name][key], shapes=shapes[name],
+                            at=f"{key.split(' ', 1)[1]}, bf16 in (device_ms and plain_ms: "
+                               f"from CUDA graphs of the calls)")
 
 
 def check_k6_tp2(report: dict, time_ms, g, record) -> None:
@@ -1174,18 +1305,34 @@ def check_gqa_kernels(report: dict, failures: list, time_ms, g, record) -> None:
         shapes=k1_shapes, at="sum of one Llama-3-8B decode layer's 7 projections, M=256")
 
 
+def expected_k8(L: int, forwards: int, mesh: str = "") -> dict:
+    """K8's launches in ``forwards`` w8a8 or w4a8 forwards of L layers: both
+    norms of every layer (2L a forward) and, where o and down are not split
+    over tp, the SiLU product and o's input (L each). Under tp (``mesh``
+    "tp", the one-rank NCCL mesh's trivial tp too) o and down quantize their
+    own K slices (2L ``quantize_rows``) and no SiLU product is fused; under
+    "tp-int4" the int4 o and down take the weight-only product (no
+    ``quantize_rows``)."""
+    out = {"rms_norm_quant": 2 * L * forwards,
+           "silu_mul_quant": 0 if mesh else L * forwards,
+           "quantize_rows": {"": L, "tp": 2 * L, "tp-int4": 0}[mesh] * forwards}
+    return {k: v for k, v in out.items() if v}
+
+
 def expected_launches(L: int, T: int) -> dict:
     """Launches the two main-path requests imply, for L layers and T new
     tokens each (the first token of a request comes from its prefill):
     - request 1: a shared prefill (7L GEMMs, L causal flash) and T-1 decode
       steps (7L GEMMs, L level reads, L unique reads each);
     - request 2: a unique prefill over the kept level (7L GEMMs, L level
-      reads, L causal flash over the suffixes) and T-1 decode steps."""
+      reads, L causal flash over the suffixes) and T-1 decode steps;
+    - in each of those 2T forwards, K8's launches (``expected_k8``)."""
     return {
         "w8a8_matmul_cached": 2 * 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1) + L * T,
         "decode_attention_cached": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
+        **expected_k8(L, 2 * T),
     }
 
 
@@ -1201,6 +1348,7 @@ def expected_launches_int4(L: int, T: int) -> dict:
         "decode_attention_cached_int4": 2 * L * (T - 1),
         "write_token_int4_cached": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
+        **expected_k8(L, 2 * T),
     }
 
 
@@ -1216,31 +1364,36 @@ def expected_launches_gqa(L: int, T: int) -> dict:
         "flash_attention_cached_bhsd": L * (T - 1) + L * T,
         "flash_decode_bhsd": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
+        **expected_k8(L, 2 * T),
     }
 
 
-def expected_launches_no_sharing(L: int, T: int) -> dict:
+def expected_launches_no_sharing(L: int, T: int, mesh: str = "") -> dict:
     """The no-sharing baseline's one request (``bench.py:70-96``): the
     prompt is the unique rows' prefill (7L GEMMs, L causal flash at 2,048
     tokens), repeated into every row; then T-1 decode steps, each layer
     reading its row's whole history (prompt copy and decoded tokens) with
-    one small-M read and no level read."""
+    one small-M read and no level read. K8 in each of the T forwards, under
+    ``mesh`` (``expected_k8``)."""
     return {
         "w8a8_matmul_cached": 7 * L * T,
         "flash_decode_bhsd": L * (T - 1),
         "flash_attention_bhsd": L,
+        **expected_k8(L, T, mesh),
     }
 
 
 # name: (tag, preset, quantization, kv_quant, expected launches, profile groups)
 PATHS = {
     "main": ("main", "llama-2-7b", "w8a8", "int8", expected_launches,
-             ("w8a8_kernel", "flash_kernel", "split_combine", "decode_kernel")),
+             ("w8a8_kernel", "flash_kernel", "split_combine", "decode_kernel",
+              "act_quant_kernel")),
     "int4": ("int4", "llama-2-7b", "w4a8", "int4", expected_launches_int4,
              ("w4a8_kernel", "flash_kernel", "split_combine", "decode_kernel",
-              "write_int4_kernel")),
+              "write_int4_kernel", "act_quant_kernel")),
     "gqa": ("gqa", "llama-3-8b", "w8a8", "int8", expected_launches_gqa,
-            ("w8a8_kernel", "flash_decode_kernel", "flash_kernel", "split_combine")),
+            ("w8a8_kernel", "flash_decode_kernel", "flash_kernel", "split_combine",
+             "act_quant_kernel")),
 }
 
 
@@ -1698,16 +1851,17 @@ def write_hf_checkpoint(directory: Path, cfg, state: dict, shards: int) -> int:
     return written
 
 
-def expected_launches_load(L: int, T: int) -> dict:
+def expected_launches_load(L: int, T: int, mesh: str = "") -> dict:
     """Request 1 of the main path on the HF-loaded model: a shared prefill
     (7L GEMMs, L causal flash) and T-1 decode steps (7L GEMMs, L level
     reads, L unique reads each), every GEMM on K1's f32-scale
-    instantiation."""
+    instantiation; K8 in each of the T forwards, under ``mesh``."""
     return {
         "w8a8_matmul_cached_f32_scales": 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1),
         "decode_attention_cached": L * (T - 1),
         "flash_attention_bhsd": L,
+        **expected_k8(L, T, mesh),
     }
 
 
@@ -1841,7 +1995,7 @@ def drive_tp2_load(args, failures: list, eng, hf_dir: Path, request: dict,
     ranks = launch(load_rank, 2, str(hf_dir), request["input_ids"][0].cpu(), toks.cpu(),
                    args.seed, backend="gloo", timeout=PAR_TIMEOUT)
     ranks_s = time.perf_counter() - t1
-    want_l = expected_launches_load(L, T)
+    want_l = expected_launches_load(L, T, "tp")
     want_c = expected_collectives_request1("tp2", L, T)
     want_b = expected_param_bytes(cfg, 2, loaded=True)
     largest_f32 = 4 * cfg.hidden_size * max(cfg.vocab_size, cfg.intermediate_size,
@@ -2122,16 +2276,18 @@ GROUPED_SUFFIX = (16, 64)
 GROUPED_BUDGET = (4, 24)
 
 
-def expected_launches_serving(L: int, admissions: int, steps: int) -> dict:
+def expected_launches_serving(L: int, admissions: int, steps: int, mesh: str = "") -> dict:
     """Launches a stream implies, from its dispatch log: each admission
     dispatch prefills its requests' suffixes (7L s8 GEMMs, L level reads of
     the folded queries, L causal suffix reads); each decode step runs 7L
     GEMMs and L level reads, and its unique read is the plain masked ring
-    read (no K3, no K5), as in the JAX package."""
+    read (no K3, no K5), as in the JAX package. K8 in every forward, under
+    ``mesh``."""
     return {
         "w8a8_matmul_cached": 7 * L * (admissions + steps),
         "flash_attention_cached_bhsd": L * (admissions + steps),
         "flash_attention_bhsd": L * admissions,
+        **expected_k8(L, admissions + steps, mesh),
     }
 
 
@@ -2401,8 +2557,10 @@ def drive_grouped_stream(args, failures: list, card: str) -> None:
 def only_kernel(keep: str | None):
     """Within the block, every kernel wrapper but ``keep`` is replaced by its
     plain version (module attributes, which the model reads at call time);
-    ``keep=None`` leaves them all on the kernel."""
-    from hydragen_torch.ops import decode, flash, gemm
+    ``keep=None`` leaves them all on the kernel. K8's three entries are
+    among the others: a run of one kernel alone takes the plain chains for
+    the s8 activations too."""
+    from hydragen_torch.ops import act, decode, flash, gemm
 
     # launch key: (module, the attribute the model calls, its plain version);
     # flash_attention_bhsd routes to K2's kernel or to K5 by the two private
@@ -2418,6 +2576,9 @@ def only_kernel(keep: str | None):
         "flash_decode_bhsd": (flash, "_flash_decode_bhsd", flash.flash_attention_bhsd_plain),
         "write_token_int4_cached": (decode, "write_token_int4_cached",
                                     decode.write_token_int4_cached_plain),
+        "rms_norm_quant": (act, "rms_norm_quant", act.rms_norm_quant_plain),
+        "silu_mul_quant": (act, "silu_mul_quant", act.silu_mul_quant_plain),
+        "quantize_rows": (gemm, "quantize_rows", gemm.quantize_rows_plain),
     }
     saved = []
     for name, (mod, attr, plain) in swaps.items():
@@ -2470,7 +2631,11 @@ def check_plain_path(args, failures: list, path: str) -> None:
     on their plain versions) must come as close to it as the plain bf16 run
     does: its RMS distance within TOL_RMS times the plain run's, its largest
     distance within TOL_MAX times. A wrong kernel shows in its own swap
-    run."""
+    run. K8 runs in the "kernel" run and has no run alone: its norm's sum of
+    squares, taken in another order, moves a code where it ties, and such a
+    drift alone read 1.283 times the plain run's RMS at the int4 path's
+    step 0 (the run of all kernels 0.863 times); ``check_k8`` holds K8 to
+    the plain chains exactly."""
     from hydragen_torch import HydragenLlama, SharedCacheOp
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
@@ -2545,17 +2710,19 @@ PAR_SP_LAYERS = 8
 PAR_TIMEOUT = 600.0  # seconds a spawn may take, its set-up included
 
 
-def expected_launches_request1(L: int, T: int, int4: bool = False) -> dict:
+def expected_launches_request1(L: int, T: int, int4: bool = False, mesh: str = "") -> dict:
     """Request 1 of the main path alone: a shared prefill (7L GEMMs, L causal
     flash) and T-1 decode steps (7L GEMMs, L level reads, L unique reads).
     With ``int4`` (case (d), w4a8 at tp=2): the five column-parallel
-    projections a layer on K6, o and down on the weight-only product, no K1."""
+    projections a layer on K6, o and down on the weight-only product, no K1.
+    K8 in each of the T forwards, under ``mesh`` (``expected_k8``)."""
     gemm = {"w4a8_matmul_cached": 5 * L * T} if int4 else {"w8a8_matmul_cached": 7 * L * T}
     return {
         **gemm,
         "flash_attention_cached_bhsd": L * (T - 1),
         "decode_attention_cached": L * (T - 1),
         "flash_attention_bhsd": L,
+        **expected_k8(L, T, mesh),
     }
 
 
@@ -2778,6 +2945,10 @@ def nccl_rank(rank: int, world: int, seed: int) -> dict:
                 steps=len(runs["graph"][1]))
 
 
+# K8's count under each case's mesh (``expected_k8``): sp=2 splits no projection.
+PARALLEL_K8_MESH = {"tp2": "tp", "sp2": "", "tp2-int4": "tp-int4", "tp4": "tp"}
+
+
 def drive_parallel_case(args, failures: list, card: str, kind: str) -> dict:
     """One two-rank case of phase parallel ((a) "tp2", (b) "sp2", (d)
     "tp2-int4"), or ``--tp4``'s four: spawn the ranks, hold their gates,
@@ -2794,7 +2965,7 @@ def drive_parallel_case(args, failures: list, card: str, kind: str) -> dict:
     L = cfg.num_hidden_layers
     tag = f"parallel {kind}"
     int4 = kind == "tp2-int4"
-    want_l = expected_launches_request1(L, T, int4)
+    want_l = expected_launches_request1(L, T, int4, PARALLEL_K8_MESH[kind])
     want_c = expected_collectives_request1(kind, L, T)
     want_b = expected_param_bytes(cfg, {"sp2": 1, "tp4": 4}.get(kind, 2), int4)
     for r, res in enumerate(ranks):
@@ -2859,15 +3030,17 @@ def drive_parallel_case(args, failures: list, card: str, kind: str) -> dict:
 NOSHARE_LAYERS = 8  # case (e)'s depth of Llama-3-8B: cut this, never the width
 
 
-def expected_launches_gqa_request1(L: int, T: int) -> dict:
+def expected_launches_gqa_request1(L: int, T: int, mesh: str = "") -> dict:
     """Request 1 alone on Llama-3-8B (w8a8 + int8 KV): a shared prefill (7L
     GEMMs, L causal flash), then T-1 decode steps of 7L GEMMs, L level reads
-    (K2) and L small-M unique reads (K5, the unique cache being BHSD)."""
+    (K2) and L small-M unique reads (K5, the unique cache being BHSD); K8 in
+    each of the T forwards, under ``mesh``."""
     return {
         "w8a8_matmul_cached": 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1),
         "flash_decode_bhsd": L * (T - 1),
         "flash_attention_bhsd": L,
+        **expected_k8(L, T, mesh),
     }
 
 
@@ -2972,8 +3145,8 @@ def drive_parallel_noshare(args, failures: list, card: str) -> dict:
     tag, T, L = "parallel tp2-noshare", NEW_TOKENS, NOSHARE_LAYERS
     t0 = time.perf_counter()
     ranks = launch(noshare_rank, 2, args.seed, backend="gloo", timeout=PAR_TIMEOUT)
-    want_l = {"hydragen": expected_launches_gqa_request1(L, T),
-              "no-sharing": expected_launches_no_sharing(L, T)}
+    want_l = {"hydragen": expected_launches_gqa_request1(L, T, "tp"),
+              "no-sharing": expected_launches_no_sharing(L, T, "tp")}
     want_c = expected_collectives_request1("tp2", L, T)
     eng, prompt = noshare_engine(args.seed)
     want_b = expected_param_bytes(eng.config, 2)
@@ -3035,7 +3208,7 @@ def drive_parallel(args, failures: list, card: str) -> dict:
     t = time.perf_counter()
     res = launch(nccl_rank, 1, args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
     L = parallel_config("nccl").num_hidden_layers
-    want_l = expected_launches_request1(L, T)
+    want_l = expected_launches_request1(L, T, mesh="tp")
     want_c = expected_collectives_request1("tp2", L, T)
     step_c = {"all_reduce_sum": 2 * L, "all_gather": 1}
     ok = (res["graph_eq_eager"] and res["graph_eq_meshless"] and res["graphs"]
@@ -3278,7 +3451,8 @@ def drive_serving_mesh(args, failures: list, card: str) -> dict:
         runs = [r["stream"] for r in ranks]
         for r, run in enumerate(runs):
             want_l = expected_launches_serving(L, run["admit_forwards"],
-                                               run["stats"]["decode_steps"])
+                                               run["stats"]["decode_steps"],
+                                               "tp" if kind == "tp2" else "")
             want_c = serve_mesh_collectives(kind, L, run)
             ok = (run["launches"] == want_l and run["collectives"] == want_c
                   and run["stats"] == base["stats"] and not ranks[r]["graphs_enabled"])
@@ -3323,12 +3497,16 @@ def drive_serving_mesh(args, failures: list, card: str) -> dict:
     res = launch(serve_mesh_rank, 1, "nccl1", args.seed, backend="nccl", timeout=PAR_TIMEOUT)[0]
     g, e, m = res["stream"], res["eager"], res["meshless"]
     L32 = 32
-    want_l = expected_launches_serving(L32, g["admit_forwards"], g["stats"]["decode_steps"])
+    want_l = expected_launches_serving(L32, g["admit_forwards"], g["stats"]["decode_steps"],
+                                       "tp")
+    # The meshless engine quantizes o's and down's inputs whole, the SiLU
+    # product fused: its K8 counts differ from the trivial tp's.
+    want_m = expected_launches_serving(L32, g["admit_forwards"], g["stats"]["decode_steps"])
     want_c = serve_mesh_collectives("nccl1", L32, g)
     bit = g["toks"] == e["toks"] == m["toks"]
     ok = (bit and g["stats"] == e["stats"] == m["stats"] and res["graphs_enabled"]
           and g["graph"] and not e["graph"] and g["launches"] == want_l == e["launches"]
-          and m["launches"] == want_l and g["collectives"] == want_c == e["collectives"]
+          and m["launches"] == want_m and g["collectives"] == want_c == e["collectives"]
           and res["captures"] == dict(of_key=1, all=[1]))
     new = check_stream("serving mesh nccl1", requests, g["toks"], V, failures)
     steps = g["stats"]["decode_steps"]
@@ -3609,7 +3787,7 @@ def script_quality(failures: list, card: str) -> dict:
         quant = argv[1] if argv[:1] == ["--quantization"] else None
         if quant in ("w8a8", "w4a8"):
             gemm = "w8a8_matmul_cached" if quant == "w8a8" else "w4a8_matmul_cached"
-            want = {gemm: 7 * L, "flash_attention_bhsd": 2 * L}
+            want = {gemm: 7 * L, "flash_attention_bhsd": 2 * L, **expected_k8(L, 1)}
             ok = ok and launches == want and all(res["s8_kernel_coverage"].values())
         print(f"[scripts quality] {name}: ce delta {ce} nats, mean KL {kl} nats (ce "
               f"{res.get('ce_bf16_nats')} -> {res.get('ce_int8_nats', res.get('ce_kvq_nats'))}"
@@ -3826,6 +4004,11 @@ def main() -> int:
         "write_token_int4_cached": ("csrc/decode.cu", "hydragen_tpu/ops/decode.py:729",
                                     "int4"),
         "flash_decode_bhsd": ("csrc/flash.cu", "hydragen_tpu/ops/flash.py:715", "gqa"),
+        # K8: no TPU kernel (XLA fuses the norm, the SiLU product and
+        # hydragen_tpu/ops/gemm.py:quantize_rows inside jit).
+        "rms_norm_quant": ("csrc/act.cu", "none (XLA fusion)", "main"),
+        "silu_mul_quant": ("csrc/act.cu", "none (XLA fusion)", "main"),
+        "quantize_rows": ("csrc/act.cu", "none (XLA fusion)", "main"),
     }
     kernels = []
     for name, (src, replaces, path, *counter) in sources.items():

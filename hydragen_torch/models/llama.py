@@ -34,10 +34,10 @@ import torch
 
 from hydragen_torch.core.cache import decode_slot, write_decode_token_layer
 from hydragen_torch.models.config import ModelConfig
+from hydragen_torch.ops import act, flash, gemm
 from hydragen_torch.ops import decode as decode_ops
-from hydragen_torch.ops import flash
+from hydragen_torch.ops.act import rms_norm
 from hydragen_torch.ops.combine import combine_lse, combine_lse_with_stats
-from hydragen_torch.ops.gemm import quantize_rows
 from hydragen_torch.ops.hydragen import (
     _attention,
     fold_queries_for_shared,
@@ -142,12 +142,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
 def rope_cos_sin(cfg: ModelConfig, position_ids: torch.Tensor):
@@ -301,28 +295,52 @@ def model_forward(
               "up": plan.mlp}
     row_tp = {"wo": plan.heads, "down": plan.mlp}
 
-    def qmm(x, family, li, memo):
+    def mode(family):
+        """The product ``family`` takes under ``spec.matmul``."""
+        if spec.matmul == "w8a8" and isinstance(lp[family], Quantized4Tensor):
+            return "w4a8"  # "mixed": an int4 family under the w8a8 mode
+        return spec.matmul
+
+    def s8_pair_read(x, family):
+        """Does ``family`` read ``x`` only through the s8 pair of its rows,
+        quantized once and shared (q/k/v off one norm, gate/up off the
+        other)? A row-parallel family quantizes its own slice."""
+        return (mode(family) in ("w8a8", "w4a8") and not row_tp.get(family)
+                and s8_stacked_eligible(x, lp[family], mode(family)))
+
+    # The per-row quantization of a whole activation; K8 makes it on the card.
+    quantize = gemm.quantize_rows_plain if impl == "torch" else gemm.quantize_rows
+
+    def qmm(x, family, li, a_pre=None):
+        """``x @ family[li]``. ``a_pre``: the s8 pair of ``x``'s rows, where
+        the layer made it; ``x`` then gives only its shape and dtype."""
         w = lp[family]
-        mm = spec.matmul
-        if mm == "w8a8" and isinstance(w, Quantized4Tensor):
-            mm = "w4a8"  # "mixed": an int4 family under the w8a8 mode
+        mm = mode(family)
         sub = {"wo": "btd,dh->bth", "down": "bti,ih->bth"}.get(family, "bth,hd->btd")
         if row_tp.get(family):
             return sharded_qmatmul_stacked_row(x, w, li, sub, mm, mesh, plain=impl == "torch")
-        a_pre = None
-        if mm in ("w8a8", "w4a8") and s8_stacked_eligible(x, w, mm):
-            # One per-row quantization shared by the projections reading the
-            # same activation (q/k/v off one rmsnorm, gate/up off the other).
-            hit = memo.get(id(x))
-            if hit is None:
-                hit = (x, quantize_rows(x.reshape(-1, x.shape[-1])))
-                memo[id(x)] = hit
-            a_pre = hit[1]
+        if not s8_pair_read(x, family):
+            return qmatmul_stacked(x, w, li, sub, impl="dq")
+        if a_pre is None:
+            a_pre = quantize(x.reshape(-1, x.shape[-1]))
         if col_tp.get(family):
             return sharded_qmatmul_stacked(x, w, li, sub, mm, a_pre, plain=impl == "torch")
-        if a_pre is not None:
-            return qmatmul_stacked(x, w, li, "", impl=mm, a_pre=a_pre, plain=impl == "torch")
-        return qmatmul_stacked(x, w, li, sub, impl="dq")
+        return qmatmul_stacked(x, w, li, "", impl=mm, a_pre=a_pre, plain=impl == "torch")
+
+    def norm(h, weight, families, delta=None):
+        """The RMS norm of ``h`` (of ``h + delta``, the residual add folded
+        in, with ``delta``) for ``families``: ``(x, pair, h)``, with ``pair``
+        the s8 pair of ``x``'s rows where a family reads it. Where every
+        family does, on the kernel path, K8 makes the pair and no more: ``x``
+        is then a tensor on the meta device, its shape and dtype alone."""
+        s8 = [f for f in families if s8_pair_read(h, f)]
+        if impl == "kernel" and len(s8) == len(families):
+            pair, h = act.rms_norm_quant(h, weight, cfg.rms_norm_eps, delta)
+            return torch.empty_like(h, device="meta"), pair, h
+        if delta is not None:
+            h = h + delta
+        x = rms_norm(h, weight, cfg.rms_norm_eps)
+        return x, quantize(x.reshape(-1, x.shape[-1])) if s8 else None, h
 
     if mesh is not None:  # this rank's rows against each level's prefixes
         row0, total = spec.rows or (0, b)
@@ -364,14 +382,13 @@ def model_forward(
     def layer(h, li):
         """One decoder layer, each stage in its span (``hg.norm``, ``hg.qkv``,
         ``hg.rope``, ``hg.attn``, ``hg.o_proj``, ``hg.mlp``)."""
-        memo = {}
         resid = h
         with span("norm"):
-            x = rms_norm(h, lp["input_norm"][li], cfg.rms_norm_eps)
+            x, a, _ = norm(h, lp["input_norm"][li], ("wq", "wk", "wv"))
         with span("qkv"):
-            q = qmm(x, "wq", li, memo)
-            k = qmm(x, "wk", li, memo)
-            v = qmm(x, "wv", li, memo)
+            q = qmm(x, "wq", li, a)
+            k = qmm(x, "wk", li, a)
+            v = qmm(x, "wv", li, a)
             if has_bias:
                 q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
             if plan.kv_head0 is not None:  # replicated k/v: the one head this rank reads
@@ -385,17 +402,19 @@ def model_forward(
             attn = attention(li, q, k, v)
         with span("o_proj"):
             attn = attn.transpose(1, 2).reshape(b, t, nh * hd)
-            attn = qmm(attn, "wo", li, memo)
+            attn = qmm(attn, "wo", li)
             if has_bias:
                 attn = attn + lp["bo"][li]
-            h = resid + attn
+        with span("norm"):  # with the residual add h = resid + attn
+            x, a, h = norm(resid, lp["post_attn_norm"][li], ("gate", "up"), delta=attn)
         resid = h
-        with span("norm"):
-            x = rms_norm(h, lp["post_attn_norm"][li], cfg.rms_norm_eps)
         with span("mlp"):
-            g = qmm(x, "gate", li, memo)
-            u = qmm(x, "up", li, memo)
-            m = qmm(torch.nn.functional.silu(g.float()).to(u.dtype) * u, "down", li, memo)
+            g = qmm(x, "gate", li, a)
+            u = qmm(x, "up", li, a)
+            if impl == "kernel" and s8_pair_read(g, "down"):
+                m = qmm(torch.empty_like(g, device="meta"), "down", li, act.silu_mul_quant(g, u))
+            else:
+                m = qmm(torch.nn.functional.silu(g.float()).to(u.dtype) * u, "down", li)
             h = resid + m
         return h, k, v
 

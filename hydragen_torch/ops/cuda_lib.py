@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gemm", "flash", "decode")
+SOURCES = ("gemm", "flash", "decode", "act")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -50,6 +50,10 @@ LAUNCHES: dict[str, int] = {
     "w4a8_matmul_cached": 0,
     "w4a8_matmul": 0,
     "write_token_int4_cached": 0,
+    # K8 (csrc/act.cu): the s8 activations of K1 and K6.
+    "rms_norm_quant": 0,
+    "silu_mul_quant": 0,
+    "quantize_rows": 0,
 }
 # ptxas' report (registers, shared memory, spills) of each build, by source.
 BUILD_LOG: dict[str, str] = {}

@@ -33,9 +33,19 @@ from hydragen_torch.ops.quant import RECIP_127
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row dynamic activation quantization: [M, K] -> (s8, f32 [M, 1]).
-    amax times the f32 reciprocal of 127, as the jitted JAX engine computes
-    it (XLA folds the division by a constant; ``quant.RECIP_127``), on the
-    CPU and on the card alike."""
+    On a CUDA tensor K8 with no prologue (``ops/act.py``, the same codes),
+    else the plain version."""
+    if not x.is_cuda:
+        return quantize_rows_plain(x)
+    from hydragen_torch.ops import act
+
+    return act.quantize_rows_kernel(x)
+
+
+def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``quantize_rows``: amax times the f32 reciprocal of
+    127, as the jitted JAX engine computes it (XLA folds the division by a
+    constant; ``quant.RECIP_127``), on any device."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(amax, min=1e-20) * RECIP_127

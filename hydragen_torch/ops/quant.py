@@ -245,7 +245,10 @@ def qmatmul_stacked(x, w_stacked, layer: int, subscripts: str, impl: str = "dq",
         from hydragen_torch.ops import gemm
 
         K = x.shape[-1]
-        a_q, a_s = a_pre if a_pre is not None else gemm.quantize_rows(x.reshape(-1, K))
+        if a_pre is None:
+            quantize = gemm.quantize_rows_plain if plain else gemm.quantize_rows
+            a_pre = quantize(x.reshape(-1, K))
+        a_q, a_s = a_pre
         if impl == "w8a8":
             fn = gemm.w8a8_cached_plain if plain else gemm.w8a8_matmul_cached
         else:

@@ -37,6 +37,13 @@ from hydragen_torch.ops.quant import qmatmul_stacked, s8_stacked_eligible
 from hydragen_torch.parallel.mesh import Mesh, all_reduce
 
 
+def _quantize(x, plain: bool):
+    """The per-row quantization of ``x``'s rows: K8 on a CUDA tensor, the
+    plain version on the CPU or with ``plain``."""
+    quantize = gemm.quantize_rows_plain if plain else gemm.quantize_rows
+    return quantize(x.reshape(-1, x.shape[-1]))
+
+
 def _s8(layer, a_q, a_s, w, impl: str, plain: bool) -> torch.Tensor:
     """K1 (w8a8) or K6 (w4a8) on this rank's slice, bf16 out."""
     if impl == "w8a8":
@@ -53,8 +60,7 @@ def sharded_qmatmul_stacked(x, w, layer: int, subscripts: str, impl: str, a_pre=
     shared row quantization of ``x``; else the weight-only product. No
     collective."""
     if impl in ("w8a8", "w4a8") and s8_stacked_eligible(x, w, impl):
-        a_q, a_s = a_pre if a_pre is not None else gemm.quantize_rows(
-            x.reshape(-1, x.shape[-1]))
+        a_q, a_s = a_pre if a_pre is not None else _quantize(x, plain)
         y = _s8(layer, a_q, a_s, w, impl, plain)
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
     return qmatmul_stacked(x, w, layer, subscripts, impl="dq")
@@ -67,7 +73,7 @@ def sharded_qmatmul_stacked_row(x, w, layer: int, subscripts: str, impl: str, me
     weight under any mode, its ``impl`` "w4a8" or "dq") the weight-only
     partial in ``x``'s dtype; then the sum over tp."""
     if impl == "w8a8" and s8_stacked_eligible(x, w, impl):
-        a_q, a_s = gemm.quantize_rows(x.reshape(-1, x.shape[-1]))
+        a_q, a_s = _quantize(x, plain)
         y = _s8(layer, a_q, a_s, w, impl, plain)
         y = all_reduce(y, "sum", mesh, "tp")
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)

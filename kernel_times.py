@@ -38,6 +38,12 @@ launch blocks of 64 or 1,024 threads (each held to the plain version byte
 for byte), or multiply by 1/scale where the kernel divides (wrong by
 design), beside a graph node's floor and a ``copy_`` of the token.
 
+``--k8-plans`` times K8's three entries (``ops/act.py``) at
+``chip_smoke.py``'s K8 shapes at every block its kernel takes (threads and
+units a thread), each result held to the plain version as
+``chip_smoke.check_k8`` holds it, and marks ``act_plan``'s choice: the
+readings behind ``act_plan``.
+
 ``--split-policy`` also times K5 at ``chip_smoke.py``'s split shapes (one
 32,768-key sequence over 8 kv heads, int8 and bf16) for each count of items
 an SM that ``ops/flash.py:decode_splits`` could aim for, each held to the
@@ -628,6 +634,58 @@ def k7_variants(failures: list) -> dict:
     return out
 
 
+def k8_plans(failures: list) -> dict:
+    """K8's device ms at each (threads, units a thread) its kernel takes, at
+    each entry and shape of ``chip_smoke.check_k8``."""
+    import chip_smoke
+    from hydragen_torch.ops import act, gemm
+    from hydragen_torch.utils.timing import cuda_graph_time_ms
+
+    dev, bf16, eps = torch.device("cuda"), torch.bfloat16, 1e-5
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for K in chip_smoke.K8_WIDTHS:
+        w = (1 + 0.1 * torch.randn(K, device=dev, generator=g)).to(bf16)
+        plans = act.act_plans(K)
+        for M in chip_smoke.K8_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(bf16)
+            d = (0.5 * torch.randn(M, K, device=dev, generator=g)).to(bf16)
+            entries = {  # name: (op, kernel args, plain)
+                "rms_norm_quant": ("rms_norm_add_quant", (x, d, w, eps),
+                                   lambda: act.rms_norm_quant_plain(x, w, eps, d)),
+                "rms_norm_quant no residual": ("rms_norm_quant", (x, None, w, eps),
+                                               lambda: act.rms_norm_quant_plain(x, w, eps)),
+                "silu_mul_quant": ("silu_mul_quant", (3 * x, d),
+                                   lambda: act.silu_mul_quant_plain(3 * x, d)),
+                "quantize_rows": ("quantize_rows", (x,), lambda: gemm.quantize_rows_plain(x)),
+            }
+            for name, (op, args, plain) in entries.items():
+                args = tuple(a.contiguous() if torch.is_tensor(a) else a for a in args)
+                want = plain()
+                row = {}
+                for plan in plans:
+                    def run(plan=plan):
+                        return act._launch(name.split()[0], op, *args, plan=plan)
+                    res = run()
+                    if op.startswith("rms_norm"):
+                        pair, h = res if op == "rms_norm_add_quant" else (res, x)
+                        ok = chip_smoke.k8_norm_match(x, w, eps, args[1], pair, h)["ok"]
+                    else:
+                        ok = torch.equal(res[0], want[0]) and torch.equal(res[1], want[1])
+                    if not ok:
+                        failures.append(f"k8 plan {plan} {name} M={M} K={K}")
+                    row[f"{plan[0]}x{plan[1]}"] = cuda_graph_time_ms(run, iters=10)
+                    del res
+                best = min(row, key=row.get)
+                chosen = "{}x{}".format(*act.act_plan(K, op))
+                print(f"[k8 plans] {name} M={M} K={K}: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+                      + f" ms; fastest {best}, act_plan {chosen}", flush=True)
+                out[f"{name} M={M} K={K}"] = dict(device_ms=row, fastest=best, act_plan=chosen)
+            del x, d
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split-policy", action="store_true",
@@ -641,6 +699,8 @@ def main() -> int:
     ap.add_argument("--k3-variants", action="store_true",
                     help="also time K3 beside copies with another ring depth or block, or "
                          "that leave out work")
+    ap.add_argument("--k8-plans", action="store_true",
+                    help="also time K8 at every block its kernel takes")
     ap.add_argument("--k7-variants", action="store_true",
                     help="also time K7 beside copies with the old row read late, 2-byte "
                          "loads, or other block sizes")
@@ -679,6 +739,8 @@ def main() -> int:
         report["k3_variants"] = k3_variants(failures)
     if args.k7_variants:
         report["k7_variants"] = k7_variants(failures)
+    if args.k8_plans:
+        report["k8_plans"] = k8_plans(failures)
     if failures:
         print("kernel_times FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

@@ -279,8 +279,9 @@ def port_resolved(resolver: Resolver):
             return resolver.port(kind, x, *fn(x))
         return wrapped
 
-    pairs = [(tgemm, "quantize_rows", spy("rows", tgemm.quantize_rows)),
-             (tllama, "quantize_rows", spy("rows", tllama.quantize_rows))]
+    # Every activation quantization of the port on the CPU runs the plain
+    # version (``gemm.quantize_rows`` and K8's entries call it there).
+    pairs = [(tgemm, "quantize_rows_plain", spy("rows", tgemm.quantize_rows_plain))]
     for mod in (tcache, tdecode, tllama):
         for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
             if hasattr(mod, name):
