@@ -196,6 +196,7 @@ class DecodeStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}  # kernel launches one replay makes
         self.collectives: dict = {}  # counted collectives one replay makes
+        self.collective_bytes: dict = {}  # and the bytes they are handed
         self.capture_s = 0.0
 
 
@@ -699,13 +700,14 @@ class HydragenLlama:
         t0 = time.perf_counter()
         launches: dict = {}
         collectives: dict = {}
+        nbytes: dict = {}
         # Under a mesh, PyTorch's NCCL watchdog thread queries the events of
         # earlier collectives while this thread captures: "thread_local"
         # lets it (the default, "global", would invalidate the capture).
         mode = "global" if self.mesh is None else "thread_local"
         try:
             with span("capture"), cuda_lib.captured_launches(launches), \
-                    mesh_lib.captured_collectives(collectives), torch.cuda.graph(
+                    mesh_lib.captured_collectives(collectives, nbytes), torch.cuda.graph(
                         graph, pool=self._graph_pool, stream=self._graph_stream,
                         capture_error_mode=mode):
                 body()
@@ -713,6 +715,7 @@ class HydragenLlama:
             raise RuntimeError(f"decode step capture failed for {st.key}: {e}") from e
         st.capture_s = time.perf_counter() - t0
         st.graph, st.launches, st.collectives = graph, launches, collectives
+        st.collective_bytes = nbytes
 
     def _decode_steps(self, st, steps: int, body=None) -> list:
         """``steps`` decode steps over ``st``: replays of its graph (the first
@@ -741,7 +744,7 @@ class HydragenLlama:
                         self._capture(st, body)
                     st.graph.replay()
                     cuda_lib.add_launches(st.launches)
-                    mesh_lib.add_collectives(st.collectives)
+                    mesh_lib.add_collectives(st.collectives, st.collective_bytes)
                 if st.logits is not None:
                     logits.append(st.logits.clone())
         return logits

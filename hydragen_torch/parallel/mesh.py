@@ -18,9 +18,11 @@ The backend is NCCL for CUDA tensors on distinct cards and gloo on the CPU,
 or when ranks share one card (NCCL refuses two ranks on one device). Gloo
 collectives on CUDA tensors are staged through host memory here; only the
 collective is staged, never a kernel's input. Every collective goes through
-a counted wrapper (``COLLECTIVES``), as ``ops/cuda_lib.LAUNCHES`` counts
-kernel launches, and a CUDA graph's capture records its counts for each
-replay in the same way.
+a counted wrapper (``COLLECTIVES``, and the bytes it is handed in
+``COLLECTIVE_BYTES``), as ``ops/cuda_lib.LAUNCHES`` counts kernel launches,
+and a CUDA graph's capture records its counts for each replay in the same
+way. While a profiler records, each wrapper is a host range
+``hg.all_reduce`` or ``hg.all_gather`` (``utils/profiling.span``).
 
 ``launch(fn, world, ...)`` spawns ``fn(rank, world, *args)`` in ``world``
 processes (the spawn start method) with a time limit on the group's set-up
@@ -44,36 +46,53 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from hydragen_torch.utils.profiling import span
+
 AXES = ("dp", "sp", "tp")
 
 # Calls of each counted collective. The tests and ``chip_smoke.py`` hold
 # them exactly, as they hold kernel launches.
 COLLECTIVES: dict[str, int] = {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather": 0}
+# Bytes this rank hands to each counted collective: the tensor it reduces
+# (a low-precision sum in its f32 copy), or the piece it contributes to a
+# gather.
+COLLECTIVE_BYTES: dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 
 
 def reset_collectives() -> None:
     for name in COLLECTIVES:
         COLLECTIVES[name] = 0
+        COLLECTIVE_BYTES[name] = 0
+
+
+def _count(name: str, x: torch.Tensor) -> None:
+    COLLECTIVES[name] += 1
+    COLLECTIVE_BYTES[name] += x.numel() * x.element_size()
 
 
 @contextlib.contextmanager
-def captured_collectives(into: dict):
+def captured_collectives(into: dict, nbytes: dict):
     """Within the block (a CUDA graph's capture), the counts go to ``into``
-    and COLLECTIVES is left as it was; ``add_collectives(into)`` counts one
+    and the bytes to ``nbytes``, and COLLECTIVES and COLLECTIVE_BYTES are
+    left as they were; ``add_collectives(into, nbytes)`` counts one
     replay."""
-    before = dict(COLLECTIVES)
+    before = dict(COLLECTIVES), dict(COLLECTIVE_BYTES)
     try:
         yield into
     finally:
-        for name, n in COLLECTIVES.items():
-            if n != before[name]:
-                into[name] = n - before[name]
-        COLLECTIVES.update(before)
+        for counter, was, sink in ((COLLECTIVES, before[0], into),
+                                   (COLLECTIVE_BYTES, before[1], nbytes)):
+            for name, n in counter.items():
+                if n != was[name]:
+                    sink[name] = n - was[name]
+            counter.update(was)
 
 
-def add_collectives(counts: dict) -> None:
+def add_collectives(counts: dict, nbytes: dict) -> None:
     for name, n in counts.items():
         COLLECTIVES[name] += n
+    for name, n in nbytes.items():
+        COLLECTIVE_BYTES[name] += n
 
 
 # Host seconds spent inside the counted collectives (host staging, the
@@ -205,18 +224,19 @@ def all_reduce(x: torch.Tensor, op: str, mesh: Mesh, axis: str) -> torch.Tensor:
     backend's reduction order."""
     if not mesh.active(axis):
         return x
-    COLLECTIVES[f"all_reduce_{op}"] += 1
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    wide = op == "sum" and x.dtype in (torch.bfloat16, torch.float16)
-    y = x.float() if wide else x.clone()
-    with _clock(y):
-        if _staged(mesh, y):
-            h = y.cpu()
-            dist.all_reduce(h, op=red, group=mesh.groups[axis])
-            y.copy_(h)
-        else:
-            dist.all_reduce(y, op=red, group=mesh.groups[axis])
-    return y.to(x.dtype) if wide else y
+    with span("all_reduce"):
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        wide = op == "sum" and x.dtype in (torch.bfloat16, torch.float16)
+        y = x.float() if wide else x.clone()
+        _count(f"all_reduce_{op}", y)
+        with _clock(y):
+            if _staged(mesh, y):
+                h = y.cpu()
+                dist.all_reduce(h, op=red, group=mesh.groups[axis])
+                y.copy_(h)
+            else:
+                dist.all_reduce(y, op=red, group=mesh.groups[axis])
+        return y.to(x.dtype) if wide else y
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.Tensor:
@@ -224,18 +244,19 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.T
     in rank order of ``axis``."""
     if not mesh.active(axis):
         return x
-    COLLECTIVES["all_gather"] += 1
-    src = x.contiguous()
-    staged = _staged(mesh, src)
-    with _clock(src):
-        if staged:
-            src = src.cpu()
-        parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
-        dist.all_gather(parts, src, group=mesh.groups[axis])
-        out = torch.cat(parts, dim=dim)
-        if staged:
-            out = out.to(x.device)
-    return out
+    with span("all_gather"):
+        src = x.contiguous()
+        _count("all_gather", src)
+        staged = _staged(mesh, src)
+        with _clock(src):
+            if staged:
+                src = src.cpu()
+            parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
+            dist.all_gather(parts, src, group=mesh.groups[axis])
+            out = torch.cat(parts, dim=dim)
+            if staged:
+                out = out.to(x.device)
+        return out
 
 
 # ---------------------------------------------------------------------------
