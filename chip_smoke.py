@@ -41,6 +41,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    chain at a mean of squares a few f32 steps from ``torch.mean``'s
    (``k8_norm_match``); device ms of each beside the plain chain's and the
    bytes bound. Every launch gate below counts K8 too (``expected_k8``).
+   K9 at the cells' shapes (``check_k9``: the docs cell's unique prefill and
+   decode step, Yi's 32,768-token prompt, suffixes and decode step, a tp=4
+   rank of the 67B's prompt and decode step): its rotated q, k, v and every
+   byte of the cache equal the plain chain's, a decode step's slot read from
+   device memory; device ms beside the plain chain's and the bytes bound.
+   Every launch gate below counts K9 too, one a layer in each forward that
+   writes an int8 cache through it (not the batcher's).
 4. main path: ``HydragenLlama`` at ``PRESETS["llama-2-7b"]`` full width,
    random weights from a seeded ``torch.Generator``, ``quantization="w8a8"``,
    ``kv_quant="int8"``; one request with a 2,048-token shared prompt and 256
@@ -547,6 +554,7 @@ def check_kernels(report: dict, failures: list, time_ms) -> None:
     check_gqa_kernels(report, failures, time_ms, g, record)
     check_flash_shapes(report, time_ms, g, record)
     check_k8(report, g, record)
+    check_k9(report, g, record)
 
 
 # K8's shapes in the kernel phase: M of a decode step, of request 2's unique
@@ -671,6 +679,107 @@ def check_k8(report: dict, g, record) -> None:
         report[name] = dict(**shapes[name][key], shapes=shapes[name],
                             at=f"{key.split(' ', 1)[1]}, bf16 in (device_ms and plain_ms: "
                                f"from CUDA graphs of the calls)")
+
+
+# K9's shapes in the kernel phase, the cells' (``portbench/``): label ->
+# (rows, new tokens, q heads, kv heads, destination). DeepSeek-7B's docs
+# cell (32 kv heads, a BSHD unique cache with flat scales), Yi-6B's few-shot
+# cell (4 kv heads, a BHSD unique cache; its 32,768-token prompt into the
+# level) and a tp=4 rank of DeepSeek-67B (16 q and 2 kv heads).
+K9_SHAPES = {
+    "docs unique prefill": (128, 512, 32, 32, "bshd"),
+    "docs decode": (128, 1, 32, 32, "bshd"),
+    "yi shared prefill": (1, 32768, 32, 4, "level"),
+    "yi unique prefill": (256, 64, 32, 4, "bhsd"),
+    "yi decode": (256, 1, 32, 4, "bhsd"),
+    "tp4 rank shared prefill": (1, 3584, 16, 2, "level"),
+    "tp4 rank decode": (256, 1, 16, 2, "bhsd"),
+}
+
+
+def check_k9(report: dict, g, record) -> None:
+    """K9 (``csrc/rope.cu``) at each of ``K9_SHAPES``, head dim 128, bf16,
+    held to its plain chain bit for bit (the rotated q, k and v, and every
+    byte of the destination: codes, scales, the tokens and rows it must
+    not touch), one launch a call; a decode step writes at a slot read from
+    device memory. device_ms: a CUDA graph of the calls; plain_ms the same
+    of the plain chain; beside the bytes bound (q, k, v and the cos/sin
+    rows read once; q and k, v where the prefill's attention reads it, the
+    codes and the scales written once). The report's figures are at the
+    docs cell's unique prefill; every shape's are under "shapes"."""
+    from hydragen_torch.core import cache as kvcache
+    from hydragen_torch.ops import cuda_lib, rope
+    from hydragen_torch.utils.timing import bound_ms, cuda_graph_time_ms
+
+    dev, bf16, hd = torch.device("cuda"), torch.bfloat16, 128
+    shapes = {}
+    for label, (b, t, nh, nkv, kind) in K9_SHAPES.items():
+        U = t + NEW_TOKENS  # the unique cache holds the new tokens after these
+
+        def cache():  # the same random codes each time
+            gc = torch.Generator(device=dev).manual_seed(7)
+            if kind == "level":
+                c = kvcache.allocate_cache(1, 1, 16, [b], [t], nkv, hd, quantized=True,
+                                           device=dev)
+            else:
+                c = kvcache.allocate_cache(1, b, U, [], [], nkv, hd, quantized=True,
+                                           unique_bshd=kind == "bshd", device=dev)
+            for x in buffers(c):
+                if x.dtype == torch.int8:
+                    x.copy_(torch.randint(-127, 128, x.shape, generator=gc, device=dev,
+                                          dtype=torch.int8))
+            return c
+
+        def buffers(c):
+            return [c.unique_k, c.unique_v, c.unique_k_scale, c.unique_v_scale,
+                    *[y for lv in c.shared for y in (lv.k, lv.v, lv.k_scale, lv.v_scale)]]
+
+        def dest(c, slot):
+            if kind == "level":
+                return kvcache.level_kv_dest(c.shared[0], 0, b, t)
+            return kvcache.unique_kv_dest(c, 0, b, slot, t)
+
+        q = (2 * torch.randn(b, t, nh * hd, device=dev, generator=g)).to(bf16)
+        k = (2 * torch.randn(b, t, nkv * hd, device=dev, generator=g)).to(bf16)
+        v = torch.randn(b, t, nkv * hd, device=dev, generator=g).to(bf16)
+        ang = torch.rand(b, t, hd // 2, device=dev, generator=g) * 6.2832
+        cos = torch.cat([ang.cos()] * 2, -1).to(bf16)
+        sin = torch.cat([ang.sin()] * 2, -1).to(bf16)
+        slot = torch.tensor(U - 1, dtype=torch.int32, device=dev) if t == 1 else 0
+        kc, pc = cache(), cache()
+        kd, pd = dest(kc, slot), dest(pc, slot)
+        before = cuda_lib.LAUNCHES["rope_kv_quant"]
+        got = rope.rope_kv_quant(q, k, v, cos, sin, kd, nh, nkv, hd)
+        launched = cuda_lib.LAUNCHES["rope_kv_quant"] - before
+        want = rope.rope_kv_quant_plain(q, k, v, cos, sin, pd, nh, nkv, hd)
+        torch.cuda.synchronize()
+        outs = all(torch.equal(x, y) for x, y in zip(got, want))
+        bufs = all(torch.equal(x, y) for x, y in zip(buffers(kc), buffers(pc)))
+        del got, want
+        nbytes = (2 * b * t * (nh + 2 * nkv) * hd + 2 * 2 * b * t * hd  # q, k, v; cos, sin
+                  + 2 * b * t * (nh + nkv + (nkv if t > 1 else 0)) * hd  # q', k' (v)
+                  + 2 * b * t * nkv * (hd + 4))  # codes and scales
+        r = dict(device_ms=cuda_graph_time_ms(
+                     lambda: rope.rope_kv_quant(q, k, v, cos, sin, kd, nh, nkv, hd), iters=10),
+                 plain_ms=cuda_graph_time_ms(
+                     lambda: rope.rope_kv_quant_plain(q, k, v, cos, sin, pd, nh, nkv, hd),
+                     iters=3 if t > 1 else 10, warmup=1))
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0, "bf16")
+        r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        ok = outs and bufs and launched == 1
+        record(f"rope_kv_quant {label}", ok,
+               f"b={b} t={t} heads {nh}/{nkv} {kind}: launches {launched} outputs bit-equal "
+               f"{outs} cache bit-equal {bufs} device_ms {r['device_ms']:.4f} plain_ms "
+               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
+               f"{nbytes / 1e9:.4f} GB) share of the bound {100 * r['bound_share']:.1f} %")
+        shapes[label] = dict(r, rows=b, tokens=t, heads=[nh, nkv], dest=kind, bit_equal=ok)
+        del q, k, v, cos, sin, kc, pc, kd, pd
+    key = "docs unique prefill"
+    report["rope_kv_quant"] = dict(
+        **shapes[key], shapes=shapes,
+        at=f"{key}: 128 rows x 512 tokens, 32 q / 32 kv heads of 128, into a BSHD unique "
+           f"cache with flat scales, bf16 in (device_ms and plain_ms: from CUDA graphs of "
+           f"the calls)")
 
 
 def check_k6_tp2(report: dict, time_ms, g, record) -> None:
@@ -1326,13 +1435,15 @@ def expected_launches(L: int, T: int) -> dict:
       steps (7L GEMMs, L level reads, L unique reads each);
     - request 2: a unique prefill over the kept level (7L GEMMs, L level
       reads, L causal flash over the suffixes) and T-1 decode steps;
-    - in each of those 2T forwards, K8's launches (``expected_k8``)."""
+    - in each of those 2T forwards, K8's launches (``expected_k8``) and K9 a
+      layer (each writes its int8 KV: the level, the suffixes, the slot)."""
     return {
         "w8a8_matmul_cached": 2 * 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1) + L * T,
         "decode_attention_cached": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
         **expected_k8(L, 2 * T),
+        "rope_kv_quant": 2 * L * T,
     }
 
 
@@ -1341,7 +1452,9 @@ def expected_launches_int4(L: int, T: int) -> dict:
     GEMM (the LM head stays weight-only int8), the int8 shared level read by
     K2, the unique read by K3 at kv_bits=4, and each decode layer's K and V
     token written by one int4 write launch (the in-place decode path writes
-    each layer right after its read), T-1 steps a request."""
+    each layer right after its read), T-1 steps a request. K9 only in the
+    shared prefill, whose level is int8; the int4 unique writes keep the
+    chain."""
     return {
         "w4a8_matmul_cached": 2 * 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1) + L * T,
@@ -1349,6 +1462,7 @@ def expected_launches_int4(L: int, T: int) -> dict:
         "write_token_int4_cached": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
         **expected_k8(L, 2 * T),
+        "rope_kv_quant": L,
     }
 
 
@@ -1358,13 +1472,15 @@ def expected_launches_gqa(L: int, T: int) -> dict:
     layer's unique read is the small-M read (K5, M = 4 folded rows) in place
     of K3: 2L(T-1) launches, one a layer a step, and 0 of K3. The prefills
     are as on the main path: the causal flash calls have M = 4 x 2,048 and
-    4 x 128 folded rows, so they stay on K2's kernel (K4)."""
+    4 x 128 folded rows, so they stay on K2's kernel (K4). K9 as on the
+    main path, a layer in each forward."""
     return {
         "w8a8_matmul_cached": 2 * 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1) + L * T,
         "flash_decode_bhsd": 2 * L * (T - 1),
         "flash_attention_bhsd": 2 * L,
         **expected_k8(L, 2 * T),
+        "rope_kv_quant": 2 * L * T,
     }
 
 
@@ -1374,12 +1490,14 @@ def expected_launches_no_sharing(L: int, T: int, mesh: str = "") -> dict:
     tokens), repeated into every row; then T-1 decode steps, each layer
     reading its row's whole history (prompt copy and decoded tokens) with
     one small-M read and no level read. K8 in each of the T forwards, under
-    ``mesh`` (``expected_k8``)."""
+    ``mesh`` (``expected_k8``); K9 in the prefill alone (the baseline's
+    decode writes every layer after the step, through the batched update)."""
     return {
         "w8a8_matmul_cached": 7 * L * T,
         "flash_decode_bhsd": L * (T - 1),
         "flash_attention_bhsd": L,
         **expected_k8(L, T, mesh),
+        "rope_kv_quant": L,
     }
 
 
@@ -1855,13 +1973,14 @@ def expected_launches_load(L: int, T: int, mesh: str = "") -> dict:
     """Request 1 of the main path on the HF-loaded model: a shared prefill
     (7L GEMMs, L causal flash) and T-1 decode steps (7L GEMMs, L level
     reads, L unique reads each), every GEMM on K1's f32-scale
-    instantiation; K8 in each of the T forwards, under ``mesh``."""
+    instantiation; K8 and K9 in each of the T forwards, K8 under ``mesh``."""
     return {
         "w8a8_matmul_cached_f32_scales": 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1),
         "decode_attention_cached": L * (T - 1),
         "flash_attention_bhsd": L,
         **expected_k8(L, T, mesh),
+        "rope_kv_quant": L * T,
     }
 
 
@@ -2282,7 +2401,8 @@ def expected_launches_serving(L: int, admissions: int, steps: int, mesh: str = "
     the folded queries, L causal suffix reads); each decode step runs 7L
     GEMMs and L level reads, and its unique read is the plain masked ring
     read (no K3, no K5), as in the JAX package. K8 in every forward, under
-    ``mesh``."""
+    ``mesh``. No K9: an admission's KV goes to the ring by its scatter and a
+    step's slot is written after its masked read, both by the chain."""
     return {
         "w8a8_matmul_cached": 7 * L * (admissions + steps),
         "flash_attention_cached_bhsd": L * (admissions + steps),
@@ -2557,10 +2677,10 @@ def drive_grouped_stream(args, failures: list, card: str) -> None:
 def only_kernel(keep: str | None):
     """Within the block, every kernel wrapper but ``keep`` is replaced by its
     plain version (module attributes, which the model reads at call time);
-    ``keep=None`` leaves them all on the kernel. K8's three entries are
-    among the others: a run of one kernel alone takes the plain chains for
-    the s8 activations too."""
-    from hydragen_torch.ops import act, decode, flash, gemm
+    ``keep=None`` leaves them all on the kernel. K8's three entries and K9
+    are among the others: a run of one kernel alone takes the plain chains
+    for the s8 activations, RoPE and the int8 KV writes too."""
+    from hydragen_torch.ops import act, decode, flash, gemm, rope
 
     # launch key: (module, the attribute the model calls, its plain version);
     # flash_attention_bhsd routes to K2's kernel or to K5 by the two private
@@ -2579,6 +2699,7 @@ def only_kernel(keep: str | None):
         "rms_norm_quant": (act, "rms_norm_quant", act.rms_norm_quant_plain),
         "silu_mul_quant": (act, "silu_mul_quant", act.silu_mul_quant_plain),
         "quantize_rows": (gemm, "quantize_rows", gemm.quantize_rows_plain),
+        "rope_kv_quant": (rope, "rope_kv_quant", rope.rope_kv_quant_plain),
     }
     saved = []
     for name, (mod, attr, plain) in swaps.items():
@@ -2715,7 +2836,8 @@ def expected_launches_request1(L: int, T: int, int4: bool = False, mesh: str = "
     flash) and T-1 decode steps (7L GEMMs, L level reads, L unique reads).
     With ``int4`` (case (d), w4a8 at tp=2): the five column-parallel
     projections a layer on K6, o and down on the weight-only product, no K1.
-    K8 in each of the T forwards, under ``mesh`` (``expected_k8``)."""
+    K8 in each of the T forwards, under ``mesh`` (``expected_k8``), and K9
+    a layer in each (the KV is int8 under every mesh)."""
     gemm = {"w4a8_matmul_cached": 5 * L * T} if int4 else {"w8a8_matmul_cached": 7 * L * T}
     return {
         **gemm,
@@ -2723,6 +2845,7 @@ def expected_launches_request1(L: int, T: int, int4: bool = False, mesh: str = "
         "decode_attention_cached": L * (T - 1),
         "flash_attention_bhsd": L,
         **expected_k8(L, T, mesh),
+        "rope_kv_quant": L * T,
     }
 
 
@@ -3034,13 +3157,14 @@ def expected_launches_gqa_request1(L: int, T: int, mesh: str = "") -> dict:
     """Request 1 alone on Llama-3-8B (w8a8 + int8 KV): a shared prefill (7L
     GEMMs, L causal flash), then T-1 decode steps of 7L GEMMs, L level reads
     (K2) and L small-M unique reads (K5, the unique cache being BHSD); K8 in
-    each of the T forwards, under ``mesh``."""
+    each of the T forwards, under ``mesh``; K9 a layer in each."""
     return {
         "w8a8_matmul_cached": 7 * L * T,
         "flash_attention_cached_bhsd": L * (T - 1),
         "flash_decode_bhsd": L * (T - 1),
         "flash_attention_bhsd": L,
         **expected_k8(L, T, mesh),
+        "rope_kv_quant": L * T,
     }
 
 

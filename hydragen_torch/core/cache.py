@@ -27,6 +27,7 @@ import torch
 
 from hydragen_torch.ops import decode as decode_ops
 from hydragen_torch.ops.quant import nibble_merge, quantize_kv, quantize_kv4
+from hydragen_torch.ops.rope import KVDest
 from hydragen_torch.parallel.shard_attn import fold_segments
 
 
@@ -248,15 +249,55 @@ def set_shared_level_buffers(cache: KVCache, level_idx: int, seq_lens: torch.Ten
     return cache
 
 
+def level_kv_dest(level: SharedLevel, layer: int, b: int, t: int) -> KVDest:
+    """Layer ``layer``'s int8 KV of a level being prefilled with ``t`` tokens
+    in rows ``[0, b)``: the buffers' tokens take this rank's window of the
+    prompt (all of it unless sp splits the level)."""
+    off = level.seq_offset
+    n = max(0, min(t, off + level.max_seq_len) - off)
+    return KVDest(level.k[layer, :b], level.v[layer, :b], level.k_scale[layer, :b],
+                  level.v_scale[layer, :b], 0, (min(off, t), n))
+
+
+def unique_kv_dest(cache: KVCache, layer: int, b: int, slot, t: int) -> KVDest:
+    """Layer ``layer``'s int8 unique KV of rows ``[0, b)`` from token ``slot``
+    (a host int or a device int32 scalar) on, for ``t`` new tokens, as BHSD
+    views of the cache's layout."""
+    hkv = cache.unique_k.shape[3 if cache.unique_bshd else 2]
+    U = cache.max_unique_seq_len
+
+    def view(payload, scale):
+        p, s = payload[layer, :b], scale[layer, :b]
+        if cache.unique_bshd:
+            return p.transpose(1, 2), s.view(b, U, hkv).transpose(1, 2)
+        return p, s
+
+    (k, ks), (v, vs) = view(cache.unique_k, cache.unique_k_scale), \
+        view(cache.unique_v, cache.unique_v_scale)
+    return KVDest(k, v, ks, vs, slot, (0, t))
+
+
 def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
-                          row_start: int = 0) -> KVCache:
+                          row_start: int = 0, layer: int | None = None) -> KVCache:
     """Write prefill KVs at unique positions ``[start, start+t)`` of rows
     ``[row_start, row_start+b)``, in place.
 
     k, v: ``[L, b, hkv, t, hd]`` or pre-quantized ``(payload, scale)`` pairs
     (scale ``[L, b, hkv, t]``; at int4 the payload holds unpacked int4
-    values).
+    values). With ``layer``, one layer's ``[b, hkv, t, hd]`` (or pairs),
+    written into that layer alone.
     """
+    if layer is not None:  # the same write over a cache of that layer's views
+        one = dataclasses.replace(
+            cache, **{f: getattr(cache, f)[layer:layer + 1] for f in (
+                "unique_k", "unique_v", "unique_k_scale", "unique_v_scale")
+                if getattr(cache, f) is not None})
+
+        def lift(x):
+            return tuple(y[None] for y in x) if isinstance(x, tuple) else x[None]
+
+        update_unique_prefill(one, lift(k), lift(v), start, row_start)
+        return cache
     if isinstance(k, tuple):
         assert cache.quantized
         (kq, ks), (vq, vs) = k, v

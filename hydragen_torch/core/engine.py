@@ -49,7 +49,6 @@ from hydragen_torch.core.cache import (
     set_shared_level_buffers,
     shared_len_for_batch,
     update_unique_decode,
-    update_unique_prefill,
 )
 from hydragen_torch.models.config import ModelConfig
 from hydragen_torch.models.llama import (
@@ -601,17 +600,14 @@ class HydragenLlama:
         # No sharing: the prefix was copied to the front of each unique row,
         # so unique positions are global and the copy is attention history.
         unique_pos = pos if nohydra else ar.expand(b, t)
-        hidden, nk, nv = model_forward(
+        # Each layer writes its KV into the unique rows. All rows share one
+        # prefix length (generate allows one prefix), so the suffixes are one
+        # block after the copied prefix.
+        hidden, self.cache = model_forward(
             self.params, self.config, self.cache, input_ids, pos, unique_pos, spec,
             history_lens=shared_lens if nohydra else None,
-            quantize_new_kv=self.cache.unique_bits if self.cache.quantized else None,
-            mesh=self.mesh,
+            unique_start=int(shared_lens[0]) if nohydra and b else 0, mesh=self.mesh,
         )
-        # All rows share one prefix length (generate allows one prefix), so
-        # the suffixes are one block after the copied prefix.
-        with span("kv_write"):
-            update_unique_prefill(self.cache, nk, nv,
-                                  start=int(shared_lens[0]) if nohydra and b else 0)
         return logits_from_hidden(self.params, self.config, hidden,
                                   seq_lens if has_pad else None, mesh=self.mesh)
 

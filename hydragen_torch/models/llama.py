@@ -32,9 +32,15 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from hydragen_torch.core.cache import decode_slot, write_decode_token_layer
+from hydragen_torch.core.cache import (
+    decode_slot,
+    level_kv_dest,
+    unique_kv_dest,
+    update_unique_prefill,
+    write_decode_token_layer,
+)
 from hydragen_torch.models.config import ModelConfig
-from hydragen_torch.ops import act, flash, gemm
+from hydragen_torch.ops import act, flash, gemm, rope
 from hydragen_torch.ops import decode as decode_ops
 from hydragen_torch.ops.act import rms_norm
 from hydragen_torch.ops.combine import combine_lse, combine_lse_with_stats
@@ -57,6 +63,7 @@ from hydragen_torch.ops.quant import (
     quantize_kv4,
     s8_stacked_eligible,
 )
+from hydragen_torch.ops.rope import apply_rope
 from hydragen_torch.parallel.mesh import all_gather
 from hydragen_torch.parallel.shard_attn import fold_segments, sharded_level_attention
 from hydragen_torch.parallel.shard_gemm import (
@@ -180,15 +187,6 @@ def rope_cos_sin(cfg: ModelConfig, position_ids: torch.Tensor):
     return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x ``[b, h, t, d]`` (BHSD); cos/sin ``[b, t, d]``. rotate_half
-    convention, accumulated in f32."""
-    d = x.shape[-1]
-    rot = torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
-    out = x.float() * cos[:, None].float() + rot.float() * sin[:, None].float()
-    return out.to(x.dtype)
-
-
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -233,6 +231,7 @@ def model_forward(
     inplace_slot: int | torch.Tensor | None = None,
     quantize_new_kv: int | None = None,
     fill_level: int | None = None,
+    unique_start: int | None = None,
     mesh=None,
 ):
     """Run the decoder stack in one of the three cache modes.
@@ -251,14 +250,21 @@ def model_forward(
             decode step passes its own, ``unique_position_ids[0]``, as the
             JAX engine passes a traced value, so a captured step writes the
             slot each replay computes). Each layer writes its token's KV
-            into the cache in place right after its attention. Returns
-            ``(hidden, cache)``.
+            into the cache in place (an int8 cache through K9 before its
+            attention, which ``history_lens`` keeps off the slot; other
+            caches right after it). Returns ``(hidden, cache)``.
         quantize_new_kv: 8 (or 4) -> return each layer's new KV quantized
             (``quantize_kv``, or unpacked int4 from ``quantize_kv4``) instead
             of in the compute dtype.
         fill_level: shared-prefill write path: the index of the level being
             prefilled. Each layer writes its new KV (quantized if the level
-            stores int8) straight into that level's buffers, in place.
+            stores int8, through K9) straight into that level's buffers, in
+            place; the level is not read until it is active. Returns
+            ``(hidden, cache)``.
+        unique_start: unique-prefill write path: each layer writes its new
+            KV into unique rows ``[0, b)`` at tokens ``[unique_start,
+            unique_start + t)``, in place (an int8 cache through K9; the
+            no-sharing baseline's ``history_lens`` stop short of them).
             Returns ``(hidden, cache)``.
         mesh: a ``parallel.Mesh``: ``params`` and ``cache`` are this rank's
             shards and ``input_ids`` its rows (``spec.rows``). The heads are
@@ -269,7 +275,7 @@ def model_forward(
 
     Returns ``(hidden [b, t, H], new_k [L, b, hkv, t, hd], new_v)`` by
     default (new_k/new_v as ``(payload, scale)`` pairs under
-    ``quantize_new_kv``), or ``(hidden, cache)`` for the two write paths.
+    ``quantize_new_kv``), or ``(hidden, cache)`` for the three write paths.
     """
     impl = pick_impl(spec.impl)
     b, t = input_ids.shape
@@ -379,9 +385,10 @@ def model_forward(
         return (one(cache.unique_k, cache.unique_k_scale),
                 one(cache.unique_v, cache.unique_v_scale))
 
-    def layer(h, li):
+    def layer(h, li, dest=None):
         """One decoder layer, each stage in its span (``hg.norm``, ``hg.qkv``,
-        ``hg.rope``, ``hg.attn``, ``hg.o_proj``, ``hg.mlp``)."""
+        ``hg.rope``, ``hg.attn``, ``hg.o_proj``, ``hg.mlp``). ``dest``: where
+        K9 writes the layer's int8 KV, or None."""
         resid = h
         with span("norm"):
             x, a, _ = norm(h, lp["input_norm"][li], ("wq", "wk", "wv"))
@@ -395,9 +402,12 @@ def model_forward(
                 heads = slice(plan.kv_head0 * hd, (plan.kv_head0 + 1) * hd)
                 k, v = k[..., heads], v[..., heads]
         with span("rope"):
-            q = apply_rope(q.reshape(b, t, nh, hd).transpose(1, 2), cos, sin)
-            k = apply_rope(k.reshape(b, t, nkv, hd).transpose(1, 2), cos, sin)
-            v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+            if dest is not None:  # K9: RoPE and the int8 KV write in one pass
+                q, k, v = rope.rope_kv_quant(q, k, v, cos, sin, dest, nh, nkv, hd)
+            else:
+                q = apply_rope(q.reshape(b, t, nh, hd).transpose(1, 2), cos, sin)
+                k = apply_rope(k.reshape(b, t, nkv, hd).transpose(1, 2), cos, sin)
+                v = v.reshape(b, t, nkv, hd).transpose(1, 2)
         with span("attn"):
             attn = attention(li, q, k, v)
         with span("o_proj"):
@@ -498,15 +508,22 @@ def model_forward(
             attn = combine_lse(outs, lses)
         return attn
 
+    # K9 writes a layer's KV where it goes to an 8-bit cache on the kernel
+    # path; the chain (apply_rope, then the mode's write) everywhere else.
+    k9 = impl == "kernel" and rope.takes(h, hd)
+
     if fill_level is not None:
-        assert inplace_slot is None
+        assert inplace_slot is None and unique_start is None
         lvl = cache.shared[fill_level]
         assert b <= lvl.max_batch_size and t <= lvl.global_seq_len
         # This rank's slice of the level's tokens (all of them unless sp splits it).
         off = lvl.seq_offset
         n = max(0, min(t, off + lvl.max_seq_len) - off)
+        fused = k9 and lvl.quantized
         for li in range(L):
-            h, k, v = layer(h, li)
+            h, k, v = layer(h, li, level_kv_dest(lvl, li, b, t) if fused else None)
+            if fused:
+                continue
             with span("kv_write"):
                 k, v = k[:, :, off:off + n], v[:, :, off:off + n]
                 if lvl.quantized:
@@ -520,12 +537,27 @@ def model_forward(
     if inplace_slot is not None:
         assert t == 1, "inplace_slot is a single-token decode path"
         slot = decode_slot(cache, inplace_slot, h.device)
+        # This step's token is never in its own history (lens mask it), so
+        # writing it before or after its layer's read is safe; under a ring
+        # mask the write stays after the read.
+        fused = k9 and cache.quantized and kv_bits == 8 and history_mask is None
         for li in range(L):
-            h, k, v = layer(h, li)
-            # This step's token is never in its own history (lens mask it),
-            # so writing it right after its layer's read is safe.
+            h, k, v = layer(h, li, unique_kv_dest(cache, li, b, slot.slot, 1) if fused else None)
+            if fused:
+                continue
             with span("kv_write"):
                 write_decode_token_layer(cache, li, k, v, slot, plain=impl == "torch")
+        return final_norm(h), cache
+
+    if unique_start is not None:
+        fused = k9 and cache.quantized and kv_bits == 8
+        for li in range(L):
+            h, k, v = layer(h, li, unique_kv_dest(cache, li, b, unique_start, t)
+                            if fused else None)
+            if fused:
+                continue
+            with span("kv_write"):  # quantized there, in the cache's format
+                update_unique_prefill(cache, k, v, start=unique_start, layer=li)
         return final_norm(h), cache
 
     new_k, new_v = [], []

@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gemm", "flash", "decode", "act")
+SOURCES = ("gemm", "flash", "decode", "act", "rope")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -54,6 +54,8 @@ LAUNCHES: dict[str, int] = {
     "rms_norm_quant": 0,
     "silu_mul_quant": 0,
     "quantize_rows": 0,
+    # K9 (csrc/rope.cu): a layer's RoPE and its int8 KV write.
+    "rope_kv_quant": 0,
 }
 # ptxas' report (registers, shared memory, spills) of each build, by source.
 BUILD_LOG: dict[str, str] = {}

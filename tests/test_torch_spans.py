@@ -32,10 +32,10 @@ def params():
     return init_params(ModelConfig(**CFG), torch.Generator().manual_seed(0))
 
 
-def _engine(params, bucket=128):
+def _engine(params, bucket=128, kv_quant="int8"):
     eng = HydragenLlama(ModelConfig(**CFG), params, quantization="w8a8", prefill_bucket=bucket,
                         device="cpu")
-    eng.setup_caches(4, 32, [1], [200], kv_quant="int8")
+    eng.setup_caches(4, 32, [1], [200], kv_quant=kv_quant)
     return eng
 
 
@@ -76,10 +76,9 @@ def test_generate_records_its_prefills_and_each_layers_stages(params):
     assert inner["shared_prefill"] == 1 and inner["unique_prefill"] == 1
     per_layer = {"qkv": L, "attn": L, "o_proj": L, "mlp": L, "norm": 2 * L,
                  "rope": L + 1}  # and the forward's cos/sin tables
-    # The LM head and the final norm; the level fill a layer; the unique
-    # prefill's quantize a layer, its stack and its write into the cache.
-    shared = dict(per_layer, head=2, kv_write=L)
-    unique = dict(per_layer, head=2, kv_write=L + 2)
+    # The LM head and the final norm. The int8 KV of every layer is written
+    # by K9 inside its hg.rope span: no hg.kv_write opens.
+    shared = unique = dict(per_layer, head=2)
     for name, want in (("shared_prefill", shared), ("unique_prefill", unique)):
         assert dict(_inside(spans, _one(spans, name))) == want, name
     s, u = _one(spans, "shared_prefill"), _one(spans, "unique_prefill")
@@ -91,9 +90,20 @@ def test_decode_holds_one_step_span_a_step(params):
     _, spans = _traced(_engine(params), _inputs())
     dec = _inside(spans, _one(spans, "decode"))
     assert dec["decode_step"] == NEW - 1
-    # Each eager step runs every layer's stages and its cache write.
-    assert dec["attn"] == L * (NEW - 1) and dec["kv_write"] == L * (NEW - 1)
+    # Each eager step runs every layer's stages; K9 writes its KV under hg.rope.
+    assert dec["attn"] == L * (NEW - 1) and dec["rope"] == (L + 1) * (NEW - 1)  # and the tables
+    assert dec["kv_write"] == 0
     assert _inside(spans, _one(spans, "first_token"))["decode_step"] == 0
+
+
+def test_a_float_cache_writes_each_layer_under_kv_write(params):
+    """With a float cache the chain writes each layer's KV after the layer,
+    in its hg.kv_write span: the level fill, the unique prefill and every
+    decode step, one a layer."""
+    _, spans = _traced(_engine(params, kv_quant=None), _inputs())
+    for name in ("shared_prefill", "unique_prefill"):
+        assert _inside(spans, _one(spans, name))["kv_write"] == L, name
+    assert _inside(spans, _one(spans, "decode"))["kv_write"] == L * (NEW - 1)
 
 
 def test_span_enters_nothing_without_a_profiler(params, monkeypatch):

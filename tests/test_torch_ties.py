@@ -273,6 +273,7 @@ def port_resolved(resolver: Resolver):
     from hydragen_torch.models import llama as tllama
     from hydragen_torch.ops import decode as tdecode
     from hydragen_torch.ops import gemm as tgemm
+    from hydragen_torch.ops import rope as trope
 
     def spy(kind, fn):
         def wrapped(x):
@@ -282,7 +283,7 @@ def port_resolved(resolver: Resolver):
     # Every activation quantization of the port on the CPU runs the plain
     # version (``gemm.quantize_rows`` and K8's entries call it there).
     pairs = [(tgemm, "quantize_rows_plain", spy("rows", tgemm.quantize_rows_plain))]
-    for mod in (tcache, tdecode, tllama):
+    for mod in (tcache, tdecode, tllama, trope):
         for name, kind in (("quantize_kv", "kv"), ("quantize_kv4", "kv4")):
             if hasattr(mod, name):
                 pairs.append((mod, name, spy(kind, getattr(mod, name))))
