@@ -1490,14 +1490,14 @@ def expected_launches_no_sharing(L: int, T: int, mesh: str = "") -> dict:
     tokens), repeated into every row; then T-1 decode steps, each layer
     reading its row's whole history (prompt copy and decoded tokens) with
     one small-M read and no level read. K8 in each of the T forwards, under
-    ``mesh`` (``expected_k8``); K9 in the prefill alone (the baseline's
-    decode writes every layer after the step, through the batched update)."""
+    ``mesh`` (``expected_k8``); K9 a layer in each (the prefill's rows and
+    each step's slot)."""
     return {
         "w8a8_matmul_cached": 7 * L * T,
         "flash_decode_bhsd": L * (T - 1),
         "flash_attention_bhsd": L,
         **expected_k8(L, T, mesh),
-        "rope_kv_quant": L,
+        "rope_kv_quant": L * T,
     }
 
 
@@ -2518,7 +2518,7 @@ def drive_serving(args, failures: list, card: str) -> dict:
 
     from hydragen_torch import HydragenLlama
     from hydragen_torch.core.batching import ring_mask
-    from hydragen_torch.core.cache import write_decode_token_layer
+    from hydragen_torch.core.cache import KVWrite
     from hydragen_torch.models.config import PRESETS
     from hydragen_torch.models.llama import init_params
     from hydragen_torch.ops.reference import attention_bhsd
@@ -2607,8 +2607,8 @@ def drive_serving(args, failures: list, card: str) -> dict:
 
     slot = torch.remainder(cb.state.cursor, Ua)
     ring_ms = L * cuda_graph_time_ms(Cycle(ring_read, L), iters=8, warmup=2)
-    write_ms = L * cuda_graph_time_ms(Cycle(
-        lambda li: write_decode_token_layer(cache, li, *kv_tok, slot), L))
+    write = KVWrite.slot(cache, BATCH, slot)  # the batcher's step writes this
+    write_ms = L * cuda_graph_time_ms(Cycle(lambda li: write.put(li, *kv_tok), L))
     k1 = prof["groups"].get("w8a8_kernel", 0.0)
     k2 = prof["groups"].get("flash_kernel", 0.0) + prof["groups"].get("split_combine", 0.0)
     busy = prof["busy_ms_per_step"]

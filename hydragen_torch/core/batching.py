@@ -68,14 +68,9 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hydragen_torch.core.cache import update_unique_decode
+from hydragen_torch.core.cache import KVWrite
 from hydragen_torch.core.engine import HydragenLlama, sample_from_logits
-from hydragen_torch.models.llama import (
-    ForwardSpec,
-    is_quantized_params,
-    logits_from_hidden,
-    model_forward,
-)
+from hydragen_torch.models.llama import ForwardSpec, logits_from_hidden, model_forward
 from hydragen_torch.parallel import mesh as mesh_lib
 
 # Each batcher's graph key is its own: its graph reads its own buffers.
@@ -105,14 +100,13 @@ def ring_mask(start: torch.Tensor, cursor: torch.Tensor, U: int) -> torch.Tensor
 class ChunkKey(NamedTuple):
     """What a batcher's decode-step graph bakes in: the JAX
     ``_decode_chunk``'s static arguments but ``steps`` (the chunk length is
-    a replay count), the write path, and the batcher it belongs to."""
+    a replay count), and the batcher it belongs to."""
 
     spec: ForwardSpec
     batch: int
     temperature: float
     top_p: Optional[float]
     eos: int
-    write: str  # "inplace" (quantized weights) or "uniform"
     batcher: int
 
 
@@ -249,8 +243,7 @@ class ContinuousBatcher:
         self._key = ChunkKey(
             engine._spec("decode", unique_history=True,
                          rows=(self._row0, B_pool) if dp > 1 else ()),
-            self._nrows, self.temperature, top_p, self.eos,
-            "inplace" if is_quantized_params(engine.params) else "uniform", next(_SERIAL),
+            self._nrows, self.temperature, top_p, self.eos, next(_SERIAL),
         )
         self._chunk = ChunkStep(self._key, self.U, chunk, engine.device)
         self.state = self._chunk.state
@@ -389,44 +382,15 @@ class ContinuousBatcher:
         local_pos = torch.minimum(torch.arange(tb, dtype=torch.int32, device=dev)[None, :],
                                   seq_lens[:, None] - 1)
         pos = shared_len + local_pos
-        if cache.quantized:
-            hidden, (kq, ks), (vq, vs) = model_forward(
-                eng.params, eng.config, cache, input_ids, pos, local_pos, spec,
-                quantize_new_kv=8, mesh=eng.mesh)
-        else:
-            hidden, kq, vq = model_forward(
-                eng.params, eng.config, cache, input_ids, pos, local_pos, spec, mesh=eng.mesh)
-            ks = vs = None
-
         # Right-aligned ring scatter: request i's token j < p_i lands in slot
         # (cursor - p_i + j) mod U. Only the valid (i, j) pairs are written
         # (the JAX batcher sends the padding out of bounds and drops it).
         ki, ji = np.nonzero(np.arange(tb)[None, :] < lens[:, None])
         ki, ji = self._on_device(ki, torch.long), self._on_device(ji, torch.long)
         slots = torch.remainder(self.state.cursor - seq_lens[ki] + ji, U).long()
-        r = rows[ki]
-        hkv = kq.shape[2]  # this rank's kv heads
-        for buf, sbuf, q, s in ((cache.unique_k, cache.unique_k_scale, kq, ks),
-                                (cache.unique_v, cache.unique_v_scale, vq, vs)):
-            if cache.unique_bshd:
-                # [L, B, U, hkv, hd] at (row, slot): the value [L, N, hkv, hd].
-                buf[:, r, slots] = q.permute(0, 1, 3, 2, 4)[:, ki, ji].to(buf.dtype)
-                if sbuf is None:
-                    continue
-                sval = s.permute(0, 1, 3, 2)[:, ki, ji]  # [L, N, hkv]
-                if cache.flat_scales:
-                    # [L, B, U*hkv]: token slot t of a row spans hkv lanes at t*hkv.
-                    cols = slots[:, None] * hkv + torch.arange(hkv, device=dev)[None, :]
-                    sbuf[:, r[:, None], cols] = sval
-                else:
-                    sbuf[:, r, slots] = sval
-            else:
-                # [L, B, hkv, U, hd]: the indexed dims (1, 3) are apart, so
-                # the value's indexed dim comes first: [N, L, hkv, hd].
-                buf[:, r, :, slots] = q[:, ki, :, ji].to(buf.dtype)
-                if sbuf is not None:
-                    sbuf[:, r, :, slots] = s[:, ki, :, ji]
-
+        hidden = model_forward(
+            eng.params, eng.config, cache, input_ids, pos, local_pos, spec,
+            write=KVWrite.ring(cache, rows[ki], slots, (ki, ji)), mesh=eng.mesh)
         logits = logits_from_hidden(eng.params, eng.config, hidden, seq_lens, mesh=eng.mesh)
         return logits[:, -1], (rows, seq_lens, max_news, shared_len)
 
@@ -447,18 +411,11 @@ class ContinuousBatcher:
         mask = ring_mask(st.start, st.cursor, U)
         slot = torch.remainder(st.cursor, U)
         upos = slot.expand(st.pos.shape)
-        if key.write == "inplace":
-            hidden, _ = model_forward(
-                eng.params, eng.config, cache, st.cur_token, st.pos[:, None], upos[:, None],
-                key.spec, history_mask=mask, inplace_slot=slot, mesh=mesh,
-            )
-        else:
-            hidden, nk, nv = model_forward(
-                eng.params, eng.config, cache, st.cur_token, st.pos[:, None], upos[:, None],
-                key.spec, history_mask=mask, mesh=mesh,
-            )
-            update_unique_decode(cache, upos, nk, nv, uniform=slot,
-                                 plain=key.spec.impl == "torch")
+        hidden = model_forward(
+            eng.params, eng.config, cache, st.cur_token, st.pos[:, None], upos[:, None],
+            key.spec, history_mask=mask, write=KVWrite.slot(cache, key.batch, slot),
+            mesh=mesh,
+        )
         logits = logits_from_hidden(eng.params, eng.config, hidden, mesh=mesh)[:, 0]
         nxt = eng._sample_rows(logits, key.spec, key.temperature, key.top_p)[:, 0]
         active = st.active

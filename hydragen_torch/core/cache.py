@@ -16,19 +16,28 @@ Where the JAX package returns a new cache from a functional
 ``dynamic_update_slice``, these writers update the buffers IN PLACE and
 return the (same) cache object, so callers keep the ``cache = write(cache,
 ...)`` form.
+
+Where a forward's new KV goes is one :class:`KVWrite`, handed to
+``model_forward``: the level being prefilled, a block of unique tokens, one
+decode slot for every row, one position a row, or a ring pool's slots. It
+decides, once for every destination, whether K9 writes a layer's KV
+(``ops/rope.py``) or the chain does, and holds every layout branch of the
+writes; :func:`unique_view` is the same layouts' read side.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import ClassVar, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from hydragen_torch.ops import decode as decode_ops
+from hydragen_torch.ops import rope
 from hydragen_torch.ops.quant import nibble_merge, quantize_kv, quantize_kv4
 from hydragen_torch.ops.rope import KVDest
 from hydragen_torch.parallel.shard_attn import fold_segments
+from hydragen_torch.utils.profiling import span
 
 
 def _maybe_quantize(x: torch.Tensor, quantized: bool, bits: int = 8):
@@ -116,6 +125,10 @@ class KVCache:
     def unique_rows(self) -> int:
         """Payload rows of the token dim (byte rows at int4)."""
         return self.unique_k.shape[2 if self.unique_bshd else 3]
+
+    @property
+    def kv_heads(self) -> int:
+        return self.unique_k.shape[3 if self.unique_bshd else 2]
 
     @property
     def quantized(self) -> bool:
@@ -213,57 +226,36 @@ def shared_len_for_batch(
     return total
 
 
-def fill_shared_level(cache: KVCache, level_idx: int, k, v,
-                      seq_lens: torch.Tensor) -> KVCache:
-    """Write a freshly prefilled level, in place.
-
-    k, v: ``[L, sb, hkv, t, hd]`` (compute dtype; quantized here if the level
-    stores int8) or pre-quantized ``(payload, scale)`` pairs.
-    """
-    level = cache.shared[level_idx]
-    if isinstance(k, tuple):
-        assert level.quantized
-        (kq, ks), (vq, vs) = k, v
-    else:
-        kq, ks = _maybe_quantize(k, level.quantized)
-        vq, vs = _maybe_quantize(v, level.quantized)
-    sb, t = kq.shape[1], kq.shape[3]
-    assert sb <= level.max_batch_size and t <= level.max_seq_len, (
-        f"level {level_idx}: got [{sb},{t}] max [{level.max_batch_size},"
-        f"{level.max_seq_len}]"
-    )
-    level.k[:, :sb, :, :t] = kq.to(level.k.dtype)
-    level.v[:, :sb, :, :t] = vq.to(level.v.dtype)
-    if ks is not None:
-        level.k_scale[:, :sb, :, :t] = ks
-        level.v_scale[:, :sb, :, :t] = vs
-    level.seq_lens[:sb] = seq_lens.to(torch.int32)
-    return cache
-
-
 def set_shared_level_buffers(cache: KVCache, level_idx: int, seq_lens: torch.Tensor
                              ) -> KVCache:
     """Finish a level whose buffers the forward pass filled in place
-    (``model_forward(fill_level=...)``): record its prefix lengths."""
+    (``model_forward(write=KVWrite.level(...))``): record its prefix
+    lengths."""
     cache.shared[level_idx].seq_lens[: seq_lens.shape[0]] = seq_lens.to(torch.int32)
     return cache
+
+
+def level_window(level: SharedLevel, t: int) -> tuple:
+    """``(w0, n)``: the tokens ``[w0, w0 + n)`` of a ``t``-token prompt that
+    this rank's buffers of ``level`` hold, at their tokens ``[0, n)`` (all
+    of them unless sp splits the level)."""
+    off = level.seq_offset
+    return min(off, t), max(0, min(t, off + level.max_seq_len) - off)
 
 
 def level_kv_dest(level: SharedLevel, layer: int, b: int, t: int) -> KVDest:
     """Layer ``layer``'s int8 KV of a level being prefilled with ``t`` tokens
     in rows ``[0, b)``: the buffers' tokens take this rank's window of the
-    prompt (all of it unless sp splits the level)."""
-    off = level.seq_offset
-    n = max(0, min(t, off + level.max_seq_len) - off)
+    prompt (:func:`level_window`)."""
     return KVDest(level.k[layer, :b], level.v[layer, :b], level.k_scale[layer, :b],
-                  level.v_scale[layer, :b], 0, (min(off, t), n))
+                  level.v_scale[layer, :b], 0, level_window(level, t))
 
 
 def unique_kv_dest(cache: KVCache, layer: int, b: int, slot, t: int) -> KVDest:
     """Layer ``layer``'s int8 unique KV of rows ``[0, b)`` from token ``slot``
     (a host int or a device int32 scalar) on, for ``t`` new tokens, as BHSD
     views of the cache's layout."""
-    hkv = cache.unique_k.shape[3 if cache.unique_bshd else 2]
+    hkv = cache.kv_heads
     U = cache.max_unique_seq_len
 
     def view(payload, scale):
@@ -282,10 +274,9 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
     """Write prefill KVs at unique positions ``[start, start+t)`` of rows
     ``[row_start, row_start+b)``, in place.
 
-    k, v: ``[L, b, hkv, t, hd]`` or pre-quantized ``(payload, scale)`` pairs
-    (scale ``[L, b, hkv, t]``; at int4 the payload holds unpacked int4
-    values). With ``layer``, one layer's ``[b, hkv, t, hd]`` (or pairs),
-    written into that layer alone.
+    k, v: ``[L, b, hkv, t, hd]``, quantized here in the cache's format. With
+    ``layer``, one layer's ``[b, hkv, t, hd]``, written into that layer
+    alone.
     """
     if layer is not None:  # the same write over a cache of that layer's views
         one = dataclasses.replace(
@@ -293,17 +284,10 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
                 "unique_k", "unique_v", "unique_k_scale", "unique_v_scale")
                 if getattr(cache, f) is not None})
 
-        def lift(x):
-            return tuple(y[None] for y in x) if isinstance(x, tuple) else x[None]
-
-        update_unique_prefill(one, lift(k), lift(v), start, row_start)
+        update_unique_prefill(one, k[None], v[None], start, row_start)
         return cache
-    if isinstance(k, tuple):
-        assert cache.quantized
-        (kq, ks), (vq, vs) = k, v
-    else:
-        kq, ks = _maybe_quantize(k, cache.quantized, cache.unique_bits)
-        vq, vs = _maybe_quantize(v, cache.quantized, cache.unique_bits)
+    kq, ks = _maybe_quantize(k, cache.quantized, cache.unique_bits)
+    vq, vs = _maybe_quantize(v, cache.quantized, cache.unique_bits)
     L, bb, hkv, t = kq.shape[:4]
     rows = slice(row_start, row_start + bb)
     toks = ptoks = slice(start, start + t)  # scale tokens, payload token rows
@@ -351,54 +335,6 @@ def update_unique_prefill(cache: KVCache, k, v, start: int = 0,
     return cache
 
 
-def update_unique_decode(cache: KVCache, positions: torch.Tensor, k, v,
-                         uniform=None, plain: bool = False) -> KVCache:
-    """Write one decode-step token per row at per-row ``positions``, in place.
-
-    positions: ``[b]`` int. k, v: ``[L, b, hkv, 1, hd]``. ``uniform``: the
-    position shared by all rows, a host int or a device int scalar (a
-    one-slot write, layer by layer through :func:`write_decode_token_layer`),
-    or None for the per-row scatter, which an int4 cache refuses (a sub-byte
-    scatter). ``plain``: the int4 write's plain version on any device.
-    """
-    if uniform is not None:
-        L, b = k.shape[:2]
-        uniform = decode_slot(cache, uniform, k.device)
-        for li in range(L):
-            write_decode_token_layer(cache, li, k[li], v[li], uniform, plain=plain)
-        return cache
-    if cache.unique_bits == 4:
-        raise ValueError("int4 unique KV supports only uniform decode positions (ragged "
-                         "suffix lengths need sub-byte scatters)")
-    kq, ks = _maybe_quantize(k, cache.quantized)
-    vq, vs = _maybe_quantize(v, cache.quantized)
-    b, hkv = k.shape[1], k.shape[2]
-    rows = torch.arange(b, device=positions.device)
-    pos = positions.long()
-    if cache.unique_bshd:
-        cache.unique_k[:, rows, pos] = kq[:, :, :, 0].to(cache.unique_k.dtype)
-        cache.unique_v[:, rows, pos] = vq[:, :, :, 0].to(cache.unique_v.dtype)
-        if ks is not None:
-            if cache.flat_scales:
-                cols = pos[:, None] * hkv + torch.arange(hkv, device=pos.device)[None, :]
-                cache.unique_k_scale[:, rows[:, None], cols] = ks[:, :, :, 0]
-                cache.unique_v_scale[:, rows[:, None], cols] = vs[:, :, :, 0]
-            else:
-                cache.unique_k_scale[:, rows, pos] = ks[:, :, :, 0]
-                cache.unique_v_scale[:, rows, pos] = vs[:, :, :, 0]
-    else:
-        # Advanced indices on dims (1, 3) with a slice between: the indexed
-        # dims move to the front, so the value is [b, L, hkv, hd].
-        cache.unique_k[:, rows, :, pos] = kq[:, :, :, 0].transpose(0, 1).to(
-            cache.unique_k.dtype)
-        cache.unique_v[:, rows, :, pos] = vq[:, :, :, 0].transpose(0, 1).to(
-            cache.unique_v.dtype)
-        if ks is not None:
-            cache.unique_k_scale[:, rows, :, pos] = ks[:, :, :, 0].transpose(0, 1)
-            cache.unique_v_scale[:, rows, :, pos] = vs[:, :, :, 0].transpose(0, 1)
-    return cache
-
-
 class DecodeSlot(NamedTuple):
     """A decode step's uniform unique slot, indexed once for every layer's
     write (:func:`decode_slot`)."""
@@ -423,8 +359,7 @@ def decode_slot(cache: KVCache, slot, device) -> DecodeSlot:
     cols = None
     if cache.flat_scales:
         # Token-major head-minor [b, S*hkv]: the slot's hkv columns.
-        hkv = cache.unique_k.shape[3 if cache.unique_bshd else 2]
-        cols = idx * hkv + torch.arange(hkv, device=device)
+        cols = idx * cache.kv_heads + torch.arange(cache.kv_heads, device=device)
     return DecodeSlot(slot, idx, cols)
 
 
@@ -491,6 +426,220 @@ def _write_decode_token_layer4(cache: KVCache, layer: int, k, v, slot: DecodeSlo
         _nibble_rmw(buf[layer, :b], dim, row, q4[:, :, 0], is_hi)
         sbuf[layer, :b].index_copy_(dim, idx, s.transpose(1, 2) if cache.unique_bshd else s)
     return cache
+
+
+def unique_view(cache: KVCache, layer: int, b: int, filled: int):
+    """Layer ``layer``'s written unique history of rows ``[0, b)``, its first
+    ``filled`` tokens, as ``(k, v)`` in the layout attention reads: each a
+    payload view, or a ``(payload, scale)`` pair when quantized. BSHD views
+    stay BSHD (``kv_bshd``), with flat scales as ``[b, U, hkv]``. Int4 views
+    carry the full allocated window: a token slice would break the (j, j +
+    U/2) byte pairing, and the lengths mask the unwritten tail."""
+    int4 = cache.unique_bits == 4
+    U = cache.max_unique_seq_len if int4 else filled
+    P = cache.unique_rows if int4 else U  # payload token rows
+
+    def one(payload, scale):
+        if cache.unique_bshd:
+            p = payload[layer, :b, :P]
+            if scale is None:
+                return p
+            s = scale[layer, :b, : U * cache.kv_heads].reshape(b, U, cache.kv_heads) \
+                if cache.flat_scales else scale[layer, :b, :U]
+            return p, s
+        p = payload[layer, :b, :, :P]
+        return p if scale is None else (p, scale[layer, :b, :, :U])
+
+    return (one(cache.unique_k, cache.unique_k_scale),
+            one(cache.unique_v, cache.unique_v_scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVWrite:
+    """Where one forward's new KV goes, and what writes it.
+
+    One constructor a destination, each a subclass with its own write:
+    :meth:`level` (the level being prefilled), :meth:`block` (unique rows
+    ``[0, b)`` from a token on), :meth:`slot` (one unique slot for every
+    row), :meth:`rows` (one unique position a row) and :meth:`ring` (ring
+    slots of given pool rows). ``model_forward`` binds the write to its
+    activations and its read (:meth:`bind`); then, layer by layer,
+    :meth:`dest` hands K9 the layer's destination before its attention, and
+    :meth:`put` writes the layer's rotated KV ``[b, hkv, t, hd]`` after it:
+    nothing where :attr:`fused` (K9 wrote it), else the chain (quantized
+    here in the cache's format, then copied) under ``hg.kv_write``."""
+
+    cache: KVCache
+    # What bind sees of the forward: its impl, whether K9 takes its
+    # activations, and whether its unique read is masked (a ring's mask may
+    # still count a slot's old token as valid, so the write follows the read).
+    impl: Optional[str] = dataclasses.field(default=None, kw_only=True)
+    takes: bool = dataclasses.field(default=False, kw_only=True)
+    masked: bool = dataclasses.field(default=False, kw_only=True)
+    # Does K9 address the destination: a window of tokens, not a position a row?
+    addressed: ClassVar[bool] = True
+
+    @staticmethod
+    def level(cache: KVCache, idx: int, b: int, t: int) -> "KVWrite":
+        """Level ``idx`` prefilled with ``t`` tokens of ``b`` prefixes: this
+        rank's window of them (:func:`level_window`)."""
+        lvl = cache.shared[idx]
+        assert b <= lvl.max_batch_size and t <= lvl.global_seq_len, (
+            f"level {idx}: got [{b},{t}] max [{lvl.max_batch_size},{lvl.global_seq_len}]")
+        return _LevelWrite(cache, idx, b, t)
+
+    @staticmethod
+    def block(cache: KVCache, b: int, t: int, start: int = 0) -> "KVWrite":
+        """Unique rows ``[0, b)``, tokens ``[start, start + t)``."""
+        return _BlockWrite(cache, b, t, start)
+
+    @staticmethod
+    def slot(cache: KVCache, b: int, slot) -> "KVWrite":
+        """One decode token of rows ``[0, b)`` at unique ``slot``: a host int
+        or a device int32 scalar, read where the write runs (a captured step
+        writes the slot each replay computes; the caller checks its range)."""
+        return _SlotWrite(cache, b, decode_slot(cache, slot, cache.unique_k.device))
+
+    @staticmethod
+    def rows(cache: KVCache, positions: torch.Tensor) -> "KVWrite":
+        """One decode token a row, row ``i`` at unique ``positions[i]``."""
+        if cache.unique_bits == 4:
+            raise ValueError("int4 unique KV supports only uniform decode positions (ragged "
+                             "suffix lengths need sub-byte scatters)")
+        rows = torch.arange(positions.shape[0], device=positions.device)
+        return _RowsWrite.of(cache, rows, positions.long(), (rows, torch.zeros_like(rows)))
+
+    @staticmethod
+    def ring(cache: KVCache, rows: torch.Tensor, slots: torch.Tensor, src: tuple) -> "KVWrite":
+        """Token ``src[1][i]`` of member ``src[0][i]`` into ``slots[i]`` of
+        pool row ``rows[i]``, for each ``i``: a continuous batcher's
+        admission, right-aligned in its ring."""
+        assert cache.unique_bits == 8, "a ring write needs byte-addressed tokens"
+        return _RowsWrite.of(cache, rows, slots, src)
+
+    def bind(self, x: torch.Tensor, impl: str, *, masked: bool) -> "KVWrite":
+        """This write for a forward over activations like ``x`` under
+        ``impl``, whose unique read is ``masked`` (a history mask) or not."""
+        return dataclasses.replace(self, impl=impl, masked=masked,
+                                   takes=rope.takes(x, self.cache.unique_k.shape[-1]))
+
+    @property
+    def bits(self) -> Optional[int]:
+        """The destination's payload bits; None unquantized."""
+        return self.cache.unique_bits if self.cache.quantized else None
+
+    @property
+    def fused(self) -> bool:
+        """Does K9 write this KV? On the kernel path, over activations it
+        takes, into an 8-bit destination it addresses, where the write may
+        come before the layer's read (the lengths keep the new tokens out of
+        it; a mask may not)."""
+        return (self.impl == "kernel" and self.takes and self.bits == 8 and self.addressed
+                and not self.masked)
+
+    def dest(self, li: int) -> Optional[KVDest]:
+        """Layer ``li``'s destination for K9, or None (the chain writes)."""
+        return self._dest(li) if self.fused else None
+
+    def put(self, li: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """The chain's write of layer ``li``'s KV ``[b, hkv, t, hd]``, after
+        the layer's read; nothing where K9 wrote it."""
+        if self.fused:
+            return
+        with span("kv_write"):
+            self._put(li, k, v)
+
+    def _dest(self, li: int) -> KVDest:
+        raise NotImplementedError
+
+    def _put(self, li: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class _LevelWrite(KVWrite):
+    idx: int  # the level
+    b: int  # its prefixes
+    t: int  # their tokens
+
+    @property
+    def bits(self) -> Optional[int]:
+        return 8 if self.cache.shared[self.idx].quantized else None
+
+    def _dest(self, li):
+        return level_kv_dest(self.cache.shared[self.idx], li, self.b, self.t)
+
+    def _put(self, li, k, v):
+        lvl = self.cache.shared[self.idx]
+        w0, n = level_window(lvl, self.t)
+        for buf, sbuf, x in ((lvl.k, lvl.k_scale, k), (lvl.v, lvl.v_scale, v)):
+            q, s = _maybe_quantize(x[:, :, w0:w0 + n], lvl.quantized)
+            buf[li, :self.b, :, :n] = q.to(buf.dtype)
+            if s is not None:
+                sbuf[li, :self.b, :, :n] = s
+
+
+@dataclasses.dataclass(frozen=True)
+class _BlockWrite(KVWrite):
+    b: int  # rows [0, b)
+    t: int  # tokens [start, start + t)
+    start: int
+
+    def _dest(self, li):
+        return unique_kv_dest(self.cache, li, self.b, self.start, self.t)
+
+    def _put(self, li, k, v):
+        update_unique_prefill(self.cache, k, v, start=self.start, layer=li)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SlotWrite(KVWrite):
+    b: int  # rows [0, b)
+    at: DecodeSlot
+
+    def _dest(self, li):
+        return unique_kv_dest(self.cache, li, self.b, self.at.slot, 1)
+
+    def _put(self, li, k, v):
+        write_decode_token_layer(self.cache, li, k, v, self.at, plain=self.impl == "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class _RowsWrite(KVWrite):
+    """Token ``ti[i]`` of row ``mi[i]`` of the new KV into ``slot_idx[i]`` of
+    unique row ``row_idx[i]``: a scatter of ``N`` tokens, gathered and
+    quantized alone, a layer at a time."""
+
+    row_idx: torch.Tensor  # [N] int64
+    slot_idx: torch.Tensor  # [N] int64
+    src: tuple  # (mi, ti), [N] int64 each
+    # BSHD: the (row, slot) pairs as indices of the buffers' flattened
+    # [B*U, ...] (flat scales [B, U*hkv] are [B*U, hkv] too); None for BHSD.
+    flat: Optional[torch.Tensor]
+    addressed: ClassVar[bool] = False
+
+    @classmethod
+    def of(cls, cache: KVCache, rows, slots, src) -> "_RowsWrite":
+        flat = rows * cache.max_unique_seq_len + slots if cache.unique_bshd else None
+        return cls(cache, rows, slots, src, flat)
+
+    def _put(self, li, k, v):
+        c = self.cache
+        mi, ti = self.src
+        # K and V together: one gather of the N tokens, one quantization.
+        # The indexed dims are apart, so theirs comes first: [N, 2, hkv, hd].
+        q, s = _maybe_quantize(torch.stack((k, v))[:, mi, :, ti], c.quantized)
+        for j, (buf, sbuf) in enumerate(((c.unique_k, c.unique_k_scale),
+                                         (c.unique_v, c.unique_v_scale))):
+            qj, sj = q[:, j].to(buf.dtype), None if s is None else s[:, j]  # [N, hkv, hd], [N, hkv]
+            if self.flat is not None:
+                buf[li].view(-1, *buf.shape[-2:]).index_copy_(0, self.flat, qj)
+                if sj is not None:
+                    sbuf[li].view(-1, c.kv_heads).index_copy_(0, self.flat, sj)
+            else:  # [B, hkv, U, hd]: the value's indexed dim comes first again
+                buf[li][self.row_idx, :, self.slot_idx] = qj
+                if sj is not None:
+                    sbuf[li][self.row_idx, :, self.slot_idx] = sj
 
 
 def expand_unique_rows(cache: KVCache, current_size: int, index: torch.Tensor) -> KVCache:
@@ -593,3 +742,4 @@ def copy_shared_to_unique(cache: KVCache, total_num_sequences: int,
                 if s is not None:
                     put(sbuf[li, :n, :, :S], s)
     return cache
+

@@ -15,9 +15,9 @@ positions, step counter and forced tokens from device memory and writes its
 sampled token, logits and next input back, and the unique slot it writes is
 computed on the device (``start_unique_pos + i``), as the JAX step passes a
 traced slot. On the card that body is captured once as a CUDA graph a key
-(the JAX ``static_argnames`` and the write path) and replayed once a step,
-with no host work inside an EOS chunk; ``graph(False)`` runs the same body
-eagerly. The engine runs on the card unless the caller passes
+(the JAX ``static_argnames`` and whether each row writes its own slot) and
+replayed once a step, with no host work inside an EOS chunk;
+``graph(False)`` runs the same body eagerly. The engine runs on the card unless the caller passes
 ``device="cpu"``, where the body runs eagerly.
 
 Under a ``parallel.Mesh`` (``mesh=``, ``shard(mesh)``, ``from_pretrained_tp``)
@@ -42,13 +42,13 @@ import torch
 
 from hydragen_torch.core.cache import (
     KVCache,
+    KVWrite,
     allocate_cache,
     copy_shared_to_unique,
     expand_unique_rows,
     repeat_unique_for_samples,
     set_shared_level_buffers,
     shared_len_for_batch,
-    update_unique_decode,
 )
 from hydragen_torch.models.config import ModelConfig
 from hydragen_torch.models.llama import (
@@ -154,11 +154,11 @@ def _params_to(tree, device):
 
 class DecodeKey(NamedTuple):
     """What one decode graph bakes in: the JAX ``_decode_steps``'s static
-    arguments (but ``steps``: a graph is one step), the write path
-    (``"inplace"``: each layer's token written after its read; ``"uniform"``:
-    the batched write at one slot; ``"rows"``: the per-row scatter). The
-    cache and the parameters a graph reads by address are not in the key:
-    the engine drops every graph with its cache or parameters."""
+    arguments (but ``steps``: a graph is one step) and whether each row
+    writes its own slot (``per_row``: ragged suffixes) or every row the
+    same one. The cache and the parameters a graph reads by address are not
+    in the key: the engine drops every graph with its cache or
+    parameters."""
 
     spec: ForwardSpec
     batch: int
@@ -166,7 +166,7 @@ class DecodeKey(NamedTuple):
     top_p: Optional[float]
     use_overrides: bool
     return_logits: bool
-    write: str
+    per_row: bool
 
 
 class DecodeStep:
@@ -524,9 +524,9 @@ class HydragenLlama:
                 local_pos = ar.expand(b, t)
             pos = shared_lens[:, None] + local_pos
             # The layer loop writes each layer's KV straight into the level.
-            hidden, self.cache = model_forward(
+            hidden = model_forward(
                 self.params, self.config, self.cache, input_ids, pos, local_pos, spec,
-                fill_level=self.num_used_levels, mesh=self.mesh,
+                write=KVWrite.level(self.cache, self.num_used_levels, b, t), mesh=self.mesh,
             )
             set_shared_level_buffers(self.cache, self.num_used_levels, seq_lens)
             logits = logits_from_hidden(self.params, self.config, hidden,
@@ -603,10 +603,11 @@ class HydragenLlama:
         # Each layer writes its KV into the unique rows. All rows share one
         # prefix length (generate allows one prefix), so the suffixes are one
         # block after the copied prefix.
-        hidden, self.cache = model_forward(
+        start = int(shared_lens[0]) if nohydra and b else 0
+        hidden = model_forward(
             self.params, self.config, self.cache, input_ids, pos, unique_pos, spec,
             history_lens=shared_lens if nohydra else None,
-            unique_start=int(shared_lens[0]) if nohydra and b else 0, mesh=self.mesh,
+            write=KVWrite.block(self.cache, b, t, start), mesh=self.mesh,
         )
         return logits_from_hidden(self.params, self.config, hidden,
                                   seq_lens if has_pad else None, mesh=self.mesh)
@@ -646,20 +647,13 @@ class HydragenLlama:
         spec = key.spec
         pos = st.start_pos + st.i
         upos = st.start_upos + st.i
-        if key.write == "inplace":
-            hidden, _ = model_forward(
-                self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
-                spec, history_lens=upos, inplace_slot=upos[0], mesh=self.mesh,
-            )
-        else:
-            hidden, nk, nv = model_forward(
-                self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
-                spec, history_lens=upos, mesh=self.mesh,
-            )
-            with span("kv_write"):
-                update_unique_decode(self.cache, upos, nk, nv,
-                                     uniform=upos[0] if key.write == "uniform" else None,
-                                     plain=spec.impl == "torch")
+        # The step's own slot is outside its history (``history_lens``).
+        write = KVWrite.rows(self.cache, upos) if key.per_row \
+            else KVWrite.slot(self.cache, key.batch, upos[0])
+        hidden = model_forward(
+            self.params, self.config, self.cache, st.tok, pos[:, None], upos[:, None],
+            spec, history_lens=upos, write=write, mesh=self.mesh,
+        )
         logits = logits_from_hidden(self.params, self.config, hidden, mesh=self.mesh)[:, 0]
         nxt = self._sample_rows(logits, spec, key.temperature, key.top_p)
         col = st.i.long().reshape(1)
@@ -923,15 +917,9 @@ class HydragenLlama:
                             f"cache's {self.cache.max_unique_seq_len} (setup_caches)")
                     spec = self._spec("decode", unique_history=True,
                                       rows=(r0, total_batch) if dp > 1 else ())
-                    # No sharing writes through the batched update, as the JAX engine does.
-                    if not uniform:
-                        write = "rows"
-                    elif is_quantized_params(self.params) and not spec.disable_hydragen:
-                        write = "inplace"
-                    else:
-                        write = "uniform"
                     st = self._decode_state(DecodeKey(spec, b_loc, float(temperature), top_p,
-                                                      use_overrides, return_logits, write))
+                                                      use_overrides, return_logits,
+                                                      not uniform))
                     st.tok.copy_(token_overrides[:, 0:1] if use_overrides else first_token)
                     st.start_pos.copy_(start_pos)
                     st.start_upos.copy_(start_unique_pos)

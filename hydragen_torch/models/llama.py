@@ -32,13 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from hydragen_torch.core.cache import (
-    decode_slot,
-    level_kv_dest,
-    unique_kv_dest,
-    update_unique_prefill,
-    write_decode_token_layer,
-)
+from hydragen_torch.core.cache import KVWrite, unique_view
 from hydragen_torch.models.config import ModelConfig
 from hydragen_torch.ops import act, flash, gemm, rope
 from hydragen_torch.ops import decode as decode_ops
@@ -59,8 +53,6 @@ from hydragen_torch.ops.quant import (
     pick_group4,
     qmatmul,
     qmatmul_stacked,
-    quantize_kv,
-    quantize_kv4,
     s8_stacked_eligible,
 )
 from hydragen_torch.ops.rope import apply_rope
@@ -228,44 +220,27 @@ def model_forward(
     spec: ForwardSpec,
     history_lens: torch.Tensor | None = None,
     history_mask: torch.Tensor | None = None,
-    inplace_slot: int | torch.Tensor | None = None,
-    quantize_new_kv: int | None = None,
-    fill_level: int | None = None,
-    unique_start: int | None = None,
+    write: KVWrite | None = None,
     mesh=None,
-):
-    """Run the decoder stack in one of the three cache modes.
+) -> torch.Tensor:
+    """Run the decoder stack, writing each layer's new KV through ``write``;
+    returns the hidden states ``[b, t, H]``.
 
     Args:
-        cache: ``KVCache``; read, and written only by the two write paths.
+        cache: ``KVCache``; read, and written where ``write`` says.
         input_ids, position_ids: ``[b, t]`` tokens and global positions.
         unique_position_ids: ``[b, t]`` positions within the unique cache
-            (kept for API parity; the engine uses them for its writes).
+            (kept for API parity; ``write`` says where the KV goes).
         history_lens: ``[b]`` valid unique-cache positions per row (required
             when ``spec.unique_history``).
         history_mask: optional ``[b, unique_filled]`` bool mask of valid
             unique-cache slots; overrides length masking.
-        inplace_slot: decode write path (``t == 1``): the unique slot
-            shared by all rows, a host int or a device int32 scalar (the
-            decode step passes its own, ``unique_position_ids[0]``, as the
-            JAX engine passes a traced value, so a captured step writes the
-            slot each replay computes). Each layer writes its token's KV
-            into the cache in place (an int8 cache through K9 before its
-            attention, which ``history_lens`` keeps off the slot; other
-            caches right after it). Returns ``(hidden, cache)``.
-        quantize_new_kv: 8 (or 4) -> return each layer's new KV quantized
-            (``quantize_kv``, or unpacked int4 from ``quantize_kv4``) instead
-            of in the compute dtype.
-        fill_level: shared-prefill write path: the index of the level being
-            prefilled. Each layer writes its new KV (quantized if the level
-            stores int8, through K9) straight into that level's buffers, in
-            place; the level is not read until it is active. Returns
-            ``(hidden, cache)``.
-        unique_start: unique-prefill write path: each layer writes its new
-            KV into unique rows ``[0, b)`` at tokens ``[unique_start,
-            unique_start + t)``, in place (an int8 cache through K9; the
-            no-sharing baseline's ``history_lens`` stop short of them).
-            Returns ``(hidden, cache)``.
+        write: where each layer's new KV goes (``core.cache.KVWrite``: the
+            level being prefilled, a unique block, the decode slot, a
+            position a row, a ring's slots), written in place layer by
+            layer, by K9 inside the layer where the write says so (never
+            under ``history_mask``), else after the layer's read. None
+            writes nothing.
         mesh: a ``parallel.Mesh``: ``params`` and ``cache`` are this rank's
             shards and ``input_ids`` its rows (``spec.rows``). The heads are
             the rank's (``shard_plan``); column-parallel projections run on
@@ -273,9 +248,9 @@ def model_forward(
             all-reduce over tp after each; each level read covers the
             rank's rows (``fold_segments``) and merges its sp partials.
 
-    Returns ``(hidden [b, t, H], new_k [L, b, hkv, t, hd], new_v)`` by
-    default (new_k/new_v as ``(payload, scale)`` pairs under
-    ``quantize_new_kv``), or ``(hidden, cache)`` for the three write paths.
+    Where the JAX ``model_forward`` takes four write keywords and answers in
+    three shapes, this one takes the write whole and answers with the
+    hidden states alone: the cache is written in place.
     """
     impl = pick_impl(spec.impl)
     b, t = input_ids.shape
@@ -362,28 +337,6 @@ def model_forward(
         and impl == "kernel"
     )
     kv_bits = cache.unique_bits
-
-    def unique_view(li):
-        """Layer li's written unique history as (payload, scale) pairs in the
-        layout ``_attention`` reads (BSHD views keep ``kv_bshd``). Int4 views
-        carry the full allocated window: a token slice would break the (j, j
-        + S/2) byte pairing, and ``history_lens`` masks the unwritten tail."""
-        U = cache.max_unique_seq_len if kv_bits == 4 else spec.unique_filled
-        P = cache.unique_rows if kv_bits == 4 else U  # payload token rows
-
-        def one(payload, scale):
-            if cache.unique_bshd:
-                p = payload[li, :b, :P]
-                if scale is None:
-                    return p
-                s = scale[li, :b, : U * nkv].reshape(b, U, nkv) if cache.flat_scales \
-                    else scale[li, :b, :U]
-                return (p, s)
-            p = payload[li, :b, :, :P]
-            return p if scale is None else (p, scale[li, :b, :, :U])
-
-        return (one(cache.unique_k, cache.unique_k_scale),
-                one(cache.unique_v, cache.unique_v_scale))
 
     def layer(h, li, dest=None):
         """One decoder layer, each stage in its span (``hg.norm``, ``hg.qkv``,
@@ -480,7 +433,7 @@ def model_forward(
                     shared_partial=sh, kv_bits=kv_bits,
                 )
             else:
-                uk, uv = unique_view(li)
+                uk, uv = unique_view(cache, li, b, spec.unique_filled)
                 o, l = _attention(
                     q, uk, uv, causal=False,
                     kv_seq_lens=None if history_mask is not None else history_lens,
@@ -508,78 +461,13 @@ def model_forward(
             attn = combine_lse(outs, lses)
         return attn
 
-    # K9 writes a layer's KV where it goes to an 8-bit cache on the kernel
-    # path; the chain (apply_rope, then the mode's write) everywhere else.
-    k9 = impl == "kernel" and rope.takes(h, hd)
-
-    if fill_level is not None:
-        assert inplace_slot is None and unique_start is None
-        lvl = cache.shared[fill_level]
-        assert b <= lvl.max_batch_size and t <= lvl.global_seq_len
-        # This rank's slice of the level's tokens (all of them unless sp splits it).
-        off = lvl.seq_offset
-        n = max(0, min(t, off + lvl.max_seq_len) - off)
-        fused = k9 and lvl.quantized
-        for li in range(L):
-            h, k, v = layer(h, li, level_kv_dest(lvl, li, b, t) if fused else None)
-            if fused:
-                continue
-            with span("kv_write"):
-                k, v = k[:, :, off:off + n], v[:, :, off:off + n]
-                if lvl.quantized:
-                    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-                    lvl.k_scale[li, :b, :, :n] = ks
-                    lvl.v_scale[li, :b, :, :n] = vs
-                lvl.k[li, :b, :, :n] = k.to(lvl.k.dtype)
-                lvl.v[li, :b, :, :n] = v.to(lvl.v.dtype)
-        return final_norm(h), cache
-
-    if inplace_slot is not None:
-        assert t == 1, "inplace_slot is a single-token decode path"
-        slot = decode_slot(cache, inplace_slot, h.device)
-        # This step's token is never in its own history (lens mask it), so
-        # writing it before or after its layer's read is safe; under a ring
-        # mask the write stays after the read.
-        fused = k9 and cache.quantized and kv_bits == 8 and history_mask is None
-        for li in range(L):
-            h, k, v = layer(h, li, unique_kv_dest(cache, li, b, slot.slot, 1) if fused else None)
-            if fused:
-                continue
-            with span("kv_write"):
-                write_decode_token_layer(cache, li, k, v, slot, plain=impl == "torch")
-        return final_norm(h), cache
-
-    if unique_start is not None:
-        fused = k9 and cache.quantized and kv_bits == 8
-        for li in range(L):
-            h, k, v = layer(h, li, unique_kv_dest(cache, li, b, unique_start, t)
-                            if fused else None)
-            if fused:
-                continue
-            with span("kv_write"):  # quantized there, in the cache's format
-                update_unique_prefill(cache, k, v, start=unique_start, layer=li)
-        return final_norm(h), cache
-
-    new_k, new_v = [], []
+    if write is not None:
+        write = write.bind(h, impl, masked=history_mask is not None)
     for li in range(L):
-        h, k, v = layer(h, li)
-        if quantize_new_kv:
-            # Each layer's KV is quantized as it comes out (the JAX package
-            # quantizes inside its layer scan), so no stack of every layer's
-            # compute-dtype KV is ever held.
-            qkv = quantize_kv4 if quantize_new_kv == 4 else quantize_kv
-            with span("kv_write"):
-                k, v = qkv(k), qkv(v)
-        new_k.append(k)
-        new_v.append(v)
-    h = final_norm(h)
-    with span("kv_write"):
-        if quantize_new_kv:
-            def stack(pairs):
-                return torch.stack([p for p, _ in pairs]), torch.stack([s for _, s in pairs])
-
-            return h, stack(new_k), stack(new_v)
-        return h, torch.stack(new_k), torch.stack(new_v)
+        h, k, v = layer(h, li, write.dest(li) if write else None)
+        if write:
+            write.put(li, k, v)  # nothing where K9 wrote it
+    return final_norm(h)
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor,

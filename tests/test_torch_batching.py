@@ -299,7 +299,9 @@ def test_graph_stream_equals_eager(dev, stream):
     tokens equal request by request, the same dispatches and launches (one
     decode-step graph captured, none in the eager run), and the launches
     exactly what the dispatches imply: 7 s8 GEMMs, one level read (and one
-    causal suffix read at admission) a layer, no unique-read kernel."""
+    causal suffix read at admission) a layer, K8's activations
+    (``chip_smoke.expected_k8``), no unique-read kernel and no K9 (the ring
+    keeps the chain)."""
     sb, cb_kw, stops = GPU_STREAMS[stream]
     toks_e, launch_e, stats_e, ch_e = _card_stream(sb, cb_kw, stops, graphs=False)
     toks_g, launch_g, stats_g, ch_g = _card_stream(sb, cb_kw, stops, graphs=True)
@@ -307,9 +309,12 @@ def test_graph_stream_equals_eager(dev, stream):
     assert ch_e.graph is None and ch_g.graph is not None
     L = GPU_CFG["num_hidden_layers"]
     a, s = stats_g["admit_dispatches"], stats_g["decode_steps"]
+    import chip_smoke
+
     assert launch_g == {"w8a8_matmul_cached": 7 * L * (a + s),
                         "flash_attention_cached_bhsd": L * (a + s),
-                        "flash_attention_bhsd": L * a}
+                        "flash_attention_bhsd": L * a,
+                        **chip_smoke.expected_k8(L, a + s)}
     for t in toks_g:
         assert len(t) >= 1 and all(0 <= x < GPU_CFG["vocab_size"] for x in t)
 

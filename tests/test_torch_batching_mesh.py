@@ -153,9 +153,9 @@ def admission_forward(params_np, mesh=None, rows=(1,)) -> np.ndarray:
     spec = eng._spec("unique_prefill", unique_history=False)._replace(
         level_batch=(1,), level_row=rows)
     local = torch.arange(4, dtype=torch.int32)[None].expand(2, 4)
-    hidden, _, _ = model_forward(eng.params, eng.config, eng.cache, ids,
-                                 local + eng.cache.shared[0].seq_lens[rows[0]], local, spec,
-                                 mesh=mesh)
+    hidden = model_forward(eng.params, eng.config, eng.cache, ids,
+                           local + eng.cache.shared[0].seq_lens[rows[0]], local, spec,
+                           mesh=mesh)
     return hidden
 
 

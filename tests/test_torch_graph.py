@@ -8,7 +8,8 @@ CUDA graph on the card. On the CPU (fp32, 2 layers, narrow widths):
   bit for bit, tensor by tensor, in every layout a decode step writes: int8
   BSHD with flat scales (the in-place write of the main path), int8 BHSD
   (the GQA layout), int4 BSHD across the low-to-high plane edge (K7's plain
-  version) and the no-sharing baseline's batched write;
+  version) and the no-sharing baseline's slot write (``KVWrite.slot``),
+  where the JAX engine writes the batch;
 - the eager loop over the step body gives the JAX engine's greedy tokens,
   per-step logits and caches, on each write path, with overrides, EOS
   chunks and ``return_logits``. The weights are int8 and weight-only
@@ -94,7 +95,8 @@ _jit_prefill = jax.jit(jcache.update_unique_prefill)
 _jit_write_layer = jax.jit(jcache.write_decode_token_layer, static_argnames=("layer",))
 _jit_decode = jax.jit(jcache.update_unique_decode, static_argnames=("uniform",))
 
-# name: (unique_bits, unique_bshd, flat_scales, the batched no-sharing write?)
+# name: (unique_bits, unique_bshd, flat_scales, through the write type's slot,
+# as the no-sharing decode step writes, rather than the layer write itself?)
 WRITES = {
     "int8_bshd_flat": (8, True, True, False),
     "int8_bhsd": (8, False, False, False),
@@ -127,7 +129,9 @@ def test_device_slot_writes_match_jax(layout):
             k, v = (rng.randn(Lc, Bc, hkv, 1, hd).astype(np.float32) for _ in range(2))
             pos = np.full(Bc, slot, np.int32)
             jc = _jit_decode(jc, J(pos), J(k), J(v), uniform=True)
-            tcache.update_unique_decode(tc, T(pos), T(k), T(v), uniform=dslot)
+            write = tcache.KVWrite.slot(tc, Bc, dslot)
+            for li in range(Lc):
+                write.put(li, T(k[li]), T(v[li]))
         else:
             for li in range(Lc):
                 k, v = (rng.randn(Bc, hkv, 1, hd).astype(np.float32) for _ in range(2))
@@ -178,28 +182,29 @@ def _prompt(seed):
     return np.random.RandomState(seed).randint(1, 256, (1, 9)).astype(np.int32)
 
 
-# case: (kv_quant, unique_bshd, the engine's write path, generate's arguments)
+# case: (kv_quant, unique_bshd, does each row write its own slot (the
+# engine's key), generate's arguments)
 LOOPS = {
     # The main path's in-place int8 write, 4 samples of a shared prompt.
-    "inplace_int8": ("int8", True, "inplace", dict(num_return_sequences=4,
-                                                   max_new_tokens=7)),
+    "inplace_int8": ("int8", True, False, dict(num_return_sequences=4,
+                                               max_new_tokens=7)),
     # Forced tokens from the device buffer, on the GQA layout's write.
-    "overrides_bhsd": ("int8", False, "inplace", dict(num_return_sequences=4,
-                                                      max_new_tokens=6, overrides=True)),
+    "overrides_bhsd": ("int8", False, False, dict(num_return_sequences=4,
+                                                  max_new_tokens=6, overrides=True)),
     # The in-place int4 write across the plane edge: 16 tokens are 8 byte
     # rows, and 11 new tokens write slots 0-9.
-    "inplace_int4": ("int4", True, "inplace", dict(num_return_sequences=4,
-                                                   max_new_tokens=11)),
+    "inplace_int4": ("int4", True, False, dict(num_return_sequences=4,
+                                               max_new_tokens=11)),
     # EOS chunks of 2 steps with a host check between them.
-    "eos_chunks": ("int8", True, "inplace", dict(num_return_sequences=4, max_new_tokens=8,
-                                                 eos=True)),
-    # The no-sharing baseline's batched write at one slot.
-    "no_sharing": ("int8", False, "uniform", dict(num_return_sequences=4, max_new_tokens=6,
-                                                  disable_hydragen=True)),
+    "eos_chunks": ("int8", True, False, dict(num_return_sequences=4, max_new_tokens=8,
+                                             eos=True)),
+    # The no-sharing baseline's write at one slot, where JAX writes the batch.
+    "no_sharing": ("int8", False, False, dict(num_return_sequences=4, max_new_tokens=6,
+                                              disable_hydragen=True)),
     # Ragged suffixes: the per-row scatter, into an unquantized cache (an int8
     # one at these inputs moves a KV code at a half-code tie of the two
     # engines' float sums, and a logit by 1.1e-3).
-    "ragged_rows": (None, True, "rows", dict(max_new_tokens=6, ragged=True)),
+    "ragged_rows": (None, True, True, dict(max_new_tokens=6, ragged=True)),
 }
 
 
@@ -208,7 +213,7 @@ def test_eager_step_loop_matches_jax(params, case):
     """Greedy tokens equal, every step's logits within 1e-3 (they agree to
     about 1e-5: fp32, weight-only int8) and, where the tokens are the same,
     the unique cache bit for bit after the call."""
-    kv, bshd, write, kw = LOOPS[case]
+    kv, bshd, per_row, kw = LOOPS[case]
     kw = dict(kw)
     eos = kw.pop("eos", False)
     nohydra = kw.get("disable_hydragen", False)
@@ -235,7 +240,7 @@ def test_eager_step_loop_matches_jax(params, case):
         kw["eos_token_id"] = int(full[1, 4])
     jt, jl = je.generate(temperature=0.0, return_logits=True, shared_cache_op=jop, **kw)
     tt, tl = te.generate(temperature=0.0, return_logits=True, shared_cache_op=top, **kw)
-    assert [st.key.write for st in te._decode.values()] == [write] * len(te._decode)
+    assert [st.key.per_row for st in te._decode.values()] == [per_row] * len(te._decode)
     np.testing.assert_array_equal(_np(tt), _np(jt))
     assert len(tl) == len(jl) == _np(tt).shape[1]
     for step, (t, j) in enumerate(zip(tl, jl)):
@@ -248,14 +253,15 @@ def test_eager_step_loop_matches_jax(params, case):
 
 
 def test_decode_key_changes_with_each_static_field(params):
-    """Pure Python, no capture: each of the JAX engine's static arguments, the
-    write path each give a new key; a new cache from ``setup_caches`` and new
-    parameters drop every state, so no graph outlives what it reads."""
+    """Pure Python, no capture: each of the JAX engine's static arguments and
+    the per-row write each give a new key; a new cache from ``setup_caches``
+    and new parameters drop every state, so no graph outlives what it
+    reads."""
     _, te = _engines(params, "int8")
     te.generate(input_ids=[_prompt(43)], num_return_sequences=4, max_new_tokens=3,
                 temperature=0.0, shared_cache_op=TOp.PRESERVE)
     (base,) = te._decode
-    assert base.write == "inplace" and base.batch == 4
+    assert base.per_row is False and base.batch == 4
     variants = [
         base._replace(spec=base.spec._replace(num_used_levels=0)),
         base._replace(spec=base.spec._replace(level_filled=(32,))),
@@ -265,7 +271,7 @@ def test_decode_key_changes_with_each_static_field(params):
         base._replace(top_p=0.9),
         base._replace(use_overrides=True),
         base._replace(return_logits=True),
-        base._replace(write="uniform"),
+        base._replace(per_row=True),
     ]
     assert len({base, *variants}) == len(variants) + 1
     assert all(isinstance(k, DecodeKey) for k in variants)
@@ -295,18 +301,19 @@ def test_decode_past_the_unique_cache_raises(params):
 
 GPU_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
                num_attention_heads=2, num_key_value_heads=2, dtype="bfloat16")
-# path: (quantization, kv_quant, unique_bshd, unique length, the write path,
-# generate's extra arguments). The BSHD caches are the layout K3 reads (the
-# main and int4 paths'); the int4 window of 16 tokens is 8 byte rows, so 12
-# new tokens cross into the high plane; the BHSD no-sharing cache is the GQA
-# layout, read by K5, after a 64-token level copy.
+# path: (quantization, kv_quant, unique_bshd, unique length, does each row
+# write its own slot, generate's extra arguments). The BSHD caches are the
+# layout K3 reads (the main and int4 paths'); the int4 window of 16 tokens is
+# 8 byte rows, so 12 new tokens cross into the high plane; the BHSD
+# no-sharing cache is the GQA layout, read by K5, after a 64-token level
+# copy.
 GPU_PATHS = {
-    "inplace_int8": ("w8a8", "int8", True, 48, "inplace", {}),
-    "inplace_int4": ("w4a8", "int4", True, 16, "inplace", {}),
-    "uniform_no_sharing": ("w8a8", "int8", False, 64 + 48, "uniform",
+    "inplace_int8": ("w8a8", "int8", True, 48, False, {}),
+    "inplace_int4": ("w4a8", "int4", True, 16, False, {}),
+    "uniform_no_sharing": ("w8a8", "int8", False, 64 + 48, False,
                            dict(disable_hydragen=True)),
-    "rows_ragged": ("w8a8", "int8", True, 48, "rows", dict(ragged=True)),
-    "sampled": ("w8a8", "int8", True, 48, "inplace", dict(temperature=0.8, top_p=0.9)),
+    "rows_ragged": ("w8a8", "int8", True, 48, True, dict(ragged=True)),
+    "sampled": ("w8a8", "int8", True, 48, False, dict(temperature=0.8, top_p=0.9)),
 }
 
 
@@ -357,13 +364,13 @@ def test_graph_decode_equals_eager(dev, path):
     """The same request through the eager loop and through replayed graphs:
     tokens equal, every step's logits equal bit for bit, the same launches.
     The graph engine captured a graph for its key and replayed it."""
-    quant, kv, bshd, unique_len, write, extra = GPU_PATHS[path]
+    quant, kv, bshd, unique_len, per_row, extra = GPU_PATHS[path]
     runs = {}
     for graphs in (False, True):
         eng = _card_engine(quant, kv, graphs, bshd, unique_len)
         runs[graphs] = _card_request(eng, extra, seed=7)
         states = list(eng._decode.values())
-        assert [st.key.write for st in states][-1] == write
+        assert states[-1].key.per_row == per_row
         assert (states[-1].graph is not None) == graphs
         del eng
     (te, le, ne), (tg, lg, ng) = runs[False], runs[True]

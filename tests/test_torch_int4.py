@@ -340,8 +340,9 @@ def test_int4_cache_writes_match_jax(layout):
     """A unique prefill of 11 tokens into 8 byte rows (rows 0-2 get a high
     token, rows 3-7 a cleared high nibble), the per-layer decode write at a
     low-plane slot (5) and a high-plane slot (12, over the live token 4), the
-    batched write at slots 6 (low) and 14 (high), and the sample repeat:
-    payloads and scales bit-equal to JAX's functions under jax.jit."""
+    slot write of ``KVWrite`` at slots 6 (low) and 14 (high) against JAX's
+    batched write, and the sample repeat: payloads and scales bit-equal to
+    JAX's functions under jax.jit."""
     bshd = layout.startswith("bshd")
     flat = layout == "bshd_flat"
     Lc, Bc, U, hkv, hd = 2, 4, 16, 2, 128
@@ -369,7 +370,9 @@ def test_int4_cache_writes_match_jax(layout):
         k, v = kv(Lc, 4, hkv, 1, hd)
         pos = np.full(4, slot, np.int32)
         jc = _jit_decode(jc, J(pos), J(k), J(v), uniform=True)
-        tcache.update_unique_decode(tc, T(pos), T(k), T(v), uniform=slot)
+        write = tcache.KVWrite.slot(tc, 4, slot)
+        for li in range(Lc):
+            write.put(li, T(k[li]), T(v[li]))
         _same_cache(tc, jc)
     jc = _jit_repeat(jc, current_size=2, num_samples=2)
     tcache.repeat_unique_for_samples(tc, 2, 2)
@@ -385,7 +388,7 @@ def test_int4_ragged_decode_write_raises_like_jax():
     with pytest.raises(AssertionError):
         jcache.update_unique_decode(jc, J(pos), J(k), J(k))
     with pytest.raises(ValueError, match="uniform"):
-        tcache.update_unique_decode(tc, T(pos), T(k), T(k))
+        tcache.KVWrite.rows(tc, T(pos))
 
 
 @pytest.mark.parametrize("layer", [1, None])

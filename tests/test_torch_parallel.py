@@ -143,8 +143,8 @@ def _decode_census(cfg_kw, params_np, mesh):
     pos = torch.full((b, 1), 70, dtype=torch.int32)
     upos = torch.full((b, 1), 4, dtype=torch.int32)
     reset_collectives()
-    hidden, _, _ = model_forward(eng.params, eng.config, eng.cache, tok, pos, upos, spec,
-                                 history_lens=upos[:, 0], mesh=mesh)
+    hidden = model_forward(eng.params, eng.config, eng.cache, tok, pos, upos, spec,
+                           history_lens=upos[:, 0], mesh=mesh)
     logits_from_hidden(eng.params, eng.config, hidden, mesh=mesh)
     return dict(COLLECTIVES)
 

@@ -94,8 +94,7 @@ def _chain(c, kind, q, k, v, cos, sin, nh, nkv, hd, slot):
     else:  # the stacked write over a cache of layer 1 alone
         one = dataclasses.replace(c, **{f: getattr(c, f)[1:2] for f in (
             "unique_k", "unique_v", "unique_k_scale", "unique_v_scale")})
-        stack = lambda x: tuple(y[None] for y in quantize_kv(x))  # noqa: E731
-        tcache.update_unique_prefill(one, stack(k), stack(v), start=slot)
+        tcache.update_unique_prefill(one, k[None], v[None], start=slot)
     return q, k, v
 
 
@@ -159,12 +158,29 @@ TINY = ModelConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
                    max_position_embeddings=256)
 
 
+class _Kept:
+    """A write that keeps each layer's new KV and writes nothing."""
+
+    def __init__(self):
+        self.k, self.v = [], []
+
+    def bind(self, x, impl, masked):
+        return self
+
+    def dest(self, li):
+        return None
+
+    def put(self, li, k, v):
+        self.k.append(k)
+        self.v.append(v)
+
+
 @pytest.mark.parametrize("kv", ["int8_bhsd", "int8_bshd", "int4", "bf16"])
 def test_unique_start_writes_what_the_stacked_write_wrote(kv):
-    """``model_forward(unique_start=s)`` writes each layer's new KV into the
-    unique rows as it goes; it leaves the cache bit for bit as the returned
-    stack of every layer's KV, written by ``update_unique_prefill``, did,
-    with the same hidden states."""
+    """``model_forward(write=KVWrite.block(..., start=s))`` writes each
+    layer's new KV into the unique rows as it goes (through K9 at int8); it
+    leaves the cache bit for bit as the stack of every layer's KV, written
+    by ``update_unique_prefill``, did, with the same hidden states."""
     cfg = dataclasses.replace(TINY, dtype="bfloat16")
     params = init_params(cfg, torch.Generator().manual_seed(0), quantized="w8a8")
     b, t, start = 3, 6, 0 if kv == "int4" else 4
@@ -177,13 +193,13 @@ def test_unique_start_writes_what_the_stacked_write_wrote(kv):
                                      quantized=kv != "bf16", unique_bshd=kv == "int8_bshd",
                                      unique_bits=4 if kv == "int4" else 8)
 
-    old = fresh()
-    bits = {"int4": 4, "bf16": None}.get(kv, 8)
-    h_old, nk, nv = model_forward(params, cfg, old, ids, pos, pos, spec, quantize_new_kv=bits)
-    tcache.update_unique_prefill(old, nk, nv, start=start)
+    old, kept = fresh(), _Kept()
+    h_old = model_forward(params, cfg, old, ids, pos, pos, spec, write=kept)
+    tcache.update_unique_prefill(old, torch.stack(kept.k), torch.stack(kept.v), start=start)
     new = fresh()
-    h_new, out = model_forward(params, cfg, new, ids, pos, pos, spec, unique_start=start)
-    assert out is new and torch.equal(h_new, h_old) and _caches_equal(new, old)
+    h_new = model_forward(params, cfg, new, ids, pos, pos, spec,
+                          write=tcache.KVWrite.block(new, b, t, start))
+    assert torch.equal(h_new, h_old) and _caches_equal(new, old)
 
 
 # --- where a generate call takes K9 ---------------------------------------------
